@@ -7,12 +7,12 @@ Phases, each fenced by ``torch.cuda.synchronize()``; any failure exits
 non-zero:
 
 1. card: name and power limit (``nvidia-smi``);
-2. build: every hand-written kernel of the main path, one ``nvcc`` per
-   source, all started together, from the sources in the checkout, with
-   ptxas' register and spill report of each;
+2. build: the hand-written kernel of the main path, with ``nvcc`` from
+   the source in the checkout, with ptxas' register and spill report;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes the main path gives it (flash attention B1: q/k/v
    [1, S, 24, 128] bf16 at S = 13824 and 12800, plus a ragged S = 1000),
+   held to max|dout| <= min(2e-2, 2 % of max|ref|) and max|dlse| <= 1e-3,
    with its time, the plain version's, one PyTorch library call's
    (``scaled_dot_product_attention``, a yardstick only) and the bound;
 4. main path: ``CustomRGBTextureFullPipeline(random_weights=True)`` at
@@ -42,7 +42,11 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 PEAK_BF16_FLOPS = 989e12       # H100 SXM dense bf16 tensor-core peak
 PEAK_BYTES = 3.35e12           # H100 SXM HBM3 bandwidth
 ATTN_SHAPES = (13824, 12800, 1000)
-OUT_TOL, LSE_TOL = 2e-2, 1e-3
+# B1 against its f32 plain version on unit-normal bf16 inputs.  The output
+# is held to 2 % of the largest reference value and never more than 2e-2:
+# the bf16 rounding of out and of P alone stays below 2**-8 of it, while a
+# P·V fault such as a missed rescale moves out by tens of per cent.
+OUT_TOL, OUT_REL, LSE_TOL = 2e-2, 2e-2, 1e-3
 STEPS = 4
 
 
@@ -80,17 +84,19 @@ def check_flash_attention(attn, torch) -> dict:
                    .to(torch.bfloat16) for _ in range(3))
         out, lse = attn.flash_attention(q, k, v)
         torch.cuda.synchronize()
-        err_o = err_l = 0.0
+        err_o = err_l = ref_max = 0.0
         for h in range(H):  # per head: the f32 logits of all heads are 18 GB
             sl = slice(h, h + 1)
             ro, rl = attn.attention_reference(
                 q[:, :, sl].float(), k[:, :, sl].float(), v[:, :, sl].float())
             err_o = max(err_o, (out[:, :, sl].float() - ro).abs().max().item())
             err_l = max(err_l, (lse[h] - rl[0]).abs().max().item())
+            ref_max = max(ref_max, ro.abs().max().item())
         torch.cuda.synchronize()
-        if not (err_o <= OUT_TOL and err_l <= LSE_TOL):
+        out_tol = min(OUT_TOL, OUT_REL * ref_max)
+        if not (err_o <= out_tol and err_l <= LSE_TOL):
             raise AssertionError(
-                f"flash_attention S={S}: max|dout|={err_o} (tol {OUT_TOL}), "
+                f"flash_attention S={S}: max|dout|={err_o} (tol {out_tol}), "
                 f"max|dlse|={err_l} (tol {LSE_TOL})")
         worst = max(worst, err_o)
         iters = 20 if S > 5000 else 50
@@ -111,6 +117,7 @@ def check_flash_attention(attn, torch) -> dict:
         print(f"[kernels] flash_attn_fwd S={S}: ms={ms:.4f} plain_ms="
               f"{plain_ms:.3f} library_ms={lib_ms:.4f} bound_ms={bound_ms:.4f} "
               f"({flops / ms / 1e9:.1f} TFLOP/s) max|dout|={err_o:.3e} "
+              f"(tol {out_tol:.3e}, max|ref|={ref_max:.3e}) "
               f"max|dlse|={err_l:.3e}", flush=True)
         if S == ATTN_SHAPES[0]:
             record = {
@@ -229,14 +236,13 @@ def main() -> int:
     from unitex_torch.utils import cuda_build
 
     t0 = time.perf_counter()
-    built = cuda_build.build([attn.KERNEL])
+    nvcc_s = cuda_build.build(attn.KERNEL)
     print(f"[build] {time.perf_counter() - t0:.2f}s "
-          + " ".join(f"{k}={v:.2f}s" for k, v in built.items()), flush=True)
-    for name in built:
-        with open(cuda_build.library_path(name) + ".log") as f:
-            usage = [ln.split(":", 1)[-1].strip() for ln in f
-                     if "registers" in ln or "spill" in ln]
-        print(f"[build] {name} ptxas: {'; '.join(usage)}", flush=True)
+          f"{attn.KERNEL}={nvcc_s:.2f}s", flush=True)
+    with open(cuda_build.library_path(attn.KERNEL) + ".log") as f:
+        usage = [ln.split(":", 1)[-1].strip() for ln in f
+                 if "registers" in ln or "spill" in ln]
+    print(f"[build] {attn.KERNEL} ptxas: {'; '.join(usage)}", flush=True)
 
     record = check_flash_attention(attn, torch)
     torch.cuda.synchronize()

@@ -5,6 +5,7 @@ interpret mode, at S = 512 and at a ragged S = 200, plus the wrapper's
 checks.  The CUDA kernel itself runs only on the card
 (tests/test_torch_kernels.py, marked ``cuda``)."""
 
+import dataclasses
 import math
 
 import jax
@@ -15,6 +16,8 @@ import torch
 from jax.experimental.pallas import tpu as pltpu
 
 from unitex_tpu.ops import attention as jattn
+from unitex_torch.models.flux.config import FluxConfig as TFluxConfig
+from unitex_torch.models.flux.model import flux_forward
 from unitex_torch.ops import attention as tattn
 
 OUT_ATOL = 2e-5   # f32 softmax(QK^T)V of unit-normal inputs, reduction order
@@ -93,7 +96,12 @@ def test_kernel_argument_checks(case):
 
 
 def test_qk8_is_not_ported():
+    """The int8-QK kernel B3 is not ported: the one refusal is in
+    ``flux_forward``, and the attention entry points take no qk8 option."""
+    cfg = dataclasses.replace(TFluxConfig.tiny(), attn_qk8=True)
+    with pytest.raises(NotImplementedError, match="int8-QK"):
+        flux_forward({}, cfg, *[None] * 6)
     x = torch.zeros((1, 8, 1, 128))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError):
         tattn.attention(x, x, x, qk8=True)
 

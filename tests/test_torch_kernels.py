@@ -13,7 +13,11 @@ import torch
 
 from unitex_torch.ops import attention as attn
 
-OUT_TOL = 2e-2   # bf16 output of a bf16 P·V against the f32 reference
+# bf16 output of a bf16 P·V against the f32 reference: 2 % of the largest
+# reference value and never more than 2e-2.  Rounding out and P to bf16
+# costs less than 2**-8 of it; a P·V fault such as a missed rescale moves
+# out by tens of per cent.
+OUT_TOL, OUT_REL = 2e-2, 2e-2
 LSE_TOL = 1e-3   # f32 logsumexp of bf16 q·k products
 
 
@@ -38,7 +42,8 @@ def _check_against_plain(q, k, v):
     ref, ref_lse = attn.attention_reference(q.float(), k.float(), v.float())
     assert out.dtype == torch.bfloat16 and lse.dtype == torch.float32
     assert lse.shape == (q.shape[0] * q.shape[2], q.shape[1])
-    assert (out.float() - ref).abs().max().item() <= OUT_TOL
+    out_tol = min(OUT_TOL, OUT_REL * ref.abs().max().item())
+    assert (out.float() - ref).abs().max().item() <= out_tol
     assert (lse - ref_lse).abs().max().item() <= LSE_TOL
 
 

@@ -92,9 +92,9 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     return out.reshape(xf.shape).to(x.dtype)
 
 
-def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, qk8: bool = False):
+def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     """Attention over [B, S, H, D]: the flash-attention kernel B1 on a CUDA
     tensor, its plain version on a CPU tensor (ops/attention.py)."""
     from ...ops.attention import attention
 
-    return attention(q, k, v, qk8=qk8)
+    return attention(q, k, v)

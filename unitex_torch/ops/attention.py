@@ -8,8 +8,9 @@ through their strides (no transpose copy), any S, D = 128, and returns
 :func:`attention_reference`, the plain PyTorch version of the same
 function; a CUDA tensor launches the kernel or raises.
 
-Only the forward is ported: the backward kernels (B2a/B2b) and the
-int8-QK variant (B3) raise ``NotImplementedError``.
+Only the forward is ported: the backward kernels (B2a/B2b) are not, and
+``flux_forward`` refuses ``attn_qk8`` (the int8-QK variant B3) with
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -110,10 +111,7 @@ def flash_attention(
     return out, lse
 
 
-def attention(q, k, v, qk8: bool = False):
+def attention(q, k, v):
     """q/k/v [B, S, H, D] -> [B, S, H, D]: kernel B1 on a CUDA tensor, the
-    plain version on a CPU tensor.  ``qk8`` (the int8-QK kernel B3) is
-    not ported."""
-    if qk8:
-        raise NotImplementedError("int8-QK attention (kernel B3) is not ported")
+    plain version on a CPU tensor."""
     return flash_attention(q, k, v)[0]

@@ -16,7 +16,7 @@ import shutil
 import subprocess
 import threading
 import time
-from typing import Dict, Iterable
+from typing import Dict
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -53,46 +53,30 @@ def library_path(name: str) -> str:
     h = hashlib.sha256()
     with open(_source(name), "rb") as f:
         h.update(f.read())
-    for extra in sorted(os.listdir(CSRC)):
-        if extra.endswith(".cuh"):
-            with open(os.path.join(CSRC, extra), "rb") as f:
-                h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
 
 
-def build(names: Iterable[str]) -> Dict[str, float]:
-    """Compile every kernel in ``names`` that is not built yet, one
-    ``nvcc`` process per source, all started together.  Returns the wall
-    seconds of the build (0.0 for a library that was already there).
+def build(name: str) -> float:
+    """Compile kernel ``name`` unless it is built already.  Returns the
+    wall seconds of the build (0.0 for a library that was already there).
     The compiler's ``-Xptxas -v`` report goes to ``<library>.log``.
     Raises ``RuntimeError`` with the compiler's output on a failure."""
-    names = list(names)
+    so = library_path(name)
+    if os.path.exists(so):
+        return 0.0
     os.makedirs(BUILD_DIR, exist_ok=True)
-    procs = {}
+    tmp = f"{so}.{os.getpid()}.tmp"
     t0 = time.perf_counter()
-    for name in names:
-        so = library_path(name)
-        if os.path.exists(so):
-            continue
-        tmp = f"{so}.{os.getpid()}.tmp"
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, _source(name)]
-        procs[name] = (subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True), so, tmp)
-    seconds = {name: 0.0 for name in names}
-    errors = []
-    for name, (proc, so, tmp) in procs.items():
-        out, _ = proc.communicate()
-        seconds[name] = time.perf_counter() - t0
-        with open(f"{so}.log", "w") as f:
-            f.write(out)
-        if proc.returncode != 0:
-            errors.append(f"nvcc failed for {name}.cu:\n{out}")
-            continue
-        os.replace(tmp, so)
-    if errors:
-        raise RuntimeError("\n".join(errors))
+    proc = subprocess.run(
+        [nvcc_path(), *NVCC_FLAGS, "-o", tmp, _source(name)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    seconds = time.perf_counter() - t0
+    with open(f"{so}.log", "w") as f:
+        f.write(proc.stdout)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stdout}")
+    os.replace(tmp, so)
     return seconds
 
 
@@ -101,7 +85,7 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            build([name])
+            build(name)
             lib = ctypes.CDLL(library_path(name))
             _libs[name] = lib
         return lib

@@ -1,47 +1,13 @@
 """Stage timer (the reference's CPUTimer,
 reference texturetools/utils/timer.py:14-31): context
 manager / decorator printing perf_counter deltas, with an optional device
-sync (``torch.cuda.synchronize``) so queued device work is included.
-
-Also ``timeout`` — the host-stage hard cap the reference puts on geometry
-sampling (@timeout(60), geometry/sampling/__init__.py:18): SIGALRM-based,
-main-thread-only, raising TimeoutError."""
+sync (``torch.cuda.synchronize``) so queued device work is included."""
 
 from __future__ import annotations
 
 import functools
-import signal
-import threading
 import time
-from typing import Dict, Optional
-
-
-def timeout(seconds: float):
-    """Decorator: raise TimeoutError if the host-side call exceeds
-    ``seconds``.  No-ops off the main thread (SIGALRM restriction)."""
-
-    def deco(fn):
-        @functools.wraps(fn)
-        def wrapper(*args, **kwargs):
-            if threading.current_thread() is not threading.main_thread():
-                return fn(*args, **kwargs)
-
-            def handler(signum, frame):
-                raise TimeoutError(
-                    f"{fn.__name__} exceeded {seconds}s host time cap"
-                )
-
-            old = signal.signal(signal.SIGALRM, handler)
-            signal.setitimer(signal.ITIMER_REAL, seconds)
-            try:
-                return fn(*args, **kwargs)
-            finally:
-                signal.setitimer(signal.ITIMER_REAL, 0.0)
-                signal.signal(signal.SIGALRM, old)
-
-        return wrapper
-
-    return deco
+from typing import Dict
 
 
 class CPUTimer:
