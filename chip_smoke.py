@@ -7,20 +7,29 @@ Phases, each fenced by ``torch.cuda.synchronize()``; any failure exits
 non-zero:
 
 1. card: name and power limit (``nvidia-smi``);
-2. build: the hand-written kernel of the main path, with ``nvcc`` from
-   the source in the checkout, with ptxas' register and spill report;
+2. build: the hand-written kernels of both paths, one ``nvcc`` per source
+   from the checkout, all started together, with ptxas' register and
+   spill report of each kernel;
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the shapes the main path gives it (flash attention B1: q/k/v
-   [1, S, 24, 128] bf16 at S = 13824 and 12800, plus a ragged S = 1000),
-   held to max|dout| <= min(2e-2, 2 % of max|ref|) and max|dlse| <= 1e-3,
-   with its time, the plain version's, one PyTorch library call's
-   (``scaled_dot_product_attention``, a yardstick only) and the bound;
-4. main path: ``CustomRGBTextureFullPipeline(random_weights=True)`` at
+   the shapes the paths give it (q/k/v/dO [1, S, 24, 128] bf16 at
+   S = 13824 and 12800, plus a ragged S = 1000), with its time, the plain
+   version's, one PyTorch library call's (a yardstick only) and the
+   bound: flash attention B1 held to max|dout| <= min(2e-2, 2 % of
+   max|ref|) and max|dlse| <= 1e-3; its backward B2a (dK, dV) and B2b (dQ)
+   to max|d| <= 2 % of max|ref| for each gradient;
+4. serving path: ``CustomRGBTextureFullPipeline(random_weights=True)`` at
    full FLUX.1-dev width and depth with the FLUX VAE answers two jobs
    (a 20,480-face icosphere and a torus, synthetic reference images) on
    ``DEFAULT_CONFIG`` with ``num_inference_steps=4`` instead of 28 to fit
    the time limit; each job must write its GLB, bake a finite 2048²
-   texture and launch B1 exactly 57 x 4 x 2 = 456 times.
+   texture and launch B1 exactly 57 x 4 x 2 = 456 times;
+5. training path: three FLUX.1-dev LoRA ``train_step``s (rank 16, remat,
+   constant lr 1e-4) on the serving pipeline's resident base tree, each on
+   one ``SyntheticTextureDataset(view_size=512)`` batch built by the
+   launcher's ``build_batch`` (S = 512 + 6144 + 6144 = 12800 tokens); each
+   step must give a finite loss and launch B1 114 times (57 forward + 57
+   recomputed) and B2a and B2b 57 times each, the first must move the
+   LoRA ``b`` leaves off 0, and the peak must stay under 80 GB.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or run outside
@@ -47,7 +56,32 @@ ATTN_SHAPES = (13824, 12800, 1000)
 # the bf16 rounding of out and of P alone stays below 2**-8 of it, while a
 # P·V fault such as a missed rescale moves out by tens of per cent.
 OUT_TOL, OUT_REL, LSE_TOL = 2e-2, 2e-2, 1e-3
+# B2a/B2b against their f32 plain version on the same bf16 inputs: each of
+# dq, dk, dv within 2 % of its largest reference value.  Rounding P and dS
+# to bf16 costs about 2**-9 of an element; a dropped scale (x11.3) or a
+# missing - Drow moves the gradients far past 2 %.
+GRAD_REL = 2e-2
 STEPS = 4
+TRAIN_STEPS = 3
+TRAIN_S = 12800          # 512 text + 6144 noise + 6144 control tokens
+PEAK_LIMIT = 80e9        # bytes: one H100
+
+
+def ptxas_usage(log_path: str):
+    """(kernel, "N registers, S bytes spill stores, L bytes spill loads")
+    for each kernel that ptxas reports in ``log_path``."""
+    out, fn, spill = [], None, ""
+    with open(log_path) as f:
+        for ln in f:
+            if "Compiling entry function" in ln:
+                fn = next((n for n in ("flash_fwd_kernel", "flash_bwd_dkv_kernel",
+                                       "flash_bwd_dq_kernel") if n in ln), ln)
+            elif "spill stores" in ln:
+                spill = ln.split(":", 1)[-1].strip() if ":" in ln else ln.strip()
+            elif "registers" in ln and fn is not None:
+                out.append((fn, f"{ln.split(':', 1)[-1].strip()}; {spill}"))
+                fn = None
+    return out
 
 
 def fail(msg: str) -> int:
@@ -134,6 +168,98 @@ def check_flash_attention(attn, torch) -> dict:
     return record
 
 
+def check_flash_backward(attn, torch) -> list:
+    """B2a and B2b against the plain backward (f32 on the same bf16 inputs,
+    one head at a time), on out and lse from B1."""
+    import torch.nn.functional as F
+
+    assert not torch.backends.cuda.matmul.allow_tf32  # the f32 reference
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    B, H, D = 1, 24, 128
+    records = {}
+    worst = {"dkv": 0.0, "dq": 0.0}
+    for S in ATTN_SHAPES:
+        q, k, v, g = (torch.randn((B, S, H, D), generator=gen, device="cuda")
+                      .to(torch.bfloat16) for _ in range(4))
+        out, lse = attn.flash_attention(q, k, v)
+        drow = attn._row_dot(g, out)
+        dk, dv = attn.flash_attention_bwd_dkv(q, k, v, g, lse, drow)
+        dq = attn.flash_attention_bwd_dq(q, k, v, g, lse, drow)
+        torch.cuda.synchronize()
+        got = {"dq": dq, "dk": dk, "dv": dv}
+        err = dict.fromkeys(got, 0.0)
+        ref_max = dict.fromkeys(got, 0.0)
+
+        def plain_head(h):
+            sl = slice(h, h + 1)
+            return dict(zip(("dq", "dk", "dv"), attn.attention_backward_reference(
+                q[:, :, sl].float(), k[:, :, sl].float(), v[:, :, sl].float(),
+                out[:, :, sl].float(), lse[h:h + 1], g[:, :, sl].float())))
+
+        for h in range(H):  # per head: the f32 S×S temporaries of all heads
+            ref = plain_head(h)
+            for name, x in got.items():
+                err[name] = max(err[name], (x[:, :, h:h + 1].float() - ref[name])
+                                .abs().max().item())
+                ref_max[name] = max(ref_max[name], ref[name].abs().max().item())
+        torch.cuda.synchronize()
+        bad = [n for n in got if not err[n] <= GRAD_REL * ref_max[n]]
+        if bad:
+            raise AssertionError(
+                f"flash backward S={S}: " + ", ".join(
+                    f"max|d{n}|={err[n]:.3e} (tol {GRAD_REL * ref_max[n]:.3e})"
+                    for n in got))
+        worst["dkv"] = max(worst["dkv"], err["dk"], err["dv"])
+        worst["dq"] = max(worst["dq"], err["dq"])
+        iters = 10 if S > 5000 else 50
+        ms_dkv = cuda_ms(lambda: attn.flash_attention_bwd_dkv(q, k, v, g, lse, drow),
+                         iters)
+        ms_dq = cuda_ms(lambda: attn.flash_attention_bwd_dq(q, k, v, g, lse, drow),
+                        iters)
+        plain_ms = cuda_ms(lambda: [plain_head(h) for h in range(H)], 1)
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
+                      for x in (q, k, v))
+        gt = g.transpose(1, 2)
+
+        def sdpa_fwd_bwd():
+            F.scaled_dot_product_attention(qt, kt, vt).backward(gt)
+            qt.grad = kt.grad = vt.grad = None
+
+        with torch.no_grad():
+            fwd_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt),
+                             iters)
+        lib_ms = cuda_ms(sdpa_fwd_bwd, iters) - fwd_ms
+        bsd = B * S * H * D
+        in_bytes = 4 * bsd * 2 + 2 * B * H * S * 4   # q, k, v, dO; lse, Drow
+        for name, mult, n_out, ms in (("flash_attn_bwd_dkv", 8, 2, ms_dkv),
+                                      ("flash_attn_bwd_dq", 6, 1, ms_dq)):
+            flops = mult * B * H * S * S * D
+            nbytes = in_bytes + n_out * bsd * 2
+            bound_ms = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3
+            print(f"[kernels] {name} S={S}: ms={ms:.4f} bound_ms={bound_ms:.4f} "
+                  f"({flops / ms / 1e9:.1f} TFLOP/s)", flush=True)
+            if S == TRAIN_S:
+                records[name] = {
+                    "name": name, "route": "cuda",
+                    "source": "unitex_torch/csrc/flash_attn_bwd.cu",
+                    "replaces": "unitex_tpu/ops/attention.py:" + (
+                        "235" if name.endswith("dkv") else "278"),
+                    "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "bound_by": "operations" if flops / PEAK_BF16_FLOPS
+                    >= nbytes / PEAK_BYTES else "bytes",
+                    "library_ms": lib_ms,
+                }
+        print(f"[kernels] flash backward S={S}: B2a+B2b={ms_dkv + ms_dq:.4f} ms "
+              f"plain_ms={plain_ms:.3f} library_ms (sdpa backward)={lib_ms:.4f} "
+              + " ".join(f"max|d{n}|={err[n]:.3e} (tol "
+                         f"{GRAD_REL * ref_max[n]:.3e})" for n in got), flush=True)
+        del q, k, v, g, out, lse, drow, dq, dk, dv, got, qt, kt, vt, gt
+        torch.cuda.empty_cache()
+    records["flash_attn_bwd_dkv"]["max_abs_err"] = worst["dkv"]
+    records["flash_attn_bwd_dq"]["max_abs_err"] = worst["dq"]
+    return [records["flash_attn_bwd_dkv"], records["flash_attn_bwd_dq"]]
+
+
 def make_assets(d: str):
     """Two jobs: (mesh path, reference image path)."""
     import numpy as np
@@ -156,7 +282,8 @@ def make_assets(d: str):
     return jobs
 
 
-def run_main_path(attn, torch) -> int:
+def run_main_path(attn, torch):
+    """The serving path; returns (B1 launches, the pipeline)."""
     from unitex_torch.config import DEFAULT_CONFIG
     from unitex_torch.pipeline import CustomRGBTextureFullPipeline
     from unitex_torch.utils.timer import CPUTimer
@@ -209,7 +336,82 @@ def run_main_path(attn, torch) -> int:
             if n != per_job:
                 raise AssertionError(
                     f"job {name}: {n} flash_attn_fwd launches, expected {per_job}")
-    return total
+    return total, pipe
+
+
+def _counts(attn) -> tuple:
+    return attn.launches, attn.launches_bwd_dkv, attn.launches_bwd_dq
+
+
+def run_training(attn, torch, pipe) -> None:
+    """Three full-width LoRA train steps on the pipeline's base tree."""
+    from unitex_torch.scripts.train_flux_lora import build_batch
+    from unitex_torch.training.data import SyntheticTextureDataset
+    from unitex_torch.training.flux_lora import (
+        FluxLoraTrainConfig,
+        create_train_state,
+        train_step,
+    )
+
+    cfg = dataclasses.replace(pipe.flux_cfg, remat=True)
+    tcfg = FluxLoraTrainConfig(rank=16, learning_rate=1e-4,
+                               lr_scheduler="constant")
+    n_blocks = cfg.num_layers + cfg.num_single_layers
+    want = (2 * n_blocks, n_blocks, n_blocks)
+    t0 = time.perf_counter()
+    state, tx = create_train_state(torch.Generator(device="cuda").manual_seed(5),
+                                   pipe.transformer_params, tcfg, device="cuda")
+    data = iter(SyntheticTextureDataset(view_size=512, seed=0, device="cuda"))
+    seq_e = torch.zeros((512, cfg.joint_attention_dim), device="cuda")
+    pooled_e = torch.zeros((cfg.pooled_projection_dim,), device="cuda")
+    torch.cuda.synchronize()
+    print(f"[train] FluxConfig.flux1_dev() remat=True, LoRA rank 16 "
+          f"({sum(x.numel() for _, x in _named_leaves(state.lora)) / 1e6:.1f} M f32 "
+          f"parameters), constant lr 1e-4; set-up {time.perf_counter() - t0:.2f}s",
+          flush=True)
+    for step in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        batch = build_batch([next(data)], pipe.vae_params, pipe.vae_cfg, seq_e,
+                            pooled_e)
+        S = seq_e.shape[0] + batch["latents"].shape[1] * batch["latents"].shape[2] \
+            // 4 + batch["cond_tokens"].shape[1]
+        torch.cuda.synchronize()
+        t_data = time.perf_counter() - t0
+        if S != TRAIN_S:
+            raise AssertionError(f"training sequence {S} tokens, expected {TRAIN_S}")
+        torch.cuda.reset_peak_memory_stats()
+        before = _counts(attn)
+        t0 = time.perf_counter()
+        state, loss = train_step(state, pipe.transformer_params, batch,
+                                 torch.Generator(device="cuda").manual_seed(1000 + step),
+                                 cfg, tcfg, tx)
+        loss = float(loss)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = tuple(a - b for a, b in zip(_counts(attn), before))
+        peak = torch.cuda.max_memory_allocated()
+        b_max = max(float(leaf.detach().abs().max()) for path, leaf in
+                    _named_leaves(state.lora) if path.endswith("/b"))
+        print(f"[train] step {step}: loss {loss:.6f} step {wall:.3f}s "
+              f"(batch {t_data:.3f}s) peak {peak / 2**30:.2f} GiB launches "
+              f"B1/B2a/B2b {n[0]}/{n[1]}/{n[2]} max|lora b| {b_max:.3e}",
+              flush=True)
+        if not math.isfinite(loss):
+            raise AssertionError(f"train step {step}: loss {loss}")
+        if n != want:
+            raise AssertionError(f"train step {step}: launches {n}, expected {want}")
+        if peak >= PEAK_LIMIT:
+            raise AssertionError(f"train step {step}: peak {peak} bytes")
+        if b_max == 0.0:
+            raise AssertionError(f"train step {step}: the LoRA b leaves are still 0")
+
+
+def _named_leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _named_leaves(v, f"{prefix}/{k}")
+    else:
+        yield prefix, tree
 
 
 def main() -> int:
@@ -236,29 +438,47 @@ def main() -> int:
     from unitex_torch.utils import cuda_build
 
     t0 = time.perf_counter()
-    nvcc_s = cuda_build.build(attn.KERNEL)
-    print(f"[build] {time.perf_counter() - t0:.2f}s "
-          f"{attn.KERNEL}={nvcc_s:.2f}s", flush=True)
-    with open(cuda_build.library_path(attn.KERNEL) + ".log") as f:
-        usage = [ln.split(":", 1)[-1].strip() for ln in f
-                 if "registers" in ln or "spill" in ln]
-    print(f"[build] {attn.KERNEL} ptxas: {'; '.join(usage)}", flush=True)
+    nvcc_s = cuda_build.build(attn.KERNEL, attn.KERNEL_BWD)
+    print(f"[build] {time.perf_counter() - t0:.2f}s " + " ".join(
+        f"{k}={v:.2f}s" for k, v in nvcc_s.items()), flush=True)
+    for source in nvcc_s:
+        for fn, usage in ptxas_usage(cuda_build.library_path(source) + ".log"):
+            print(f"[build] {source} {fn} ptxas: {usage}", flush=True)
 
-    record = check_flash_attention(attn, torch)
+    records = [check_flash_attention(attn, torch)]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    records += check_flash_backward(attn, torch)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
-    attn.launches = 0
-    launches = run_main_path(attn, torch)
+    attn.launches = attn.launches_bwd_dkv = attn.launches_bwd_dq = 0
+    launches, pipe = run_main_path(attn, torch)
     torch.cuda.synchronize()
-    record["launches"] = attn.launches
-    if launches != attn.launches or launches == 0:
-        return fail(f"flash_attn_fwd launches {attn.launches} on the main path")
-    if not all(isinstance(record[k], (int, float)) and math.isfinite(record[k])
-               for k in ("ms", "plain_ms", "bound_ms", "max_abs_err")):
-        return fail(f"bad kernel record {record}")
+    serve = _counts(attn)
+    if launches != serve[0] or launches == 0 or serve[1:] != (0, 0):
+        return fail(f"launches B1/B2a/B2b {serve} on the serving path")
+    torch.cuda.empty_cache()
+
+    attn.launches = attn.launches_bwd_dkv = attn.launches_bwd_dq = 0
+    run_training(attn, torch, pipe)
+    torch.cuda.synchronize()
+    train = _counts(attn)
+    if 0 in train:
+        return fail(f"launches B1/B2a/B2b {train} on the training path")
+    print(f"[train] launches B1/B2a/B2b {train[0]}/{train[1]}/{train[2]} in "
+          f"{TRAIN_STEPS} steps", flush=True)
+
+    for rec, n_serve, n_train in zip(records, serve, train):
+        rec["launches"] = n_serve + n_train
+        rec["launches_by_path"] = {"serve": n_serve, "train": n_train}
+    keys = ("ms", "plain_ms", "bound_ms", "max_abs_err", "library_ms")
+    bad = [r for r in records if not all(
+        isinstance(r[k], (int, float)) and math.isfinite(r[k]) for k in keys)]
+    if bad:
+        return fail(f"bad kernel records {bad}")
     print(f"[done] {time.perf_counter() - t_start:.1f}s", flush=True)
-    print(json.dumps({"kernels": [record]}))
+    print(json.dumps({"kernels": records}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

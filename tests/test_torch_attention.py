@@ -1,8 +1,10 @@
 """Attention in the port (unitex_torch/ops/attention.py) against the JAX
 package's: the plain ``attention_reference`` (out and lse) against JAX
 ``attention_reference`` and against the Pallas ``_flash_forward`` run in
-interpret mode, at S = 512 and at a ragged S = 200, plus the wrapper's
-checks.  The CUDA kernel itself runs only on the card
+interpret mode, at S = 512 and at a ragged S = 200; the plain backward
+against JAX's chunked ``_flash_core_bwd_xla`` on the same residuals; the
+CPU autograd of ``attention`` against ``jax.vjp``; plus the wrappers'
+checks.  The CUDA kernels themselves run only on the card
 (tests/test_torch_kernels.py, marked ``cuda``)."""
 
 import dataclasses
@@ -22,6 +24,8 @@ from unitex_torch.ops import attention as tattn
 
 OUT_ATOL = 2e-5   # f32 softmax(QK^T)V of unit-normal inputs, reduction order
 LSE_ATOL = 1e-5   # f32 logsumexp, reduction order
+GRAD_ATOL = 2e-4  # f32 flash backward, as tests/test_attention.py holds it
+VJP_REL = 1e-5    # f32 autograd against jax.vjp: max|Δ| / max|g|
 
 
 def _inputs(B, S, H, D, seed):
@@ -59,6 +63,61 @@ def test_reference_matches_interpret_flash(S, block):
     np.testing.assert_allclose(lse.numpy(), np.asarray(jl), atol=LSE_ATOL)
 
 
+@pytest.mark.parametrize("S,bk", [(512, 256), (384, 128)])
+def test_backward_reference_matches_xla_backward(S, bk):
+    """The plain backward against the JAX package's chunked recompute on
+    the same residuals (q, k, v, out, lse) and cotangent, f32, D = 128."""
+    B, H, D = 1, 2, 128
+    q, k, v = _inputs(B, S, H, D, 11 + S)
+    g = np.random.default_rng(S).normal(size=(B, S, H, D)).astype(np.float32)
+    tq, tk, tv, tg = map(torch.from_numpy, (q, k, v, g))
+    out, lse = tattn.attention_reference(tq, tk, tv)
+    got = tattn.attention_backward_reference(tq, tk, tv, out, lse, tg)
+
+    def bhsd(x):
+        return jnp.moveaxis(jnp.asarray(x), 2, 1).reshape(B * H, S, D)
+
+    residuals = (bhsd(q), bhsd(k), bhsd(v), bhsd(out.numpy()),
+                 jnp.asarray(lse.numpy()))
+    want = jattn._flash_core_bwd_xla(1.0 / math.sqrt(D), bk, bk, residuals,
+                                     bhsd(g))
+    for x, w in zip(got, want):
+        w = np.moveaxis(np.asarray(w).reshape(B, H, S, D), 1, 2)
+        np.testing.assert_allclose(x.numpy(), w, atol=GRAD_ATOL)
+
+
+@pytest.mark.parametrize("fault", ["dropped_scale", "missing_drow"])
+def test_backward_limit_catches_faults(fault):
+    """The card's limit for B2a/B2b (each gradient within 2 % of max|ref|,
+    chip_smoke.py and tests/test_torch_kernels.py) is far from a faulty
+    backward, on unit-normal bf16 inputs at a ragged S = 1000: a dropped ·s
+    (x11.3 on dq and dk) or a missing − Drow (caught through dq: dk moves
+    less, by ~2 % at S >= 4096)."""
+    B, S, H, D = 1, 1000, 2, 128
+    q, k, v, g = (torch.from_numpy(x).bfloat16().float()
+                  for x in _inputs(B, S, H, D, 15) + _inputs(B, S, H, D, 16)[:1])
+    out, lse = tattn.attention_reference(q, k, v)
+    ref = tattn.attention_backward_reference(q, k, v, out, lse, g)
+    if fault == "dropped_scale":
+        bad = (ref[0] * math.sqrt(D), ref[1] * math.sqrt(D), ref[2])
+    else:
+        bad = tattn._backward_plain(q, k, v, g, lse, torch.zeros((B * H, S)))
+    rel = [float((b - r).abs().max() / r.abs().max()) for b, r in zip(bad, ref)]
+    print(f"{fault}: max|d| / max|ref| of dq, dk, dv = {rel}")
+    assert max(rel) > 5 * 2e-2
+
+
+def test_cpu_autograd_matches_jax_vjp():
+    q, k, v = _inputs(1, 96, 2, 64, 13)
+    g = np.random.default_rng(14).normal(size=q.shape).astype(np.float32)
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_(True) for x in (q, k, v))
+    tattn.attention(tq, tk, tv).backward(torch.from_numpy(g))
+    _, vjp = jax.vjp(jattn.attention_reference, *map(jnp.asarray, (q, k, v)))
+    for t, w in zip((tq, tk, tv), vjp(jnp.asarray(g))):
+        w = np.asarray(w)
+        assert np.abs(t.grad.numpy() - w).max() <= VJP_REL * np.abs(w).max()
+
+
 def test_bf16_reference_rounds_like_jax():
     """bf16 inputs: logits cast to f32 after the product, probabilities
     back to bf16 before P·V, as the JAX reference does (bf16 tolerance)."""
@@ -73,13 +132,22 @@ def test_bf16_reference_rounds_like_jax():
 
 def test_cpu_tensor_takes_plain_version():
     q, k, v = map(torch.from_numpy, _inputs(1, 96, 3, 64, 5))
-    before = tattn.launches
+    before = (tattn.launches, tattn.launches_bwd_dkv, tattn.launches_bwd_dq)
     out, lse = tattn.flash_attention(q, k, v)
     ref, ref_lse = tattn.attention_reference(q, k, v)
-    assert tattn.launches == before
     torch.testing.assert_close(out, ref, rtol=0, atol=0)
     torch.testing.assert_close(lse, ref_lse, rtol=0, atol=0)
     torch.testing.assert_close(tattn.attention(q, k, v), ref, rtol=0, atol=0)
+    g = torch.ones_like(q)
+    grads = tattn.flash_attention_backward(q, k, v, out, lse, g)
+    refs = tattn.attention_backward_reference(q, k, v, out, lse, g)
+    drow = tattn._row_dot(g, out)
+    parts = (tattn.flash_attention_bwd_dq(q, k, v, g, lse, drow),
+             *tattn.flash_attention_bwd_dkv(q, k, v, g, lse, drow))
+    for x, y, z in zip(grads, refs, parts):
+        torch.testing.assert_close(x, y, rtol=0, atol=0)
+        torch.testing.assert_close(z, y, rtol=0, atol=0)
+    assert (tattn.launches, tattn.launches_bwd_dkv, tattn.launches_bwd_dq) == before
 
 
 @pytest.mark.parametrize("case", ["d64", "f32", "shape", "stride"])

@@ -1,6 +1,8 @@
 """FLUX in the port (unitex_torch/models/flux) against the JAX package on
-one parameter tree: the JAX init makes it, ``params_from_jax`` carries it
-into the port.  Tiny configs, f32, CPU."""
+one parameter tree: the port's seeded init makes it as numpy (the JAX
+init's own compile takes longer than the tests), ``params_from_jax``
+carries it into the port and ``jnp.asarray`` into JAX.  Tiny configs, f32,
+CPU."""
 
 import dataclasses
 
@@ -38,14 +40,20 @@ def _rel_err(a, b):
     return np.abs(a - b).max() / max(np.abs(b).max(), 1e-12)
 
 
+def _from_port(tree):
+    return jax.tree.map(lambda t: t.numpy(), tree)
+
+
 @pytest.fixture(scope="module")
 def flux_tree():
-    return _np(jmodel.init_flux_params(jax.random.key(0), JFluxConfig.tiny()))
+    return _from_port(tmodel.init_flux_params(
+        torch.Generator().manual_seed(0), TFluxConfig.tiny(), device="cpu"))
 
 
 @pytest.fixture(scope="module")
 def vae_tree():
-    return _np(jvae.init_vae_params(jax.random.key(1), jvae.VAEConfig.tiny()))
+    return _from_port(tvae.init_vae_params(
+        torch.Generator().manual_seed(1), tvae.VAEConfig.tiny(), device="cpu"))
 
 
 @pytest.mark.parametrize("which", ["flux_tiny", "flux_dev", "vae_tiny", "vae_flux"])
@@ -235,6 +243,9 @@ def test_deferred_branches_raise():
         tmodel.flux_forward({}, dataclasses.replace(TFluxConfig.tiny(),
                                                     attn_qk8=True),
                             *[None] * 6)
+    with pytest.raises(NotImplementedError, match="kv_keep_idx"):
+        tmodel.flux_forward({}, TFluxConfig.tiny(), *[None] * 6,
+                            kv_keep_idx=torch.arange(4))
     with pytest.raises(NotImplementedError):
         tpipe.run_flux_pipeline(None, TFluxConfig.tiny(), None,
                                 tvae.VAEConfig.tiny(), None,

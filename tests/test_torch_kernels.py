@@ -19,6 +19,13 @@ from unitex_torch.ops import attention as attn
 # out by tens of per cent.
 OUT_TOL, OUT_REL = 2e-2, 2e-2
 LSE_TOL = 1e-3   # f32 logsumexp of bf16 q·k products
+# B2a/B2b against the f32 plain backward on the same bf16 inputs: each of
+# dq, dk, dv within 2 % of its largest reference value.  Rounding P and dS
+# to bf16 costs about 2**-9 of an element; a dropped scale (x11.3) or a
+# missing - Drow moves the gradients far past 2 %.  GRAD_ABS is the floor
+# for a gradient that is 0 in exact arithmetic (at S = 1 the softmax of one
+# key has no gradient, so dq and dk are f32 rounding alone).
+GRAD_REL, GRAD_ABS = 2e-2, 1e-5
 
 
 @pytest.fixture
@@ -72,3 +79,67 @@ def test_cuda_tensor_never_falls_back(card):
         attn.flash_attention(q.float(), k.float(), v.float())
     with pytest.raises(ValueError):
         attn.flash_attention(q[..., :64], k[..., :64], v[..., :64])
+
+
+def _check_backward_against_plain(q, k, v, g):
+    out, lse = attn.flash_attention(q, k, v)
+    before = (attn.launches_bwd_dkv, attn.launches_bwd_dq)
+    grads = attn.flash_attention_backward(q, k, v, out, lse, g)
+    torch.cuda.synchronize()
+    assert (attn.launches_bwd_dkv, attn.launches_bwd_dq) == (before[0] + 1,
+                                                             before[1] + 1)
+    refs = attn.attention_backward_reference(
+        q.float(), k.float(), v.float(), out.float(), lse, g.float())
+    for name, got, ref in zip(("dq", "dk", "dv"), grads, refs):
+        assert got.dtype == torch.bfloat16 and got.shape == q.shape
+        err = (got.float() - ref).abs().max().item()
+        assert err <= max(GRAD_REL * ref.abs().max().item(), GRAD_ABS), (name, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 63, 130, 1000])
+def test_flash_backward_matches_plain(card, S):
+    """Whole and ragged tiles (both kernels own 128 rows and stream 64)."""
+    q, k, v = _qkv(S, 4, S, card)
+    g = _qkv(S, 4, S + 1, card)[0]
+    _check_backward_against_plain(q, k, v, g)
+
+
+@pytest.mark.cuda
+def test_flash_backward_reads_strided_heads(card):
+    """q/k/v and dO as views into fused [B, S, n, H, D] tensors."""
+    qkv = torch.randn((2, 300, 3, 4, 128), device=card).bfloat16()
+    q, k, v = qkv.unbind(2)
+    g = torch.randn((2, 300, 2, 4, 128), device=card).bfloat16()[:, :, 1]
+    assert not q.is_contiguous() and not g.is_contiguous()
+    _check_backward_against_plain(q, k, v, g)
+
+
+@pytest.mark.cuda
+def test_flash_backward_refuses_what_it_does_not_take(card):
+    q, k, v = _qkv(64, 2, 0, card)
+    out, lse = attn.flash_attention(q, k, v)
+    with pytest.raises(TypeError):
+        attn.flash_attention_backward(q, k, v, out, lse, out.float())
+    with pytest.raises(ValueError):
+        x = q[..., :64]
+        attn.flash_attention_backward(x, x, x, x, lse, x)
+
+
+@pytest.mark.cuda
+def test_flash_attention_function_gradients(card):
+    """``attention`` on the card is a ``torch.autograd.Function`` whose
+    backward launches B2a/B2b: its gradients against torch autograd through
+    the f32 plain version."""
+    q, k, v = (x.requires_grad_(True) for x in _qkv(256, 3, 7, card))
+    g = _qkv(256, 3, 8, card)[0]
+    before = (attn.launches, attn.launches_bwd_dkv, attn.launches_bwd_dq)
+    attn.attention(q, k, v).backward(g)
+    torch.cuda.synchronize()
+    assert (attn.launches, attn.launches_bwd_dkv, attn.launches_bwd_dq) == (
+        before[0] + 1, before[1] + 1, before[2] + 1)
+    qf, kf, vf = (x.detach().float().requires_grad_(True) for x in (q, k, v))
+    attn.attention_reference(qf, kf, vf)[0].backward(g.float())
+    for got, ref in ((q.grad, qf.grad), (k.grad, kf.grad), (v.grad, vf.grad)):
+        err = (got.float() - ref).abs().max().item()
+        assert err <= max(GRAD_REL * ref.abs().max().item(), GRAD_ABS)

@@ -1,8 +1,9 @@
 """The ported texturing path as a whole against the JAX pipeline.
 
 Both ``CustomRGBTextureFullPipeline``s run one job on the small config of
-tests/test_golden_parity.py with a tiny random FLUX + VAE (one numpy-made
-tree carried into the port by ``params_from_jax``) and
+tests/test_golden_parity.py with a tiny random FLUX + VAE (one numpy tree,
+made by the port's seeded init and carried into the port by
+``params_from_jax``) and
 ``torch_rng_parity=True``, so both draw identical noise.  Every image
 artifact of the two caches is scored by scripts/compare_golden.py;
 the worst PSNR must be at least 35 dB (the production floor the JAX
@@ -26,15 +27,15 @@ from unitex_tpu.config import DiffusionConfig
 from unitex_tpu.geometry.io.mesh_io import save_mesh
 from unitex_tpu.geometry.primitives import make_icosphere
 from unitex_tpu.models.flux.config import FluxConfig as JFluxConfig
-from unitex_tpu.models.flux.lora import init_lora_params as j_init_lora
-from unitex_tpu.models.flux.model import init_flux_params as j_init_flux
 from unitex_tpu.models.flux.vae import VAEConfig as JVAEConfig
-from unitex_tpu.models.flux.vae import init_vae_params as j_init_vae
 from unitex_tpu.pipeline import CustomRGBTextureFullPipeline as JPipeline
 
 from unitex_torch import config as tconfig
 from unitex_torch.models.flux.config import FluxConfig as TFluxConfig
+from unitex_torch.models.flux.lora import init_lora_params as t_init_lora
+from unitex_torch.models.flux.model import init_flux_params as t_init_flux
 from unitex_torch.models.flux.vae import VAEConfig as TVAEConfig
+from unitex_torch.models.flux.vae import init_vae_params as t_init_vae
 from unitex_torch.pipeline import CustomRGBTextureFullPipeline as TPipeline
 from unitex_torch.utils.params import params_from_jax
 
@@ -45,7 +46,7 @@ DIFFUSION = dict(height=64, width=384, dual_size=16, num_inference_steps=2,
 
 
 def _numpy_tree(tree):
-    return jax.tree.map(np.asarray, tree)
+    return jax.tree.map(lambda t: t.numpy(), tree)
 
 
 def _port_config():
@@ -72,14 +73,18 @@ def assets(tmp_path_factory):
 
 def test_pipeline_artifacts_match_jax(assets, tmp_path):
     mesh_path, img_path = assets
+    gen = torch.Generator()
+    flux = t_init_flux(gen.manual_seed(0), TFluxConfig.tiny(), device="cpu")
     trees = {
-        "flux": _numpy_tree(j_init_flux(jax.random.key(0), JFluxConfig.tiny())),
-        "vae": _numpy_tree(j_init_vae(jax.random.key(1), JVAEConfig.tiny())),
+        "flux": _numpy_tree(flux),
+        "vae": _numpy_tree(t_init_vae(gen.manual_seed(1), TVAEConfig.tiny(),
+                                      device="cpu")),
     }
     # non-zero adapters, so the texture/delight merges change the kernels
     rng = np.random.default_rng(2)
     for name, key in (("texture", 2), ("delight", 3)):
-        lora = _numpy_tree(j_init_lora(jax.random.key(key), trees["flux"], rank=2))
+        lora = _numpy_tree(t_init_lora(gen.manual_seed(key), flux, rank=2,
+                                       device="cpu"))
         trees[name] = jax.tree.map(
             lambda x: (0.02 * rng.standard_normal(x.shape)).astype(np.float32)
             if not np.any(x) else x, lora)

@@ -149,15 +149,48 @@ def test_rasterize_uv_and_interpolate_match_jax(sphere):
     assert (np.asarray(jr.tri) < 0).any() and (np.asarray(jr.tri) >= 0).mean() > 0.3
 
 
-def test_grid_sample_matches_jax():
-    """The bake's view sampling: zero padding, align_corners=False, with
-    taps off the image."""
+@pytest.mark.parametrize("padding", ["zeros", "border"])
+def test_grid_sample_matches_jax(padding):
+    """The bake's view sampling (zero padding) and the renderer's texture
+    sampling (border padding), align_corners=False, with taps off the
+    image."""
     rng = np.random.default_rng(5)
     img = rng.uniform(size=(12, 20, 4)).astype(np.float32)
     grid = rng.uniform(-1.2, 1.2, size=(7, 9, 2)).astype(np.float32)
-    got = tgs.grid_sample(_t(img), _t(grid))
-    want = jgs.grid_sample(jnp.asarray(img), jnp.asarray(grid))
+    got = tgs.grid_sample(_t(img), _t(grid), padding_mode=padding)
+    want = jgs.grid_sample(jnp.asarray(img), jnp.asarray(grid),
+                           padding_mode=padding)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6)
+
+
+def test_render_uv_and_map_attr_match_jax(sphere):
+    """UV buffer and a texture sampled through it (v flipped, border
+    padding), where ``tri`` agrees; uv_render takes ``pixel_tile``."""
+    from unitex_tpu.render.renderer import render_views as jrender
+    from unitex_tpu.render.renderer_inverse import uv_render as juv_render
+
+    from unitex_torch.render.renderer_inverse import uv_render as tuv_render
+
+    v, host = sphere
+    jm = jmesh.Mesh(jnp.asarray(v), jnp.asarray(host.faces),
+                    uv=jnp.asarray(host.uv), faces_uv=jnp.asarray(host.faces_uv))
+    tm = tmesh.Mesh(_t(v), _t(host.faces, torch.int64), uv=_t(host.uv),
+                    faces_uv=_t(host.faces_uv, torch.int64))
+    tex = np.random.default_rng(6).uniform(size=(24, 40, 3)).astype(np.float32)
+    c2ws, intr = jcond.condition_cameras()
+    kw = dict(render_uv=True, render_map_attr=True)
+    want = jrender(jm, c2ws, intr, (32, 32), map_attr=jnp.asarray(tex), **kw)
+    got = tcond.render_views(tm, _t(c2ws), _t(intr), (32, 32),
+                             map_attr=_t(tex), **kw)
+    agree = got.tri.numpy() == np.asarray(want.tri)
+    assert agree.mean() >= TRI_AGREE and got.mask.numpy().mean() > 0.3
+    for key in ("uv", "map_attr"):
+        np.testing.assert_allclose(getattr(got, key).numpy()[agree],
+                                   np.asarray(getattr(want, key))[agree],
+                                   atol=1e-5)
+    t_uv = tuv_render(tm, 64, pixel_tile=0)
+    j_uv = juv_render(jm, 64, pixel_tile=0)
+    assert (t_uv["mask"].numpy() == np.asarray(j_uv["mask"])).mean() >= TRI_AGREE
 
 
 def test_render_geometry_condition_matches_jax(sphere):

@@ -29,100 +29,21 @@
 // Layout: q/k/v/out are [B, S, H, D] read through their strides (the
 // innermost D stride must be 1); lse is [B·H, S] f32.  D = 128 only.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "common.cuh"
 
 namespace {
 
-constexpr int kD = 128;
+using namespace fa;
+
 constexpr int kBlockM = 128;
 constexpr int kBlockN = 64;
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
-constexpr int kChunksPerRow = kD * 2 / 16;  // 16-byte chunks in one row
-constexpr int kRowBytes = kD * 2;
 constexpr int kQBytes = kBlockM * kRowBytes;
 constexpr int kKVBytes = kBlockN * kRowBytes;
 constexpr int kSmemBytes = kQBytes + 4 * kKVBytes;  // Q + 2x(K, V)
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// Byte offset of 16-byte chunk c of row r in a swizzled [rows][kD] tile.
-__device__ __forceinline__ uint32_t swz(int r, int c) {
-  return static_cast<uint32_t>(r * kRowBytes + ((c ^ (r & 7)) << 4));
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool pred) {
-  const int n = pred ? 16 : 0;  // 0 source bytes: the 16 bytes are zeroed
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t& r0,
-                                        uint32_t& r1, uint32_t& r2,
-                                        uint32_t& r3) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-      : "r"(addr));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t& r0,
-                                          uint32_t& r1, uint32_t& r2,
-                                          uint32_t& r3) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-      : "r"(addr));
-}
-
-// d += a · b for one m16n8k16 bf16 tile with f32 accumulation.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Copy rows [row0, row0 + ROWS) of one head into a swizzled smem tile;
-// rows at or past S are zero-filled.
-template <int ROWS>
-__device__ __forceinline__ void load_tile(uint32_t dst,
-                                          const __nv_bfloat16* src,
-                                          long long row_stride, int row0,
-                                          int S, int tid) {
-#pragma unroll
-  for (int i = 0; i < ROWS * kChunksPerRow / kThreads; ++i) {
-    const int idx = tid + i * kThreads;
-    const int r = idx / kChunksPerRow;
-    const int c = idx % kChunksPerRow;
-    const int s = row0 + r;
-    const bool ok = s < S;
-    const __nv_bfloat16* p = src + (ok ? s : 0) * row_stride + c * 8;
-    cp_async16(dst + swz(r, c), p, ok);
-  }
-}
 
 __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
@@ -153,24 +74,18 @@ __global__ void __launch_bounds__(kThreads, 1)
   const uint32_t sK = sQ + kQBytes;
   const uint32_t sV = sK + 2 * kKVBytes;
 
-  load_tile<kBlockM>(sQ, qp, qs, m0, S, tid);
+  load_tile<kBlockM, kThreads>(sQ, qp, qs, m0, S, tid);
   cp_async_commit();
-  load_tile<kBlockN>(sK, kp, ks, 0, S, tid);
-  load_tile<kBlockN>(sV, vp, vs, 0, S, tid);
+  load_tile<kBlockN, kThreads>(sK, kp, ks, 0, S, tid);
+  load_tile<kBlockN, kThreads>(sV, vp, vs, 0, S, tid);
   cp_async_commit();
 
   // Q fragments of this warp's 16 rows: 8 k-steps of 16 along D.
   cp_async_wait<1>();
   __syncthreads();
   uint32_t qf[kD / 16][4];
-  {
-    const int row = warp * 16 + (lane & 15);
 #pragma unroll
-    for (int kk = 0; kk < kD / 16; ++kk) {
-      ldsm_x4(sQ + swz(row, kk * 2 + (lane >> 4)), qf[kk][0], qf[kk][1],
-              qf[kk][2], qf[kk][3]);
-    }
-  }
+  for (int kk = 0; kk < kD / 16; ++kk) ldsm_rows(sQ, warp * 16, kk, lane, qf[kk]);
 
   float oacc[kD / 8][4];
 #pragma unroll
@@ -185,8 +100,10 @@ __global__ void __launch_bounds__(kThreads, 1)
     const uint32_t cur = (j & 1) * kKVBytes;
     const uint32_t nxt = kKVBytes - cur;
     if (j + 1 < n_tiles) {
-      load_tile<kBlockN>(sK + nxt, kp, ks, (j + 1) * kBlockN, S, tid);
-      load_tile<kBlockN>(sV + nxt, vp, vs, (j + 1) * kBlockN, S, tid);
+      load_tile<kBlockN, kThreads>(sK + nxt, kp, ks, (j + 1) * kBlockN, S,
+                                   tid);
+      load_tile<kBlockN, kThreads>(sV + nxt, vp, vs, (j + 1) * kBlockN, S,
+                                   tid);
     }
     cp_async_commit();
     cp_async_wait<1>();
@@ -203,9 +120,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
       for (int np = 0; np < kBlockN / 16; ++np) {
         uint32_t b0, b1, b2, b3;
-        const int key = np * 16 + ((lane >> 4) << 3) + (lane & 7);
-        ldsm_x4(sK + cur + swz(key, kk * 2 + ((lane >> 3) & 1)), b0, b1, b2,
-                b3);
+        ldsm_cols(sK + cur, np * 16, kk, lane, b0, b1, b2, b3);
         mma_bf16(sacc[2 * np], qf[kk], b0, b1);
         mma_bf16(sacc[2 * np + 1], qf[kk], b2, b3);
       }
@@ -256,17 +171,12 @@ __global__ void __launch_bounds__(kThreads, 1)
     // O += P V: P from the S fragments (bf16), V via transposed ldmatrix.
 #pragma unroll
     for (int kk = 0; kk < kBlockN / 16; ++kk) {
-      const uint32_t a[4] = {
-          pack_bf16(sacc[2 * kk][0], sacc[2 * kk][1]),
-          pack_bf16(sacc[2 * kk][2], sacc[2 * kk][3]),
-          pack_bf16(sacc[2 * kk + 1][0], sacc[2 * kk + 1][1]),
-          pack_bf16(sacc[2 * kk + 1][2], sacc[2 * kk + 1][3]),
-      };
-      const int key = kk * 16 + (((lane >> 3) & 1) << 3) + (lane & 7);
+      uint32_t a[4];
+      acc_to_a(sacc[2 * kk], sacc[2 * kk + 1], a);
 #pragma unroll
       for (int dp = 0; dp < kD / 16; ++dp) {
         uint32_t b0, b1, b2, b3;
-        ldsm_x4_t(sV + cur + swz(key, dp * 2 + (lane >> 4)), b0, b1, b2, b3);
+        ldsm_kd(sV + cur, kk * 16, dp, lane, b0, b1, b2, b3);
         mma_bf16(oacc[2 * dp], a, b0, b1);
         mma_bf16(oacc[2 * dp + 1], a, b2, b3);
       }
@@ -317,7 +227,7 @@ extern "C" int flash_attn_fwd_bf16(const void* q, const void* k, const void* v,
       kSmemBytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((S + kBlockM - 1) / kBlockM, B * H);
-  const float scale_log2 = scale * 1.4426950408889634f;
+  const float scale_log2 = scale * kLog2e;
   flash_fwd_kernel<<<grid, kThreads, kSmemBytes,
                      static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(q),

@@ -3,9 +3,9 @@
 Architecture hyperparameters of black-forest-labs/FLUX.1-dev
 (FluxTransformer2DModel).  ``tiny()`` is a scaled-down config for CPU
 tests (same topology).  The fields of the parallel and int8 variants are
-kept so configs carry over, but the port runs only the plain single-device
-forward: ``flux_forward`` raises ``NotImplementedError`` when ``attn_qk8``,
-``seq_axis``, ``tp_axis`` or ``remat`` is set.
+kept so configs carry over, but the port runs only the single-device
+forward (with ``remat``): ``flux_forward`` raises ``NotImplementedError``
+when ``attn_qk8``, ``seq_axis`` or ``tp_axis`` is set.
 """
 
 from __future__ import annotations

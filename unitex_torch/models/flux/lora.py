@@ -4,7 +4,8 @@ unitex_tpu/models/flux/lora.py).
 Layer-stacked: block kernels are [L, d_in, d_out], so a LoRA leaf is
 {"a": [L, d_in, r], "b": [L, r, d_out]} and ``merge_lora`` folds
 ``scale · a @ b`` into the targeted kernels.  Multiple adapters compose by
-summed merge (the set_adapters weights semantics).
+summed merge (the set_adapters weights semantics).  ``merge_lora_layer``
+is the differentiable merge of one layer that training uses.
 
 Deferred: ``attach_lora`` (the runtime-attached form for int8 serving)
 and the PEFT safetensors I/O.
@@ -90,27 +91,44 @@ def merge_lora(
     def merged_kernel(kernel, d, scale):
         out = torch.empty_like(kernel)
         for i in range(kernel.shape[0]):
-            out[i] = kernel[i] + scale * torch.matmul(
-                d["a"][i], d["b"][i]).to(kernel.dtype)
-        return out
-
-    def walk(base, delta, scale):
-        out = {}
-        for k, v in base.items():
-            if isinstance(v, dict) and k in delta:
-                d = delta[k]
-                if "a" in d and "b" in d:
-                    out[k] = dict(v)
-                    out[k]["kernel"] = merged_kernel(v["kernel"], d, scale)
-                else:
-                    out[k] = walk(v, d, scale)
-            else:
-                out[k] = v
+            out[i] = _merged(kernel[i], d["a"][i], d["b"][i], scale)
         return out
 
     merged = params
     for lora, weight in loras:
         if lora is None or weight == 0.0:
             continue
-        merged = walk(merged, lora, weight)
+        merged = _walk(merged, lora, weight, merged_kernel)
     return merged
+
+
+def merge_lora_layer(
+    params: Dict[str, Any], lora: Dict[str, Any], scale: float = 1.0,
+) -> Dict[str, Any]:
+    """One layer's params (kernels [d_in, d_out]) with its LoRA leaves
+    ({"a": [d_in, r], "b": [r, d_out]}) folded in, under autograd: the
+    gradients of the merged kernels reach ``a`` and ``b`` through the cast
+    to the kernel's dtype.  The cast order is ``merge_lora``'s."""
+    return _walk(params, lora, scale,
+                 lambda kernel, d, s: _merged(kernel, d["a"], d["b"], s))
+
+
+def _merged(kernel, a, b, scale):
+    return kernel + scale * torch.matmul(a, b).to(kernel.dtype)
+
+
+def _walk(base, delta, scale, merged_kernel):
+    """``base`` with ``merged_kernel(kernel, {"a", "b"}, scale)`` in place
+    of each kernel that ``delta`` targets; other leaves are shared."""
+    out = {}
+    for k, v in base.items():
+        if isinstance(v, dict) and k in delta:
+            d = delta[k]
+            if "a" in d and "b" in d:
+                out[k] = dict(v)
+                out[k]["kernel"] = merged_kernel(v["kernel"], d, scale)
+            else:
+                out[k] = _walk(v, d, scale, merged_kernel)
+        else:
+            out[k] = v
+    return out

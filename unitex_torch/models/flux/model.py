@@ -5,19 +5,27 @@ timestep + guidance + pooled embeddings, 3-axis RoPE, QK RMS-norm,
 GELU-tanh MLPs.  Block parameters stay stacked [L, ...] as in the JAX
 package; the forward walks them with a Python loop (the JAX ``lax.scan``),
 taking views of each layer's slice.  Attention goes through ``sdpa``:
-kernel B1 on the card.
+kernel B1 on the card, with kernels B2a/B2b as its backward.
+
+The forward runs under autograd (serving callers wrap it in
+``torch.no_grad``).  ``cfg.remat`` runs each block under
+``torch.utils.checkpoint`` (the JAX ``jax.checkpoint``), and a LoRA tree
+passed as ``lora`` is merged into each layer inside its block, so at most
+one layer's merged kernels are alive.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ...utils.params import Spec, init_from_spec, linear_spec
 from ...utils.precision import resolve_device
 from .config import FluxConfig
+from .lora import merge_lora_layer
 from .layers import (
     Params,
     apply_rope,
@@ -187,7 +195,15 @@ def _single_block(p, cfg, x, temb, cos, sin):
     return x + gate * linear(p["proj_out"], merged)
 
 
-@torch.no_grad()
+def _block_params(params: Params, lora: Optional[Dict[str, Any]], stack: str,
+                  i: int) -> Params:
+    """Layer ``i`` of a block stack, with its LoRA merged when given."""
+    p = layer(params[stack], i)
+    if lora is not None and stack in lora:
+        p = merge_lora_layer(p, layer(lora[stack], i))
+    return p
+
+
 def flux_forward(
     params: Params,
     cfg: FluxConfig,
@@ -198,17 +214,23 @@ def flux_forward(
     img_ids: torch.Tensor,
     txt_ids: torch.Tensor,
     guidance: Optional[torch.Tensor] = None,
+    kv_keep_idx: Optional[torch.Tensor] = None,
+    lora: Optional[Dict[str, Any]] = None,
 ) -> torch.Tensor:
     """Velocity prediction for the packed token sequence.
 
     hidden_states [B, S_img, C_in], encoder_hidden_states [B, S_txt, D_t5],
     timestep [B] (already divided by 1000), pooled [B, D_clip],
     img_ids [S_img, 3], txt_ids [S_txt, 3], guidance [B] (raw cfg scale).
-    Returns [B, S_img, C_in] f32."""
-    if cfg.attn_qk8 or cfg.seq_axis or cfg.tp_axis or cfg.remat:
+    ``lora``: an adapter tree merged with weight 1 into each block's
+    kernels inside the block (the JAX trainer's ``merge_lora`` of the whole
+    tree before the forward, one layer at a time).  Returns
+    [B, S_img, C_in] f32."""
+    if cfg.attn_qk8 or cfg.seq_axis or cfg.tp_axis:
         raise NotImplementedError(
-            "int8-QK attention, sequence/tensor parallelism and remat are "
-            "not ported")
+            "int8-QK attention and sequence/tensor parallelism are not ported")
+    if kv_keep_idx is not None:
+        raise NotImplementedError("kv_keep_idx (key/value token drop) is not ported")
     dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
     hidden = linear(params["x_embedder"], hidden_states.to(dtype))
     context = linear(params["context_embedder"], encoder_hidden_states.to(dtype))
@@ -224,13 +246,24 @@ def flux_forward(
     ids = torch.cat([txt_ids, img_ids], dim=0)
     cos, sin = rope_freqs(ids, cfg.axes_dims_rope, cfg.rope_theta)
 
+    def dual(i, h, c):
+        return _dual_block(_block_params(params, lora, "dual_blocks", i), cfg,
+                           h, c, temb, cos, sin)
+
+    def single(i, x):
+        return _single_block(_block_params(params, lora, "single_blocks", i),
+                             cfg, x, temb, cos, sin)
+
+    def run(fn, *args):
+        if cfg.remat:
+            return checkpoint(fn, *args, use_reentrant=False)
+        return fn(*args)
+
     for i in range(cfg.num_layers):
-        hidden, context = _dual_block(
-            layer(params["dual_blocks"], i), cfg, hidden, context, temb, cos, sin)
+        hidden, context = run(dual, i, hidden, context)
     x = torch.cat([context, hidden], dim=1)
     for i in range(cfg.num_single_layers):
-        x = _single_block(layer(params["single_blocks"], i), cfg, x, temb,
-                          cos, sin)
+        x = run(single, i, x)
     x = x[:, context.shape[1]:]
 
     # AdaLayerNormContinuous chunks (scale, shift) in that order

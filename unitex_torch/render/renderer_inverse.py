@@ -109,10 +109,12 @@ def uv_render(
     mesh: Mesh,
     uv_size: int,
     face_chunk: int = 512,
+    pixel_tile: int = 0,
     tile_batch: int = 64,
 ) -> Dict[str, torch.Tensor]:
     """UV-space geometry buffers: per-texel mask, 3D position, face normal,
-    triangle id."""
+    triangle id.  ``pixel_tile`` only bounds memory in the JAX package and
+    is accepted and ignored, as in ``render_views``."""
     rast = rasterize_uv(mesh.uv, mesh.faces_uv.long(), uv_size,
                         face_chunk=face_chunk, tile_batch=tile_batch)
     faces = mesh.faces.long()

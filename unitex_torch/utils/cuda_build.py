@@ -3,13 +3,16 @@
 Each ``unitex_torch/csrc/<name>.cu`` has a plain C interface.  It is
 compiled with ``nvcc`` for ``sm_90a`` into a shared library under
 ``unitex_torch/_build/`` (git-ignored) at first use, keyed by a hash of
-the source and flags, so an edited source rebuilds and an unchanged one
-is loaded as it is.  Nothing is built at import time.
+the source, the shared headers (``csrc/*.cuh``) and the flags, so an
+edited source rebuilds and an unchanged one is loaded as it is.  Nothing
+is built at import time; ``build`` compiles several sources at once, one
+``nvcc`` each.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -51,32 +54,42 @@ def _source(name: str) -> str:
 def library_path(name: str) -> str:
     """Where the library of kernel ``name`` lives once built."""
     h = hashlib.sha256()
-    with open(_source(name), "rb") as f:
-        h.update(f.read())
+    for path in [_source(name), *sorted(glob.glob(os.path.join(CSRC, "*.cuh")))]:
+        with open(path, "rb") as f:
+            h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
 
 
-def build(name: str) -> float:
-    """Compile kernel ``name`` unless it is built already.  Returns the
-    wall seconds of the build (0.0 for a library that was already there).
-    The compiler's ``-Xptxas -v`` report goes to ``<library>.log``.
-    Raises ``RuntimeError`` with the compiler's output on a failure."""
-    so = library_path(name)
-    if os.path.exists(so):
-        return 0.0
+def build(*names: str) -> Dict[str, float]:
+    """Compile the kernels ``names`` that are not built yet, one ``nvcc``
+    each, all started together.  Returns the wall seconds of each build
+    (0.0 for a library that was already there).  The compiler's
+    ``-Xptxas -v`` report goes to ``<library>.log``.  Raises
+    ``RuntimeError`` with the compiler's output on a failure."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{so}.{os.getpid()}.tmp"
+    seconds = {name: 0.0 for name in names}
+    procs = {}
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [nvcc_path(), *NVCC_FLAGS, "-o", tmp, _source(name)],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    seconds = time.perf_counter() - t0
-    with open(f"{so}.log", "w") as f:
-        f.write(proc.stdout)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stdout}")
-    os.replace(tmp, so)
+    for name in names:
+        so = library_path(name)
+        if not os.path.exists(so):
+            tmp = f"{so}.{os.getpid()}.tmp"
+            procs[name] = (so, tmp, subprocess.Popen(
+                [nvcc_path(), *NVCC_FLAGS, "-o", tmp, _source(name)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for name, (so, tmp, proc) in procs.items():
+        out, _ = proc.communicate()
+        seconds[name] = time.perf_counter() - t0
+        with open(f"{so}.log", "w") as f:
+            f.write(out)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {name}.cu:\n{out}")
+        else:
+            os.replace(tmp, so)
+    if failed:
+        raise RuntimeError("\n".join(failed))
     return seconds
 
 
