@@ -243,9 +243,6 @@ def test_deferred_branches_raise():
         tmodel.flux_forward({}, dataclasses.replace(TFluxConfig.tiny(),
                                                     attn_qk8=True),
                             *[None] * 6)
-    with pytest.raises(NotImplementedError, match="kv_keep_idx"):
-        tmodel.flux_forward({}, TFluxConfig.tiny(), *[None] * 6,
-                            kv_keep_idx=torch.arange(4))
     with pytest.raises(NotImplementedError):
         tpipe.run_flux_pipeline(None, TFluxConfig.tiny(), None,
                                 tvae.VAEConfig.tiny(), None,

@@ -360,6 +360,17 @@ def test_launcher_refuses_deferred_flags(flag):
         launcher.main(["--tiny", "--device", "cpu"] + flag)
 
 
+@pytest.mark.parametrize("flag", [
+    ["--prompt", "[MVFLUX]"], ["--preconditioning-loss-weight", "0.5"],
+    ["--pipe-n-micro", "4"],
+])
+def test_launcher_rejects_options_it_does_not_take(flag):
+    """Options whose branch is not ported are not parsed at all, so they
+    cannot be ignored silently."""
+    with pytest.raises(SystemExit):
+        launcher.parse_args(["--tiny", "--device", "cpu"] + flag)
+
+
 @pytest.mark.parametrize("field", [{"optimizer": "prodigy"},
                                    {"preconditioning_loss": True},
                                    {"pipe_axis": "pipe"}])

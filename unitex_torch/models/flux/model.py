@@ -214,7 +214,6 @@ def flux_forward(
     img_ids: torch.Tensor,
     txt_ids: torch.Tensor,
     guidance: Optional[torch.Tensor] = None,
-    kv_keep_idx: Optional[torch.Tensor] = None,
     lora: Optional[Dict[str, Any]] = None,
 ) -> torch.Tensor:
     """Velocity prediction for the packed token sequence.
@@ -229,8 +228,6 @@ def flux_forward(
     if cfg.attn_qk8 or cfg.seq_axis or cfg.tp_axis:
         raise NotImplementedError(
             "int8-QK attention and sequence/tensor parallelism are not ported")
-    if kv_keep_idx is not None:
-        raise NotImplementedError("kv_keep_idx (key/value token drop) is not ported")
     dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
     hidden = linear(params["x_embedder"], hidden_states.to(dtype))
     context = linear(params["context_embedder"], encoder_hidden_states.to(dtype))

@@ -249,7 +249,11 @@ def flash_attention_backward(
     outside its kernels."""
     if not _on_card(q):
         return attention_backward_reference(q, k, v, out, lse, g)
-    _check(q, k, v, out=out, g=g)
+    # the kernel wrappers check the rest; out only feeds the torch row dot
+    if out.shape != q.shape or out.dtype != q.dtype or out.device != q.device:
+        raise ValueError(f"out must match q's {tuple(q.shape)} {q.dtype} on "
+                         f"{q.device}, got {tuple(out.shape)} {out.dtype} on "
+                         f"{out.device}")
     drow = _row_dot(g, out)
     dk, dv = flash_attention_bwd_dkv(q, k, v, g, lse, drow)
     return flash_attention_bwd_dq(q, k, v, g, lse, drow), dk, dv

@@ -15,7 +15,9 @@ launcher.
 Not ported, and refused with a message: ``--pretrain-models`` (weight
 loading), ``--pipe`` and ``--data-mesh`` > 1 (multi-GPU),
 ``--full-finetune`` and ``--bf16-compute``, ``--optimizer prodigy`` and
-``--preconditioning-loss``.
+``--preconditioning-loss``.  Options that only those branches read
+(``--prompt``, ``--preconditioning-loss-weight``, ``--pipe-n-micro``) are
+not taken.
 """
 
 from __future__ import annotations
@@ -120,7 +122,6 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--batch-size", type=int, default=1)
     ap.add_argument("--drop-rate", type=float, default=0.0)
     ap.add_argument("--preconditioning-loss", action="store_true")
-    ap.add_argument("--preconditioning-loss-weight", type=float, default=1.0)
     ap.add_argument("--prior-preservation", action="store_true",
                     help="batch halves are [instance; prior] (needs an even "
                          "--batch-size)")
@@ -129,7 +130,6 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--checkpoints-total-limit", type=int, default=3)
     ap.add_argument("--data-mesh", type=int, default=1)
     ap.add_argument("--pipe", type=int, default=0)
-    ap.add_argument("--pipe-n-micro", type=int, default=0)
     ap.add_argument("--data-dir", default=None,
                     help="pre-rendered dataset root (DirectoryTextureDataset); "
                          "default: the synthetic geometry-rendered stream")
@@ -142,9 +142,6 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--validation-steps", type=int, default=0,
                     help="render a validation image every N steps")
-    ap.add_argument("--prompt", default="[MVFLUX]",
-                    help="trigger prompt; without text-encoder weights the "
-                         "zero embeddings inference runs with are used")
     ap.add_argument("--device", default="cuda")
     return ap.parse_args(argv)
 

@@ -61,10 +61,7 @@ class FluxLoraTrainConfig:
     prior_preservation: bool = False
     prior_loss_weight: float = 1.0
     preconditioning_loss: bool = False   # deferred
-    preconditioning_loss_weight: float = 1.0
     pipe_axis: Optional[str] = None      # deferred (pipeline parallelism)
-    pipe_n_micro: int = 1
-    pipe_data_axis: Optional[str] = None
 
 
 @dataclasses.dataclass
