@@ -7,16 +7,20 @@ Phases, each fenced by ``torch.cuda.synchronize()``; any failure exits
 non-zero:
 
 1. card: name and power limit (``nvidia-smi``);
-2. build: the hand-written kernels of both paths, one ``nvcc`` per source
-   from the checkout, all started together, with ptxas' register and
-   spill report of each kernel;
+2. build: the hand-written kernels of the three paths, one ``nvcc`` per
+   source from the checkout, all started together, with ptxas' register
+   and spill report of each kernel;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes the paths give it (q/k/v/dO [1, S, 24, 128] bf16 at
    S = 13824 and 12800, plus a ragged S = 1000), with its time, the plain
    version's, one PyTorch library call's (a yardstick only) and the
    bound: flash attention B1 held to max|dout| <= min(2e-2, 2 % of
    max|ref|) and max|dlse| <= 1e-3; its backward B2a (dK, dV) and B2b (dQ)
-   to max|d| <= 2 % of max|ref| for each gradient;
+   to max|d| <= 2 % of max|ref| for each gradient; the int8-QK forward B3,
+   on q/k quantized by ``quant_rows``, to max|dout| <= min(2e-2, 2 % of
+   max|ref|) against its plain version on the same int8 inputs; and one
+   W8A8 projection ([13312, 3072] @ [3072, 12288], ``torch._int_mm``)
+   timed beside the same product in bf16 (context, not a gate);
 4. serving path: ``CustomRGBTextureFullPipeline(random_weights=True)`` at
    full FLUX.1-dev width and depth with the FLUX VAE answers two jobs
    (a 20,480-face icosphere and a torus, synthetic reference images) on
@@ -29,7 +33,13 @@ non-zero:
    launcher's ``build_batch`` (S = 512 + 6144 + 6144 = 12800 tokens); each
    step must give a finite loss and launch B1 114 times (57 forward + 57
    recomputed) and B2a and B2b 57 times each, the first must move the
-   LoRA ``b`` leaves off 0, and the peak must stay under 80 GB.
+   LoRA ``b`` leaves off 0, and the peak must stay under 80 GB;
+6. int8 serving path: the bf16 pipeline is freed, then
+   ``CustomRGBTextureFullPipeline(int8_serving=True, random_weights=True)``
+   (W8A8 FLUX.1-dev, each bf16 kernel dropped as it is quantized) with
+   ``attn_qk8=True`` set on its ``flux_cfg`` answers the icosphere job on
+   the same 4-step config: a GLB and a finite 2048² texture, 456 launches
+   of B3 and none of B1, the peak under 80 GB.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or run outside
@@ -39,6 +49,7 @@ a checkout of the repository, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -49,7 +60,11 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 PEAK_BF16_FLOPS = 989e12       # H100 SXM dense bf16 tensor-core peak
+PEAK_INT8_OPS = 1979e12        # H100 SXM dense int8 tensor-core peak
 PEAK_BYTES = 3.35e12           # H100 SXM HBM3 bandwidth
+# exp2 on the SFUs: 16 a clock on each of 132 SMs at the 1.98 GHz boost
+# clock (a second bound for attention, beside the tensor cores)
+SFU_EXP_RATE = 132 * 16 * 1.98e9
 ATTN_SHAPES = (13824, 12800, 1000)
 # B1 against its f32 plain version on unit-normal bf16 inputs.  The output
 # is held to 2 % of the largest reference value and never more than 2e-2:
@@ -75,7 +90,8 @@ def ptxas_usage(log_path: str):
         for ln in f:
             if "Compiling entry function" in ln:
                 fn = next((n for n in ("flash_fwd_kernel", "flash_bwd_dkv_kernel",
-                                       "flash_bwd_dq_kernel") if n in ln), ln)
+                                       "flash_bwd_dq_kernel", "flash_qk8_kernel")
+                           if n in ln), ln)
             elif "spill stores" in ln:
                 spill = ln.split(":", 1)[-1].strip() if ":" in ln else ln.strip()
             elif "registers" in ln and fn is not None:
@@ -260,6 +276,102 @@ def check_flash_backward(attn, torch) -> list:
     return [records["flash_attn_bwd_dkv"], records["flash_attn_bwd_dq"]]
 
 
+def check_flash_qk8(attn, torch) -> dict:
+    """B3 against ``attention_qk8_reference`` (f32, on the same int8 q/k
+    and row scales from ``quant_rows``, and the same bf16 v)."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    B, H, D = 1, 24, 128
+    record = None
+    worst = 0.0
+    for S in ATTN_SHAPES:
+        q, k, v = (torch.randn((B, S, H, D), generator=gen, device="cuda")
+                   .to(torch.bfloat16) for _ in range(3))
+        qq, sq = attn.quant_rows(q)
+        kq, sk = attn.quant_rows(k)
+        out = attn.flash_attention_qk8(qq, kq, v, sq, sk)
+        torch.cuda.synchronize()
+
+        def plain_head(h):
+            sl = slice(h, h + 1)
+            return attn.attention_qk8_reference(
+                qq[:, :, sl], kq[:, :, sl], v[:, :, sl].float(), sq[:, :, sl],
+                sk[:, :, sl])
+
+        err = ref_max = 0.0
+        for h in range(H):  # per head: the f32 logits of all heads are 18 GB
+            ro = plain_head(h)
+            err = max(err, (out[:, :, h:h + 1].float() - ro).abs().max().item())
+            ref_max = max(ref_max, ro.abs().max().item())
+        torch.cuda.synchronize()
+        out_tol = min(OUT_TOL, OUT_REL * ref_max)
+        if not err <= out_tol:
+            raise AssertionError(
+                f"flash_attention_qk8 S={S}: max|dout|={err} (tol {out_tol})")
+        worst = max(worst, err)
+        iters = 20 if S > 5000 else 50
+        ms = cuda_ms(lambda: attn.flash_attention_qk8(qq, kq, v, sq, sk), iters)
+        plain_ms = cuda_ms(lambda: [plain_head(h) for h in range(H)], 2)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt),
+                          iters)
+        ops = 2 * B * H * S * S * D          # Q·Kᵀ in int8, and P·V in bf16
+        t_ops = ops / PEAK_INT8_OPS + ops / PEAK_BF16_FLOPS
+        nbytes = 2 * B * S * H * D + 2 * B * S * H * D * 2 + 2 * B * S * H * 4
+        bound_ms = max(t_ops, nbytes / PEAK_BYTES) * 1e3
+        sfu_ms = B * H * S * S / SFU_EXP_RATE * 1e3
+        print(f"[kernels] flash_attn_qk8 S={S}: ms={ms:.4f} bound_ms="
+              f"{bound_ms:.4f} (tensor cores; exp2 on the SFUs {sfu_ms:.4f}) "
+              f"plain_ms={plain_ms:.3f} max_abs_err={err:.3e} (tol "
+              f"{out_tol:.3e}, max|ref|={ref_max:.3e}); no library call "
+              f"computes int8-QK attention, bf16 scaled_dot_product_attention "
+              f"(not the same function) {sdpa_ms:.4f} ms", flush=True)
+        if S == ATTN_SHAPES[0]:
+            record = {
+                "name": "flash_attn_qk8", "route": "cuda",
+                "source": "unitex_torch/csrc/flash_attn_qk8.cu",
+                "replaces": "unitex_tpu/ops/attention.py:420",
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": "operations" if t_ops >= nbytes / PEAK_BYTES
+                else "bytes",
+                "library_ms": None,
+            }
+        del q, k, v, qq, kq, sq, sk, out, qt, kt, vt
+        torch.cuda.empty_cache()
+    record["max_abs_err"] = worst
+    return record
+
+
+def time_w8a8(torch) -> None:
+    """One W8A8 projection of the int8 path (activation quantization, the
+    int8 GEMM, the dequant epilogue) against the same product in bf16, and
+    the int8 GEMM alone in both layouts of its second operand."""
+    from unitex_torch.ops.quant import int8_matmul, quantize_kernel
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    M, K, N = 13312, 3072, 12288   # the image tokens through ff.in
+    x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
+    w = (torch.randn((K, N), generator=gen, device="cuda") / K ** 0.5).to(
+        torch.bfloat16)
+    wq, ws = quantize_kernel(w)
+    xq = torch.randint(-127, 128, (M, K), generator=gen, device="cuda",
+                       dtype=torch.int8)
+    wq_rows = wq.contiguous()  # the other layout: d_out contiguous
+    w8a8_ms = cuda_ms(lambda: int8_matmul(x, wq, ws), 20)
+    gemm_ms = cuda_ms(lambda: torch._int_mm(xq, wq), 20)
+    gemm_rows_ms = cuda_ms(lambda: torch._int_mm(xq, wq_rows), 20)
+    bf16_ms = cuda_ms(lambda: x @ w, 20)
+    rel = ((int8_matmul(x, wq, ws).float() - (x @ w).float()).norm()
+           / (x @ w).float().norm()).item()
+    print(f"[w8a8] [{M}, {K}] @ [{K}, {N}]: int8_matmul {w8a8_ms:.4f} ms "
+          f"(int8 GEMM alone {gemm_ms:.4f} ms with the kernel stored d_in-"
+          f"contiguous, {gemm_rows_ms:.4f} ms stored d_out-contiguous; bound "
+          f"{2 * M * K * N / PEAK_INT8_OPS * 1e3:.4f} ms), bf16 {bf16_ms:.4f} "
+          f"ms (bound {2 * M * K * N / PEAK_BF16_FLOPS * 1e3:.4f} ms); rel L2 "
+          f"W8A8 vs bf16 {rel:.3e}", flush=True)
+
+
 def make_assets(d: str):
     """Two jobs: (mesh path, reference image path)."""
     import numpy as np
@@ -340,7 +452,81 @@ def run_main_path(attn, torch):
 
 
 def _counts(attn) -> tuple:
-    return attn.launches, attn.launches_bwd_dkv, attn.launches_bwd_dq
+    """Launches of B1, B2a, B2b and B3."""
+    return (attn.launches, attn.launches_bwd_dkv, attn.launches_bwd_dq,
+            attn.launches_qk8)
+
+
+def _reset(attn) -> None:
+    attn.launches = attn.launches_bwd_dkv = attn.launches_bwd_dq = 0
+    attn.launches_qk8 = 0
+
+
+def _tree_bytes(tree) -> int:
+    return sum(leaf.numel() * leaf.element_size()
+               for _, leaf in _named_leaves(tree))
+
+
+def run_int8_path(attn, torch) -> None:
+    """One full-width int8 serving job (W8A8, int8-QK attention)."""
+    from unitex_torch.config import DEFAULT_CONFIG
+    from unitex_torch.ops.quant import count_quantized
+    from unitex_torch.pipeline import CustomRGBTextureFullPipeline
+    from unitex_torch.utils.timer import CPUTimer
+
+    config = dataclasses.replace(
+        DEFAULT_CONFIG,
+        diffusion=dataclasses.replace(DEFAULT_CONFIG.diffusion,
+                                      num_inference_steps=STEPS))
+    per_job = 57 * STEPS * 2
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pipe = CustomRGBTextureFullPipeline(int8_serving=True, random_weights=True,
+                                        config=config, device="cuda")
+    pipe.flux_cfg = dataclasses.replace(pipe.flux_cfg, attn_qk8=True)
+    torch.cuda.synchronize()
+    n_q, n_f = count_quantized(pipe.transformer_params)
+    print(f"[int8] init (bf16 random init + W8A8 quantization) "
+          f"{time.perf_counter() - t0:.2f}s, peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; serving tree "
+          f"{_tree_bytes(pipe.transformer_params) / 2**30:.2f} GiB ({n_q / 1e9:.3f} "
+          f"G int8 elements, {n_f / 1e9:.3f} G float elements in leaves of 2+ "
+          f"axes); attn_qk8=True", flush=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_int8_") as d:
+        name, mesh_path, img_path = make_assets(d)[0]
+        torch.cuda.reset_peak_memory_stats()
+        before = _counts(attn)
+        t0 = time.perf_counter()
+        _, glb = pipe(os.path.join(d, "out"), img_path, mesh_path)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = tuple(a - b for a, b in zip(_counts(attn), before))
+        peak = torch.cuda.max_memory_allocated()
+        rec = CPUTimer.records
+        stages = {
+            "preprocess": rec["preprocess_blank_mesh"]
+            + rec["preprocess_reference_image"],
+            "render_geometry": rec["render_geometry_images"],
+            "infer_mv": rec["infer_mv"],
+            "reproject": rec["reproject_and_query_field"],
+        }
+        tex = pipe.last_texture
+        print(f"[int8] job {name}: wall {wall:.2f}s stages "
+              + " ".join(f"{k}={v:.3f}s" for k, v in stages.items())
+              + f" peak {peak / 2**30:.2f} GiB launches B3 {n[3]} B1 {n[0]}",
+              flush=True)
+        if not os.path.exists(glb):
+            raise AssertionError(f"int8 job {name}: no GLB at {glb}")
+        if tuple(tex.shape) != (2048, 2048, 3) or not bool(
+                torch.isfinite(tex).all()):
+            raise AssertionError(
+                f"int8 job {name}: texture {tuple(tex.shape)} not a finite 2048²")
+        if n != (0, 0, 0, per_job):
+            raise AssertionError(
+                f"int8 job {name}: launches B1/B2a/B2b/B3 {n}, expected "
+                f"(0, 0, 0, {per_job})")
+        if peak >= PEAK_LIMIT:
+            raise AssertionError(f"int8 job {name}: peak {peak} bytes")
 
 
 def run_training(attn, torch, pipe) -> None:
@@ -357,7 +543,7 @@ def run_training(attn, torch, pipe) -> None:
     tcfg = FluxLoraTrainConfig(rank=16, learning_rate=1e-4,
                                lr_scheduler="constant")
     n_blocks = cfg.num_layers + cfg.num_single_layers
-    want = (2 * n_blocks, n_blocks, n_blocks)
+    want = (2 * n_blocks, n_blocks, n_blocks, 0)
     t0 = time.perf_counter()
     state, tx = create_train_state(torch.Generator(device="cuda").manual_seed(5),
                                    pipe.transformer_params, tcfg, device="cuda")
@@ -394,8 +580,8 @@ def run_training(attn, torch, pipe) -> None:
                     _named_leaves(state.lora) if path.endswith("/b"))
         print(f"[train] step {step}: loss {loss:.6f} step {wall:.3f}s "
               f"(batch {t_data:.3f}s) peak {peak / 2**30:.2f} GiB launches "
-              f"B1/B2a/B2b {n[0]}/{n[1]}/{n[2]} max|lora b| {b_max:.3e}",
-              flush=True)
+              f"B1/B2a/B2b/B3 {n[0]}/{n[1]}/{n[2]}/{n[3]} max|lora b| "
+              f"{b_max:.3e}", flush=True)
         if not math.isfinite(loss):
             raise AssertionError(f"train step {step}: loss {loss}")
         if n != want:
@@ -438,7 +624,7 @@ def main() -> int:
     from unitex_torch.utils import cuda_build
 
     t0 = time.perf_counter()
-    nvcc_s = cuda_build.build(attn.KERNEL, attn.KERNEL_BWD)
+    nvcc_s = cuda_build.build(attn.KERNEL, attn.KERNEL_BWD, attn.KERNEL_QK8)
     print(f"[build] {time.perf_counter() - t0:.2f}s " + " ".join(
         f"{k}={v:.2f}s" for k, v in nvcc_s.items()), flush=True)
     for source in nvcc_s:
@@ -451,30 +637,48 @@ def main() -> int:
     records += check_flash_backward(attn, torch)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+    records.append(check_flash_qk8(attn, torch))
+    time_w8a8(torch)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
 
-    attn.launches = attn.launches_bwd_dkv = attn.launches_bwd_dq = 0
+    _reset(attn)
     launches, pipe = run_main_path(attn, torch)
     torch.cuda.synchronize()
     serve = _counts(attn)
-    if launches != serve[0] or launches == 0 or serve[1:] != (0, 0):
-        return fail(f"launches B1/B2a/B2b {serve} on the serving path")
+    if launches != serve[0] or launches == 0 or serve[1:] != (0, 0, 0):
+        return fail(f"launches B1/B2a/B2b/B3 {serve} on the serving path")
     torch.cuda.empty_cache()
 
-    attn.launches = attn.launches_bwd_dkv = attn.launches_bwd_dq = 0
+    _reset(attn)
     run_training(attn, torch, pipe)
     torch.cuda.synchronize()
     train = _counts(attn)
-    if 0 in train:
-        return fail(f"launches B1/B2a/B2b {train} on the training path")
+    if 0 in train[:3] or train[3] != 0:
+        return fail(f"launches B1/B2a/B2b/B3 {train} on the training path")
     print(f"[train] launches B1/B2a/B2b {train[0]}/{train[1]}/{train[2]} in "
           f"{TRAIN_STEPS} steps", flush=True)
 
-    for rec, n_serve, n_train in zip(records, serve, train):
-        rec["launches"] = n_serve + n_train
-        rec["launches_by_path"] = {"serve": n_serve, "train": n_train}
+    # the int8 job needs the card to itself: drop the bf16 tree first
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    _reset(attn)
+    run_int8_path(attn, torch)
+    torch.cuda.synchronize()
+    int8 = _counts(attn)
+    if int8[3] == 0 or int8[:3] != (0, 0, 0):
+        return fail(f"launches B1/B2a/B2b/B3 {int8} on the int8 serving path")
+
+    for rec, n_serve, n_train, n_int8 in zip(records, serve, train, int8):
+        rec["launches"] = n_serve + n_train + n_int8
+        rec["launches_by_path"] = {"serve": n_serve, "train": n_train,
+                                   "int8_serve": n_int8}
     keys = ("ms", "plain_ms", "bound_ms", "max_abs_err", "library_ms")
     bad = [r for r in records if not all(
-        isinstance(r[k], (int, float)) and math.isfinite(r[k]) for k in keys)]
+        (k == "library_ms" and r[k] is None)
+        or (isinstance(r[k], (int, float)) and math.isfinite(r[k]))
+        for k in keys)]
     if bad:
         return fail(f"bad kernel records {bad}")
     print(f"[done] {time.perf_counter() - t_start:.1f}s", flush=True)

@@ -3,11 +3,11 @@ package's: the plain ``attention_reference`` (out and lse) against JAX
 ``attention_reference`` and against the Pallas ``_flash_forward`` run in
 interpret mode, at S = 512 and at a ragged S = 200; the plain backward
 against JAX's chunked ``_flash_core_bwd_xla`` on the same residuals; the
-CPU autograd of ``attention`` against ``jax.vjp``; plus the wrappers'
-checks.  The CUDA kernels themselves run only on the card
-(tests/test_torch_kernels.py, marked ``cuda``)."""
+CPU autograd of ``attention`` against ``jax.vjp``; the int8-QK path
+(``quant_rows`` and B3's plain version) against ``flash_attention_qk8`` in
+interpret mode; plus the wrappers' checks.  The CUDA kernels themselves
+run only on the card (tests/test_torch_kernels.py, marked ``cuda``)."""
 
-import dataclasses
 import math
 
 import jax
@@ -18,8 +18,6 @@ import torch
 from jax.experimental.pallas import tpu as pltpu
 
 from unitex_tpu.ops import attention as jattn
-from unitex_torch.models.flux.config import FluxConfig as TFluxConfig
-from unitex_torch.models.flux.model import flux_forward
 from unitex_torch.ops import attention as tattn
 
 OUT_ATOL = 2e-5   # f32 softmax(QK^T)V of unit-normal inputs, reduction order
@@ -163,13 +161,80 @@ def test_kernel_argument_checks(case):
         tattn._check(*args)
 
 
-def test_qk8_is_not_ported():
-    """The int8-QK kernel B3 is not ported: the one refusal is in
-    ``flux_forward``, and the attention entry points take no qk8 option."""
-    cfg = dataclasses.replace(TFluxConfig.tiny(), attn_qk8=True)
-    with pytest.raises(NotImplementedError, match="int8-QK"):
-        flux_forward({}, cfg, *[None] * 6)
-    x = torch.zeros((1, 8, 1, 128))
-    with pytest.raises(TypeError):
-        tattn.attention(x, x, x, qk8=True)
+def test_quant_rows_matches_jax():
+    """Per-row int8 quantization of q/k: the JAX package's ``_quant_rows``
+    on the [B·H, S, D] layout, its scales taken from the sublane-replicated
+    [B·H, 8, S] form."""
+    B, S, H, D = 1, 96, 2, 128
+    x = _inputs(B, S, H, D, 17)[0]
+    xq, s = tattn.quant_rows(torch.from_numpy(x))
+    jq, js = jattn._quant_rows(jnp.moveaxis(jnp.asarray(x), 2, 1)
+                               .reshape(B * H, S, D))
+    assert xq.dtype == torch.int8 and s.shape == (B, S, H)
+    np.testing.assert_array_equal(
+        xq.numpy(), np.moveaxis(np.asarray(jq).reshape(B, H, S, D), 1, 2))
+    np.testing.assert_array_equal(
+        s.numpy(), np.moveaxis(np.asarray(js)[:, 0].reshape(B, H, S), 1, 2))
 
+
+def test_qk8_reference_matches_interpret_flash():
+    """``attention(qk8=True)`` on the CPU (``quant_rows`` + B3's plain
+    version) against the Pallas kernel it replaces, ``flash_attention_qk8``
+    in interpret mode with blocks of 128 (two query and two key blocks),
+    f32 inputs: within 1e-4 of max|ref| (f32 softmax, reduction order)."""
+    B, S, H, D = 1, 256, 2, 128
+    q, k, v = _inputs(B, S, H, D, 19)
+    assert tattn.qk8_tiles(S)
+    got = tattn.attention(*map(torch.from_numpy, (q, k, v)), qk8=True)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jattn.flash_attention_qk8(
+            *map(jnp.asarray, (q, k, v)), block_q=128, block_k=128))
+    assert np.abs(got.numpy() - want).max() <= 1e-4 * np.abs(want).max()
+    # and the int8 logits are not the float ones
+    ref = np.asarray(jattn.attention_reference(*map(jnp.asarray, (q, k, v))))
+    assert np.abs(got.numpy() - ref).max() > 1e-4 * np.abs(ref).max()
+
+
+def test_qk8_untileable_takes_unquantized_path():
+    """At an S whose blocks cannot tile (200), both packages return the
+    unquantized attention."""
+    q, k, v = _inputs(1, 200, 2, 128, 23)
+    assert not tattn.qk8_tiles(200)
+    got = tattn.attention(*map(torch.from_numpy, (q, k, v)), qk8=True)
+    want = jattn.flash_attention_qk8(*map(jnp.asarray, (q, k, v)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=OUT_ATOL)
+    ref, _ = tattn.attention_reference(*map(torch.from_numpy, (q, k, v)))
+    torch.testing.assert_close(got, ref, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("S", [13824, 12800, 14336, 200, 1000])
+def test_qk8_tiles_matches_jax_pick_blocks(S):
+    assert tattn.qk8_tiles(S) == jattn._pick_blocks(S, 1536, 1536)[2]
+
+
+def test_cpu_qk8_takes_plain_version():
+    q, k, v = map(torch.from_numpy, _inputs(1, 128, 2, 64, 29))
+    qq, sq = tattn.quant_rows(q)
+    kq, sk = tattn.quant_rows(k)
+    before = tattn.launches_qk8
+    out = tattn.flash_attention_qk8(qq, kq, v, sq, sk)
+    torch.testing.assert_close(
+        out, tattn.attention_qk8_reference(qq, kq, v, sq, sk), rtol=0, atol=0)
+    assert tattn.launches_qk8 == before
+
+
+@pytest.mark.parametrize("case", ["bf16_q", "f32_v", "d64", "scales", "stride"])
+def test_qk8_argument_checks(case):
+    qq = torch.zeros((1, 64, 2, 128), dtype=torch.int8)
+    v = torch.zeros((1, 64, 2, 128), dtype=torch.bfloat16)
+    s = torch.ones((1, 64, 2))
+    args = {
+        "bf16_q": (v, qq, v, s, s),
+        "f32_v": (qq, qq, v.float(), s, s),
+        "d64": (qq[..., :64], qq[..., :64], v[..., :64], s, s),
+        "scales": (qq, qq, v, s[:, :32], s),
+        "stride": (qq, torch.zeros((1, 64, 2, 256), dtype=torch.int8)[..., ::2],
+                   v, s, s),
+    }[case]
+    with pytest.raises((ValueError, TypeError)):
+        tattn._check_qk8(*args)

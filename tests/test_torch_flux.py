@@ -1,8 +1,9 @@
 """FLUX in the port (unitex_torch/models/flux) against the JAX package on
 one parameter tree: the port's seeded init makes it as numpy (the JAX
 init's own compile takes longer than the tests), ``params_from_jax``
-carries it into the port and ``jnp.asarray`` into JAX.  Tiny configs, f32,
-CPU."""
+carries it into the port and ``jnp.asarray`` into JAX.  The forward is
+held on the float tree, on its int8 serving trees and with int8-QK
+attention.  Tiny configs, f32, CPU."""
 
 import dataclasses
 
@@ -24,7 +25,9 @@ from unitex_torch.models.flux import model as tmodel
 from unitex_torch.models.flux import pipeline as tpipe
 from unitex_torch.models.flux import scheduler as tsched
 from unitex_torch.models.flux import vae as tvae
+from unitex_torch.models.flux import quantize as tquant
 from unitex_torch.models.flux.config import FluxConfig as TFluxConfig
+from unitex_torch.ops import attention as tattn
 from unitex_torch.utils.params import params_from_jax, tree_shapes
 
 # f32 on both sides; the differences are summation order over tiny depths
@@ -85,25 +88,98 @@ def test_random_init_has_jax_leaves(which):
         assert float(k.abs().max()) <= 1.0 / np.sqrt(k.shape[1])
 
 
-def test_flux_forward_matches_jax(flux_tree):
-    cfg_j, cfg_t = JFluxConfig.tiny(), TFluxConfig.tiny()
+# int8 trees, relative L2: summation order moves a few activations across
+# a rounding boundary, each then one int8 step (1/127 of its row's amax)
+# off, as the JAX package's own jit and eager forwards differ; measured
+# 0.4-1.1e-4.  Skipping the activation quantization moves the output by
+# 7e-4, a fault this limit catches.
+INT8_REL_L2 = 3e-4
+QK8_REL_L2 = 3e-2   # int8 q/k against float attention: the JAX package's limit
+INT8_MODES = {"w8a8": {}, "max_memory": {"weight_only_rest": True},
+              "fused": {"fuse": True}}
+
+
+def _forward_inputs():
+    """One transformer call: 8 text + 120 image tokens, S = 128 (which
+    tiles into blocks of 128, so ``attn_qk8`` quantizes there)."""
+    cfg = JFluxConfig.tiny()
     rng = np.random.default_rng(0)
-    S_img, S_txt = 24, 8
-    hs = rng.normal(size=(1, S_img, cfg_j.in_channels)).astype(np.float32)
-    ctx = rng.normal(size=(1, S_txt, cfg_j.joint_attention_dim)).astype(np.float32)
-    pooled = rng.normal(size=(1, cfg_j.pooled_projection_dim)).astype(np.float32)
-    t = np.array([0.7], np.float32)
-    g = np.array([3.5], np.float32)
-    img_ids = np.array(jpipe.latent_image_ids(4, 6, offset_y=2))  # writable
-    txt_ids = np.zeros((S_txt, 3), np.float32)
-    want = jmodel.flux_forward(
-        jax.tree.map(jnp.asarray, flux_tree), cfg_j, hs, ctx, t, pooled,
-        img_ids, txt_ids, guidance=g)
-    got = tmodel.flux_forward(
-        params_from_jax(flux_tree, "cpu"), cfg_t, *map(torch.from_numpy, (
-            hs, ctx, t, pooled, img_ids, txt_ids)), guidance=torch.from_numpy(g))
-    assert got.dtype == torch.float32 and got.shape == (1, S_img, 16)
+    return (rng.normal(size=(1, 120, cfg.in_channels)).astype(np.float32),
+            rng.normal(size=(1, 8, cfg.joint_attention_dim)).astype(np.float32),
+            np.array([0.7], np.float32),
+            rng.normal(size=(1, cfg.pooled_projection_dim)).astype(np.float32),
+            np.array(jpipe.latent_image_ids(10, 12, offset_y=2)),  # writable
+            np.zeros((8, 3), np.float32), np.array([3.5], np.float32))
+
+
+FORWARD_INPUTS = _forward_inputs()
+
+
+def _forwards(tree, inputs, tcfg=None):
+    """(port, JAX) flux_forward of one numpy tree on the same inputs."""
+    *args, g = inputs
+    want = jmodel.flux_forward(jax.tree.map(jnp.asarray, tree),
+                               JFluxConfig.tiny(), *args, guidance=g)
+    got = tmodel.flux_forward(params_from_jax(tree, "cpu"),
+                              tcfg or TFluxConfig.tiny(),
+                              *map(torch.from_numpy, args),
+                              guidance=torch.from_numpy(g))
+    return got, np.asarray(want)
+
+
+def test_flux_forward_matches_jax(flux_tree):
+    got, want = _forwards(flux_tree, FORWARD_INPUTS)
+    assert got.dtype == torch.float32 and got.shape == (1, 120, 16)
     assert _rel_err(got.numpy(), want) <= REL
+
+
+@pytest.mark.parametrize("mode", list(INT8_MODES))
+def test_flux_forward_int8_matches_jax(flux_tree, mode):
+    """flux_forward on the W8A8, "max_memory" and fused serving trees
+    (quantized by the port, equal to the JAX package's by
+    tests/test_torch_quant.py) against JAX's flux_forward on the same
+    trees, attn_qk8=False."""
+    tree = _from_port(tquant.quantize_flux_params(
+        params_from_jax(flux_tree, "cpu"), **INT8_MODES[mode]))
+    got, want = _forwards(tree, FORWARD_INPUTS)
+    got = got.numpy()
+    assert np.linalg.norm(got - want) / np.linalg.norm(want) <= INT8_REL_L2
+
+
+def test_flux_forward_qk8_matches_jax(flux_tree, monkeypatch):
+    """``attn_qk8=True`` runs B3's plain version in every block on the CPU
+    (the JAX package ignores qk8 off the TPU): within JAX's 3 % limit of
+    its float attention."""
+    calls = []
+    plain = tattn.attention_qk8_reference
+    monkeypatch.setattr(tattn, "attention_qk8_reference",
+                        lambda *a: calls.append(1) or plain(*a))
+    tcfg = dataclasses.replace(TFluxConfig.tiny(), attn_qk8=True)
+    got, want = _forwards(flux_tree, FORWARD_INPUTS, tcfg=tcfg)
+    got = got.numpy()
+    assert len(calls) == tcfg.num_layers + tcfg.num_single_layers
+    rel_l2 = np.linalg.norm(got - want) / np.linalg.norm(want)
+    assert 0 < rel_l2 < QK8_REL_L2
+
+
+def test_attached_forward_equals_merged(flux_tree):
+    """On a float tree the attached LoRA delta is the merged one (two
+    adapters, one re-attached on top): within 1e-5 of max|out|."""
+    rng = np.random.default_rng(3)
+    base = params_from_jax(flux_tree, "cpu")
+    shapes = tlora.init_lora_params(torch.Generator().manual_seed(0), base,
+                                    rank=2, device="cpu")
+    a, b = (jax.tree.map(lambda x: torch.from_numpy(
+        0.3 * rng.normal(size=x.shape).astype(np.float32)), shapes)
+        for _ in range(2))
+    *args, g = map(torch.from_numpy, FORWARD_INPUTS)
+    cfg = TFluxConfig.tiny()
+    attached = tlora.attach_lora(tlora.attach_lora(base, [(a, 1.0)]),
+                                 [(b, 0.5)])
+    att = tmodel.flux_forward(attached, cfg, *args, guidance=g)
+    mer = tmodel.flux_forward(tlora.merge_lora(base, [(a, 1.0), (b, 0.5)]),
+                              cfg, *args, guidance=g)
+    assert _rel_err(att.numpy(), mer.numpy()) <= 1e-5
 
 
 @pytest.mark.parametrize("mode", ["encode", "encode_sample", "decode"])
@@ -146,11 +222,19 @@ def test_group_norm_two_pass_variance():
     np.testing.assert_allclose(got.numpy(), np.asarray(jax_out), atol=1e-4)
 
 
+def _lora_shapes(key, flux_tree, rank):
+    """The JAX package's LoRA tree for ``flux_tree``, shapes only (traced,
+    not compiled)."""
+    return jax.eval_shape(
+        lambda k: jlora.init_lora_params(k, flux_tree, rank=rank),
+        jax.random.key(key))
+
+
 def test_merge_lora_matches_jax(flux_tree):
     rng = np.random.default_rng(3)
     adapters = []
     for key in (5, 6):
-        lo = _np(jlora.init_lora_params(jax.random.key(key), flux_tree, rank=3))
+        lo = _lora_shapes(key, flux_tree, 3)
         adapters.append(jax.tree.map(
             lambda x: rng.normal(size=x.shape).astype(np.float32), lo))
     weights = (1.0, 0.5)
@@ -177,8 +261,7 @@ def test_init_lora_is_zero_effect(flux_tree):
     base = params_from_jax(flux_tree, "cpu")
     lo = tlora.init_lora_params(torch.Generator().manual_seed(0), base, rank=4,
                                 device="cpu")
-    assert tree_shapes(lo) == tree_shapes(
-        _np(jlora.init_lora_params(jax.random.key(0), flux_tree, rank=4)))
+    assert tree_shapes(lo) == tree_shapes(_lora_shapes(0, flux_tree, 4))
     merged = tlora.merge_lora(base, [(lo, 1.0)])
     torch.testing.assert_close(merged["dual_blocks"]["ff"]["in"]["kernel"],
                                base["dual_blocks"]["ff"]["in"]["kernel"])
@@ -239,10 +322,11 @@ def test_run_flux_pipeline_matches_jax(flux_tree, vae_tree):
 
 
 def test_deferred_branches_raise():
-    with pytest.raises(NotImplementedError):
-        tmodel.flux_forward({}, dataclasses.replace(TFluxConfig.tiny(),
-                                                    attn_qk8=True),
-                            *[None] * 6)
+    for parallel in ({"seq_axis": "seq"}, {"tp_axis": "model"}):
+        with pytest.raises(NotImplementedError, match="parallelism"):
+            tmodel.flux_forward({}, dataclasses.replace(TFluxConfig.tiny(),
+                                                        **parallel),
+                                *[None] * 6)
     with pytest.raises(NotImplementedError):
         tpipe.run_flux_pipeline(None, TFluxConfig.tiny(), None,
                                 tvae.VAEConfig.tiny(), None,

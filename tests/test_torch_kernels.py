@@ -143,3 +143,94 @@ def test_flash_attention_function_gradients(card):
     for got, ref in ((q.grad, qf.grad), (k.grad, kf.grad), (v.grad, vf.grad)):
         err = (got.float() - ref).abs().max().item()
         assert err <= max(GRAD_REL * ref.abs().max().item(), GRAD_ABS)
+
+
+def _check_qk8_against_plain(qq, kq, v, sq, sk):
+    """B3 against its f32 plain version on the same int8 inputs: the B1
+    output limit (rounding P and out to bf16)."""
+    before = attn.launches_qk8
+    out = attn.flash_attention_qk8(qq, kq, v, sq, sk)
+    torch.cuda.synchronize()
+    assert attn.launches_qk8 == before + 1
+    ref = attn.attention_qk8_reference(qq, kq, v.float(), sq, sk)
+    assert out.dtype == torch.bfloat16 and out.shape == v.shape
+    out_tol = min(OUT_TOL, OUT_REL * ref.abs().max().item())
+    assert (out.float() - ref).abs().max().item() <= out_tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 63, 130, 1000])
+def test_flash_qk8_matches_plain(card, S):
+    """Whole and ragged tiles (128 queries and 64 keys a step)."""
+    q, k, v = _qkv(S, 4, 100 + S, card)
+    qq, sq = attn.quant_rows(q)
+    kq, sk = attn.quant_rows(k)
+    _check_qk8_against_plain(qq, kq, v, sq, sk)
+
+
+@pytest.mark.cuda
+def test_flash_qk8_reads_strided_views(card):
+    """int8 q/k, bf16 v and the f32 scales as views into fused tensors."""
+    gen = torch.Generator(device=card).manual_seed(5)
+    qk = torch.randint(-127, 128, (2, 300, 2, 4, 128), generator=gen,
+                       device=card, dtype=torch.int8)
+    scales = torch.rand((2, 300, 2, 4), generator=gen, device=card) * 0.02
+    v = torch.randn((2, 300, 3, 4, 128), generator=gen, device=card).bfloat16()
+    qq, kq = qk.unbind(2)
+    sq, sk = scales.unbind(2)
+    assert not (qq.is_contiguous() or sq.is_contiguous())
+    _check_qk8_against_plain(qq, kq, v[:, :, 2], sq, sk)
+
+
+@pytest.mark.cuda
+def test_flash_qk8_refuses_what_it_does_not_take(card):
+    q, k, v = _qkv(64, 2, 0, card)
+    qq, sq = attn.quant_rows(q)
+    kq, sk = attn.quant_rows(k)
+    with pytest.raises(TypeError):      # bf16 where int8 belongs
+        attn.flash_attention_qk8(q, kq, v, sq, sk)
+    with pytest.raises(TypeError):      # f32 v
+        attn.flash_attention_qk8(qq, kq, v.float(), sq, sk)
+    with pytest.raises(ValueError):     # D = 64
+        attn.flash_attention_qk8(qq[..., :64], kq[..., :64], v[..., :64], sq, sk)
+    with pytest.raises(ValueError):     # a CPU tensor among CUDA ones
+        attn.flash_attention_qk8(qq, kq.cpu(), v, sq, sk)
+
+
+@pytest.mark.cuda
+def test_attention_qk8_takes_b3_where_jax_quantizes(card):
+    """``attention(qk8=True)`` launches B3 at an S that tiles into blocks
+    of 128 and B1 at one that does not, as the JAX package quantizes only
+    where its blocks tile."""
+    for S, b3 in ((256, 1), (300, 0)):
+        q, k, v = _qkv(S, 2, S, card)
+        before = (attn.launches, attn.launches_qk8)
+        out = attn.attention(q, k, v, qk8=True)
+        torch.cuda.synchronize()
+        assert (attn.launches - before[0], attn.launches_qk8 - before[1]) == (
+            1 - b3, b3)
+        if b3:
+            qq, sq = attn.quant_rows(q)
+            kq, sk = attn.quant_rows(k)
+            ref = attn.attention_qk8_reference(qq, kq, v.float(), sq, sk)
+        else:
+            ref, _ = attn.attention_reference(q.float(), k.float(), v.float())
+        assert (out.float() - ref).abs().max().item() <= min(
+            OUT_TOL, OUT_REL * ref.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [8, 300])
+def test_int8_matmul_on_card_matches_cpu(card, m):
+    """The W8A8 product on the card (``torch._int_mm`` on the kernel stored
+    d_in-contiguous; fewer than 17 rows padded with zero rows) against the
+    same function on the CPU: the integer sum is exact on both, and the
+    dequant is the same f32 arithmetic, so within f32 rounding."""
+    from unitex_torch.ops.quant import int8_matmul, quantize_kernel
+
+    gen = torch.Generator().manual_seed(m)
+    x = torch.randn((2, m, 256), generator=gen)
+    wq, ws = quantize_kernel(torch.randn((256, 48), generator=gen))
+    want = int8_matmul(x, wq, ws)
+    got = int8_matmul(x.to(card), wq.to(card), ws.to(card))
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-6, atol=1e-6)

@@ -49,13 +49,13 @@ def _numpy_tree(tree):
     return jax.tree.map(lambda t: t.numpy(), tree)
 
 
-def _port_config():
+def _port_config(diffusion=DIFFUSION):
     jc = small_config()
     return tconfig.PipelineConfig(
         camera=tconfig.CameraConfig(**dataclasses.asdict(jc.camera)),
         mesh=tconfig.MeshConfig(**dataclasses.asdict(jc.mesh)),
         bake=tconfig.BakeConfig(**dataclasses.asdict(jc.bake)),
-        diffusion=tconfig.DiffusionConfig(**DIFFUSION),
+        diffusion=tconfig.DiffusionConfig(**diffusion),
     )
 
 
@@ -118,6 +118,136 @@ def test_pipeline_artifacts_match_jax(assets, tmp_path):
     scored = [v for v in report["artifacts"].values() if v]
     assert len(scored) >= 10, report
     assert report["worst_psnr"] >= 35.0, report
+
+
+@pytest.fixture(scope="module")
+def int8_trees():
+    """A tiny W8A8 FLUX tree (the port's seeded float tree quantized by the
+    port, which tests/test_torch_quant.py holds equal to the JAX
+    package's), a tiny VAE and two nonzero rank-2 adapters, as numpy."""
+    from unitex_torch.models.flux.quantize import quantize_flux_params
+
+    gen = torch.Generator()
+    flux = t_init_flux(gen.manual_seed(0), TFluxConfig.tiny(), device="cpu")
+    rng = np.random.default_rng(3)
+    trees = {"flux": _numpy_tree(quantize_flux_params(flux)),
+        "vae": _numpy_tree(t_init_vae(gen.manual_seed(1), TVAEConfig.tiny(),
+                                      device="cpu"))}
+    for name, key in (("texture", 2), ("delight", 3)):
+        lora = _numpy_tree(t_init_lora(gen.manual_seed(key), flux, rank=2,
+                                       device="cpu"))
+        trees[name] = jax.tree.map(
+            lambda x: (0.02 * rng.standard_normal(x.shape)).astype(np.float32)
+            if not np.any(x) else x, lora)
+    return trees
+
+
+def test_int8_infer_mv_matches_jax(int8_trees, tmp_path):
+    """The texture and delight passes of ``int8_serving=True``: W8A8 base
+    kernels with both adapters attached at run time (``attach_lora``, the
+    JAX package's int8 route), on one condition grid and reference image,
+    with the same noise, on a 32×192 strip (S = 792).  The returned grids
+    (the delighted strip, permuted) agree to 5e-4 in [0, 1] image units:
+    summation order moves a few activations across an int8 rounding
+    boundary (one step is 1/127 of the row's amax; the JAX package's own
+    jit and eager forwards differ so), measured 6.9e-5 here."""
+    rng = np.random.default_rng(4)
+    grid = {k: rng.uniform(size=(64, 96, 3)).astype(np.float32)
+            for k in ("normal", "ccm")}
+    ref_image = rng.uniform(size=(32, 32, 3)).astype(np.float32)
+    diffusion = dict(DIFFUSION, height=32, width=192)
+
+    jcfg = dataclasses.replace(small_config(),
+                               diffusion=DiffusionConfig(**diffusion))
+    jpipe = JPipeline(pretrain_models=None, seed=63, config=jcfg,
+                      int8_serving=True, save_artifacts=False)
+    jpipe.flux_cfg, jpipe.vae_cfg = JFluxConfig.tiny(), JVAEConfig.tiny()
+    for attr, key in (("transformer_params", "flux"), ("vae_params", "vae"),
+                      ("texture_lora", "texture"), ("delight_lora", "delight")):
+        setattr(jpipe, attr, jax.tree.map(jax.numpy.asarray, int8_trees[key]))
+    jpipe._flux_loaded = True
+    want = jpipe.infer_mv_stage(
+        str(tmp_path), ref_image,
+        {k: jax.numpy.asarray(v) for k, v in grid.items()}, apply_sr=False)
+
+    tpipe = TPipeline(seed=63, config=_port_config(diffusion),
+                      int8_serving=True, save_artifacts=False, device="cpu")
+    tpipe.flux_cfg, tpipe.vae_cfg = TFluxConfig.tiny(), TVAEConfig.tiny()
+    for attr, key in (("transformer_params", "flux"), ("vae_params", "vae"),
+                      ("texture_lora", "texture"), ("delight_lora", "delight")):
+        setattr(tpipe, attr, params_from_jax(int8_trees[key], "cpu"))
+    tpipe._flux_loaded = True
+    got = tpipe.infer_mv_stage(str(tmp_path), ref_image,
+                               {k: torch.from_numpy(v) for k, v in grid.items()})
+    assert tuple(got.shape) == (64, 96, 3)
+    assert np.abs(got.numpy() - np.asarray(want)).max() <= 5e-4
+
+
+@pytest.mark.parametrize("mode,int4", [(True, False), ("max_memory", False),
+                                       (True, True)])
+def test_params_cache_round_trip(tmp_path, mode, int4):
+    """The port builds the tiny serving tree once and writes it; a second
+    pipeline reads it back (int4: the re-gridded unpack of the written
+    pack); the JAX pipeline reads and validates the port's file; a file
+    with another fingerprint is rebuilt and overwritten."""
+    from unitex_torch.ops.quant import pack_int4_tree, unpack_int4_tree
+
+    def port_pipe():
+        p = TPipeline(config=_port_config(), int8_serving=mode,
+                      params_cache=str(tmp_path), params_cache_int4=int4,
+                      device="cpu")
+        p.flux_cfg, p.vae_cfg = TFluxConfig.tiny(), TVAEConfig.tiny()
+        p._init_random_weights()
+        return p
+
+    first = port_pipe()
+    kind = TPipeline.RANDOM_KIND
+    path = first._cache_path(kind)
+    assert os.path.exists(path) and kind != "flux_random_s0"
+    second = port_pipe()
+    want = first.transformer_params
+    if int4:
+        want = unpack_int4_tree(pack_int4_tree(want))
+    g, w = (_flat(t) for t in (second.transformer_params, want))
+    assert sorted(g) == sorted(w)
+    for k in w:
+        torch.testing.assert_close(g[k], w[k], rtol=0, atol=0)
+    # the card's int8 GEMM layout is restored on load
+    k8 = second.transformer_params["single_blocks"]["proj_out"]["kernel_int8"]
+    assert k8.stride()[-2] == 1
+    # the JAX pipeline reads the port's file under the same kind and mode
+    jpipe = JPipeline(pretrain_models=None, config=small_config(),
+                      int8_serving=mode, params_cache=str(tmp_path),
+                      params_cache_int4=int4)
+    jpipe.flux_cfg = JFluxConfig.tiny()
+    jtree = jpipe._load_cached_tree(kind)
+    assert jtree is not None
+    np.testing.assert_array_equal(
+        np.asarray(jtree["dual_blocks"]["ff"]["in"]["bias"]).astype(np.float32),
+        first.transformer_params["dual_blocks"]["ff"]["in"]["bias"]
+        .float().numpy())
+    # a stale fingerprint: rebuilt from the seed and written anew
+    from unitex_torch.utils.param_cache import load_meta, save_params
+
+    save_params(path, {"x": torch.zeros(1)}, meta={"version": 0})
+    third = port_pipe()
+    assert load_meta(path) == third._cache_meta(kind)
+    torch.testing.assert_close(
+        _flat(third.transformer_params)["x_embedder/kernel"],
+        _flat(first.transformer_params)["x_embedder/kernel"], rtol=0, atol=0)
+
+
+def _flat(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        path = f"{prefix}/{k}" if prefix else k
+        out.update(_flat(v, path) if isinstance(v, dict) else {path: v})
+    return out
+
+
+def test_int8_serving_mode_is_checked():
+    with pytest.raises(ValueError):
+        TPipeline(config=_port_config(), int8_serving="int4", device="cpu")
 
 
 def test_weightless_stand_in_is_not_ported():

@@ -240,3 +240,17 @@ def test_unported_render_options_raise(kwargs):
     # the options' off values and the memory knob are accepted
     tcond.render_views(mesh, c2ws, intr, (8, 8), supersample=1, pixel_tile=64,
                        render_uv=False)
+
+
+@pytest.mark.parametrize("row_chunk", [16, 48])
+def test_render_row_chunk_gives_the_unchunked_result(sphere, row_chunk):
+    """The low-memory serving mode's ``row_chunk`` (and small
+    ``tile_batch``) computes the per-pixel buffers in row slabs where the
+    chunk divides H (16 of 64), whole otherwise (48): the same buffers."""
+    v, host = sphere
+    mesh = tmesh.Mesh(_t(v), _t(host.faces, torch.int64))
+    want = tcond.render_geometry_condition(mesh, view_size=64)
+    got = tcond.render_geometry_condition(mesh, view_size=64,
+                                          row_chunk=row_chunk, tile_batch=8)
+    for key in ("alpha", "ccm", "normal"):
+        torch.testing.assert_close(got[key], want[key], rtol=0, atol=0)

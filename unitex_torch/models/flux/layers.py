@@ -14,17 +14,24 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from ...ops.quant import int8_matmul, int8_weight_only_matmul
+
 Params = Dict[str, torch.Tensor]
 
 
 def linear(p: Params, x: torch.Tensor) -> torch.Tensor:
-    """x @ kernel (+ bias).  Only the plain-kernel branch is ported: int8
-    kernels and runtime-attached LoRA raise ``NotImplementedError``."""
-    if "kernel" not in p or "lora_a" in p:
-        raise NotImplementedError(
-            f"linear form not ported (leaves {sorted(p)}): int8 serving and "
-            "attached LoRA are deferred")
-    y = x @ p["kernel"].to(x.dtype)
+    """x @ kernel (+ bias), dispatched on the leaf names as in the JAX
+    package: ``kernel_int8`` (W8A8), ``kernel_int8_wo`` (weight-only int8)
+    or ``kernel``; a runtime-attached LoRA (``lora_a``/``lora_b``,
+    ``lora.attach_lora``) adds its exact low-rank delta in x.dtype."""
+    if "kernel_int8" in p:
+        y = int8_matmul(x, p["kernel_int8"], p["scale"])
+    elif "kernel_int8_wo" in p:
+        y = int8_weight_only_matmul(x, p["kernel_int8_wo"], p["scale"])
+    else:
+        y = x @ p["kernel"].to(x.dtype)
+    if "lora_a" in p:
+        y = y + (x @ p["lora_a"].to(x.dtype)) @ p["lora_b"].to(x.dtype)
     if "bias" in p:
         y = y + p["bias"].to(x.dtype)
     return y
@@ -92,9 +99,11 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     return out.reshape(xf.shape).to(x.dtype)
 
 
-def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
-    """Attention over [B, S, H, D]: the flash-attention kernel B1 on a CUDA
-    tensor, its plain version on a CPU tensor (ops/attention.py)."""
+def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+         qk8: bool = False):
+    """Attention over [B, S, H, D] (ops/attention.attention): kernel B1, or
+    with ``qk8`` the int8-QK kernel B3, on a CUDA tensor; their plain
+    versions on a CPU tensor."""
     from ...ops.attention import attention
 
-    return attention(q, k, v)
+    return attention(q, k, v, qk8=qk8)

@@ -6,9 +6,11 @@ Layer-stacked: block kernels are [L, d_in, d_out], so a LoRA leaf is
 ``scale · a @ b`` into the targeted kernels.  Multiple adapters compose by
 summed merge (the set_adapters weights semantics).  ``merge_lora_layer``
 is the differentiable merge of one layer that training uses.
+``attach_lora`` is the unmerged form that int8 serving uses: the adapters
+ride beside the (quantized) kernels as ``lora_a``/``lora_b`` and
+``layers.linear`` adds their delta at call time.
 
-Deferred: ``attach_lora`` (the runtime-attached form for int8 serving)
-and the PEFT safetensors I/O.
+Deferred: the PEFT safetensors I/O.
 """
 
 from __future__ import annotations
@@ -55,7 +57,8 @@ def init_lora_params(
     device="cuda",
 ) -> Dict[str, Any]:
     """Zero-effect LoRA tree (a ~ N(0, 1/r), b = 0 — the PEFT default), f32
-    on ``device``; only the kernel shapes of ``params`` are read."""
+    on ``device``; only the kernel shapes of ``params`` are read, from a
+    float or an int8 (``kernel_int8``/``kernel_int8_wo``) serving tree."""
     dev = resolve_device(device)
 
     def make(kernel):
@@ -64,14 +67,20 @@ def init_lora_params(
         a.normal_(0.0, 1.0 / math.sqrt(rank), generator=generator)
         return {"a": a, "b": torch.zeros((L, rank, d_out), device=dev)}
 
+    def kernel_of(node):
+        for k in ("kernel", "kernel_int8", "kernel_int8_wo"):
+            if k in node:
+                return node[k]
+        raise KeyError(f"no kernel leaf among {sorted(node)}")
+
     lora: Dict[str, Any] = {"dual_blocks": {}, "single_blocks": {}}
     for path in DUAL_TARGETS:
         _ensure_set(lora["dual_blocks"], path,
-                    make(_get(params["dual_blocks"], path)["kernel"]))
+                    make(kernel_of(_get(params["dual_blocks"], path))))
     if include_single:
         for path in SINGLE_TARGETS:
             _ensure_set(lora["single_blocks"], path,
-                        make(_get(params["single_blocks"], path)["kernel"]))
+                        make(kernel_of(_get(params["single_blocks"], path))))
     return lora
 
 
@@ -100,6 +109,42 @@ def merge_lora(
             continue
         merged = _walk(merged, lora, weight, merged_kernel)
     return merged
+
+
+def attach_lora(
+    params: Dict[str, Any],
+    loras: Iterable[Tuple[Dict[str, Any], float]],
+) -> Dict[str, Any]:
+    """Runtime-applied (unmerged) LoRA: each targeted linear gains
+    ``lora_a``/``lora_b`` and ``layers.linear`` adds ``(x @ a) @ b``, so
+    int8 base kernels stay as they are.  Adapters of weight 0 are dropped;
+    the live ones are concatenated along the rank with their weight folded
+    into ``a`` (the summed merge of :func:`merge_lora`), after the delta a
+    node already carries (re-attaching composes).  Untargeted leaves are
+    shared with ``params``."""
+    live = [(l, w) for l, w in loras if l is not None and w != 0.0]
+    if not live:
+        return params
+
+    def walk(base, deltas):
+        out = {}
+        for k, v in base.items():
+            pairs = [(d[k], w) for d, w in deltas if k in d]
+            if not isinstance(v, dict) or not pairs:
+                out[k] = v
+            elif all("a" in d and "b" in d for d, _ in pairs):
+                new_a = [d["a"] * w for d, w in pairs]
+                new_b = [d["b"] for d, _ in pairs]
+                if "lora_a" in v:
+                    new_a.insert(0, v["lora_a"])
+                    new_b.insert(0, v["lora_b"])
+                out[k] = {**v, "lora_a": torch.cat(new_a, dim=-1),
+                          "lora_b": torch.cat(new_b, dim=-2)}
+            else:
+                out[k] = walk(v, pairs)
+        return out
+
+    return walk(params, live)
 
 
 def merge_lora_layer(

@@ -5,7 +5,10 @@ timestep + guidance + pooled embeddings, 3-axis RoPE, QK RMS-norm,
 GELU-tanh MLPs.  Block parameters stay stacked [L, ...] as in the JAX
 package; the forward walks them with a Python loop (the JAX ``lax.scan``),
 taking views of each layer's slice.  Attention goes through ``sdpa``:
-kernel B1 on the card, with kernels B2a/B2b as its backward.
+kernel B1 on the card, with kernels B2a/B2b as its backward, or with
+``cfg.attn_qk8`` the int8-QK serving kernel B3.  The forward dispatches on
+the leaf names, so it serves the bf16, int8 and fused trees of
+``quantize.py`` alike.
 
 The forward runs under autograd (serving callers wrap it in
 ``torch.no_grad``).  ``cfg.remat`` runs each block under
@@ -134,12 +137,19 @@ def _heads(x: torch.Tensor, heads: int) -> torch.Tensor:
 def _joint_attention(p, cfg, hidden, context, cos, sin):
     """Dual-stream joint attention: text tokens first in the sequence."""
     H = cfg.num_attention_heads
-    q = _heads(linear(p["to_q"], hidden), H)
-    k = _heads(linear(p["to_k"], hidden), H)
-    v = _heads(linear(p["to_v"], hidden), H)
-    cq = _heads(linear(p["add_q_proj"], context), H)
-    ck = _heads(linear(p["add_k_proj"], context), H)
-    cv = _heads(linear(p["add_v_proj"], context), H)
+    if "qkv_fused" in p:
+        # fused serving form (quantize.py): one wide projection per stream
+        q, k, v = (_heads(x, H) for x in torch.chunk(
+            linear(p["qkv_fused"], hidden), 3, dim=-1))
+        cq, ck, cv = (_heads(x, H) for x in torch.chunk(
+            linear(p["add_qkv_fused"], context), 3, dim=-1))
+    else:
+        q = _heads(linear(p["to_q"], hidden), H)
+        k = _heads(linear(p["to_k"], hidden), H)
+        v = _heads(linear(p["to_v"], hidden), H)
+        cq = _heads(linear(p["add_q_proj"], context), H)
+        ck = _heads(linear(p["add_k_proj"], context), H)
+        cv = _heads(linear(p["add_v_proj"], context), H)
     q = rms_norm(q, p["norm_q"])
     k = rms_norm(k, p["norm_k"])
     cq = rms_norm(cq, p["norm_added_q"])
@@ -147,19 +157,25 @@ def _joint_attention(p, cfg, hidden, context, cos, sin):
     q = apply_rope(torch.cat([cq, q], dim=1), cos, sin)
     k = apply_rope(torch.cat([ck, k], dim=1), cos, sin)
     v = torch.cat([cv, v], dim=1)
-    out = sdpa(q, k, v)
+    out = sdpa(q, k, v, qk8=cfg.attn_qk8)
     out = out.reshape(out.shape[0], out.shape[1], -1)
     S_txt = context.shape[1]
     ctx_out, img_out = out[:, :S_txt], out[:, S_txt:]
     return linear(p["to_out"], img_out), linear(p["to_add_out"], ctx_out)
 
 
-def _single_attention(p, cfg, x, cos, sin):
+def _single_attention(p, cfg, x, cos, sin, qkv=None):
+    """``qkv``: the q/k/v projections, when the fused serving projection
+    has already computed them."""
     H = cfg.num_attention_heads
-    q = rms_norm(_heads(linear(p["to_q"], x), H), p["norm_q"])
-    k = rms_norm(_heads(linear(p["to_k"], x), H), p["norm_k"])
-    v = _heads(linear(p["to_v"], x), H)
-    out = sdpa(apply_rope(q, cos, sin), apply_rope(k, cos, sin), v)
+    if qkv is None:
+        qkv = (linear(p["to_q"], x), linear(p["to_k"], x), linear(p["to_v"], x))
+    qf, kf, vf = qkv
+    q = rms_norm(_heads(qf, H), p["norm_q"])
+    k = rms_norm(_heads(kf, H), p["norm_k"])
+    v = _heads(vf, H)
+    out = sdpa(apply_rope(q, cos, sin), apply_rope(k, cos, sin), v,
+               qk8=cfg.attn_qk8)
     return out.reshape(out.shape[0], out.shape[1], -1)
 
 
@@ -189,8 +205,15 @@ def _dual_block(p, cfg, hidden, context, temb, cos, sin):
 def _single_block(p, cfg, x, temb, cos, sin):
     sh, sc, gate = _ada_ln_zero(p["norm"], temb, 3)
     x_norm = layer_norm(x) * (1 + sc) + sh
-    attn_out = _single_attention(p["attn"], cfg, x_norm, cos, sin)
-    mlp_out = gelu_tanh(linear(p["proj_mlp"], x_norm))
+    if "qkvm_fused" in p:
+        d = cfg.hidden_size
+        fused = linear(p["qkvm_fused"], x_norm)
+        qkv = (fused[..., :d], fused[..., d:2 * d], fused[..., 2 * d:3 * d])
+        attn_out = _single_attention(p["attn"], cfg, x_norm, cos, sin, qkv)
+        mlp_out = gelu_tanh(fused[..., 3 * d:])
+    else:
+        attn_out = _single_attention(p["attn"], cfg, x_norm, cos, sin)
+        mlp_out = gelu_tanh(linear(p["proj_mlp"], x_norm))
     merged = torch.cat([attn_out, mlp_out], dim=-1)
     return x + gate * linear(p["proj_out"], merged)
 
@@ -225,9 +248,9 @@ def flux_forward(
     kernels inside the block (the JAX trainer's ``merge_lora`` of the whole
     tree before the forward, one layer at a time).  Returns
     [B, S_img, C_in] f32."""
-    if cfg.attn_qk8 or cfg.seq_axis or cfg.tp_axis:
+    if cfg.seq_axis or cfg.tp_axis:
         raise NotImplementedError(
-            "int8-QK attention and sequence/tensor parallelism are not ported")
+            "sequence/tensor parallelism is not ported")
     dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
     hidden = linear(params["x_embedder"], hidden_states.to(dtype))
     context = linear(params["context_embedder"], encoder_hidden_states.to(dtype))

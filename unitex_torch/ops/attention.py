@@ -14,11 +14,22 @@ the counterparts of ``_flash_bwd_dkv_kernel`` and ``_flash_bwd_dq_kernel``.
 ``FlashAttention`` ties the two into a ``torch.autograd.Function``, so
 ``attention`` on a CUDA tensor is differentiable through the kernels.
 
-A tensor on the CPU takes :func:`attention_reference` (with torch
-autograd) and :func:`attention_backward_reference`, the plain PyTorch
-versions of the same functions; a CUDA tensor launches the kernels or
-raises.  The int8-QK variant B3 is not ported: ``flux_forward`` refuses
-``attn_qk8`` with ``NotImplementedError``.
+``flash_attention_qk8`` is the serving variant with an int8 Q·Kᵀ
+(``csrc/flash_attn_qk8.cu``, kernel B3), the counterpart of
+``_flash_kernel_qk8``: q and k quantized per row by :func:`quant_rows`
+(int8 [B, S, H, D] and f32 scales [B, S, H]), v bf16, forward only.
+``attention(q, k, v, qk8=True)`` quantizes and launches it when the JAX
+package would (:func:`qk8_tiles`: S tiles into blocks of at most 1536 that
+are multiples of 128), and otherwise takes the unquantized path, as
+``flash_attention_qk8`` falls back to the reference there.
+
+A tensor on the CPU takes the plain PyTorch versions of the same
+functions: :func:`attention_reference` (with torch autograd),
+:func:`attention_backward_reference` and :func:`attention_qk8_reference`;
+a CUDA tensor launches the kernels or raises.  Unlike the JAX package,
+whose ``attention`` ignores ``qk8`` off the TPU, ``qk8=True`` on a CPU
+tensor runs B3's plain version: the port's CPU path always means the
+plain versions of its kernels.
 """
 
 from __future__ import annotations
@@ -29,13 +40,17 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from .quant import quantize_rows
+
 KERNEL = "flash_attn_fwd"
 KERNEL_BWD = "flash_attn_bwd"
+KERNEL_QK8 = "flash_attn_qk8"
 
 #: launches of each kernel since import; callers may reset them to 0
 launches = 0            # B1
 launches_bwd_dkv = 0    # B2a
 launches_bwd_dq = 0     # B2b
+launches_qk8 = 0        # B3
 
 _fns: Dict[str, object] = {}  # bound ctypes functions by name
 
@@ -48,14 +63,24 @@ def attention_reference(
     [B·H, S] f32).  The logits are cast to f32 after the product and the
     probabilities back to the input dtype before P·V, as in the JAX
     package's ``attention_reference``."""
-    B, S, H, D = q.shape
-    if scale is None:
-        scale = 1.0 / math.sqrt(D)
-    logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
+    B, S, H, _ = q.shape
+    logits = _logits(q, k, scale)
     lse = torch.logsumexp(logits, dim=-1)
-    probs = torch.softmax(logits, dim=-1).to(q.dtype)
-    out = torch.einsum("bhqk,bkhd->bqhd", probs, v)
-    return out, lse.reshape(B * H, S)
+    return _softmax_pv(logits, v), lse.reshape(B * H, S)
+
+
+def _logits(q: torch.Tensor, k: torch.Tensor,
+            scale: Optional[float] = None) -> torch.Tensor:
+    """f32 Q·Kᵀ·scale, [B, H, S, S]: the product in the inputs' dtype."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    return torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
+
+
+def _softmax_pv(logits: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """softmax(logits) in f32, rounded to v's dtype, then P·V."""
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
 def _row_dot(g: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
@@ -276,10 +301,111 @@ class FlashAttention(torch.autograd.Function):
         return flash_attention_backward(q, k, v, out, lse, g.contiguous())
 
 
-def attention(q, k, v):
-    """q/k/v [B, S, H, D] -> [B, S, H, D], differentiable: kernels B1/B2a/B2b
-    on a CUDA tensor, the plain version under torch autograd on a CPU
-    tensor."""
+def quant_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-row int8 quantization over D, as the JAX package's
+    ``_quant_rows`` (``ops/quant.quantize_rows``, the W8A8 activations'):
+    x [B, S, H, D] -> (int8 [B, S, H, D], f32 scales [B, S, H])."""
+    xq, s = quantize_rows(x)
+    return xq, s[..., 0]
+
+
+def attention_qk8_reference(
+    qq: torch.Tensor, kq: torch.Tensor, v: torch.Tensor, sq: torch.Tensor,
+    sk: torch.Tensor, scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Plain int8-QK attention: qq/kq int8 and v [B, S, H, D], sq/sk f32
+    [B, S, H] -> out [B, S, H, D] in v's dtype.  The logits are
+    float(qq·kqᵀ) · (sq · scale) · sk in that order, the JAX kernel's; the
+    integer product is exact in f32 (|Σ| ≤ 127²·D < 2^24 for D ≤ 1024)."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(qq.shape[-1])
+    logits = torch.einsum("bqhd,bkhd->bhqk", qq.float(), kq.float())
+    logits = (logits * (sq.permute(0, 2, 1)[..., None] * scale)
+              * sk.permute(0, 2, 1)[:, :, None, :])
+    return _softmax_pv(logits, v)
+
+
+def _check_qk8(qq, kq, v, sq, sk) -> None:
+    if qq.dim() != 4 or {tuple(t.shape) for t in (qq, kq, v)} != {qq.shape}:
+        raise ValueError("qq/kq/v must share one [B, S, H, D] shape, got "
+                         f"{[tuple(t.shape) for t in (qq, kq, v)]}")
+    B, S, H, D = qq.shape
+    if D != 128:
+        raise ValueError(f"flash attention takes D = 128, got {D}")
+    for name, t, dtype in (("qq", qq, torch.int8), ("kq", kq, torch.int8),
+                           ("v", v, torch.bfloat16), ("sq", sq, torch.float32),
+                           ("sk", sk, torch.float32)):
+        if t.device != qq.device:
+            raise ValueError(f"{name} is on {t.device}, qq on {qq.device}")
+        if t.dtype != dtype:
+            raise TypeError(f"int8-QK flash attention takes {dtype} {name}, "
+                            f"got {t.dtype}")
+    for name, t in (("sq", sq), ("sk", sk)):
+        if tuple(t.shape) != (B, S, H):
+            raise ValueError(f"{name} must be [B, S, H] = {(B, S, H)}, got "
+                             f"{tuple(t.shape)}")
+    for name, t in (("qq", qq), ("kq", kq), ("v", v)):
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name} must be contiguous along D")
+        # cp.async copies 16-byte chunks: every row start must be aligned
+        if t.data_ptr() % 16 or any(s * t.element_size() % 16
+                                    for s in t.stride()[:3]):
+            raise ValueError(f"{name} rows must be 16-byte aligned")
+
+
+def flash_attention_qk8(
+    qq: torch.Tensor, kq: torch.Tensor, v: torch.Tensor, sq: torch.Tensor,
+    sk: torch.Tensor,
+) -> torch.Tensor:
+    """Full bidirectional attention with an int8 Q·Kᵀ (kernel B3): qq/kq
+    int8 [B, S, H, D] with their f32 row scales sq/sk [B, S, H] (from
+    :func:`quant_rows`), v bf16 [B, S, H, D] -> out [B, S, H, D] bf16."""
+    global launches_qk8
+    if not _on_card(qq):
+        return attention_qk8_reference(qq, kq, v, sq, sk)
+    _check_qk8(qq, kq, v, sq, sk)
+    B, S, H, D = qq.shape
+    fn = _kernel(KERNEL_QK8, "flash_attn_qk8_fwd", 6, 4, 18)
+    out = torch.empty((B, S, H, D), dtype=v.dtype, device=v.device)
+    rc = fn(qq.data_ptr(), kq.data_ptr(), v.data_ptr(), sq.data_ptr(),
+            sk.data_ptr(), out.data_ptr(), B, S, H, D,
+            *qq.stride()[:3], *kq.stride()[:3], *v.stride()[:3],
+            *out.stride()[:3], *sq.stride(), *sk.stride(),
+            1.0 / math.sqrt(D), _stream(qq.device))
+    if rc != 0:
+        raise RuntimeError(f"flash_attn_qk8_fwd launch failed: CUDA error {rc}")
+    launches_qk8 += 1
+    return out
+
+
+def _largest_divisor_leq(S: int, cap: int) -> int:
+    for d in range(min(cap, S) // 128 * 128, 127, -128):
+        if S % d == 0:
+            return d
+    return math.gcd(cap, S)
+
+
+def qk8_tiles(S: int, block: int = 1536) -> bool:
+    """Whether the JAX package's ``flash_attention_qk8`` quantizes at
+    sequence length S: its ``_pick_blocks(S, 1536, 1536)`` finds a block
+    that divides S and is a multiple of 128 (S = 13824 and 12800 do; at
+    other S it returns the unquantized reference)."""
+    b = block if S % block == 0 else _largest_divisor_leq(S, block)
+    return not (S % b or b % 128)
+
+
+def attention(q, k, v, qk8: bool = False):
+    """q/k/v [B, S, H, D] -> [B, S, H, D].
+
+    ``qk8=False``: differentiable, kernels B1/B2a/B2b on a CUDA tensor, the
+    plain version under torch autograd on a CPU tensor.  ``qk8=True``
+    (serving, forward only): q and k quantized by :func:`quant_rows` and
+    kernel B3 (its plain version on a CPU tensor) where :func:`qk8_tiles`
+    holds, the ``qk8=False`` path elsewhere."""
+    if qk8 and qk8_tiles(q.shape[1]):
+        qq, sq = quant_rows(q)
+        kq, sk = quant_rows(k)
+        return flash_attention_qk8(qq, kq, v, sq, sk)
     if not _on_card(q):
-        return attention_reference(q, k, v)[0]
+        return _softmax_pv(_logits(q, k), v)  # the plain version, no lse
     return FlashAttention.apply(q, k, v)

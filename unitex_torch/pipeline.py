@@ -18,17 +18,23 @@ scripts/compare_golden.py) reads both: ``processed_mesh.obj``,
 Every device stage runs on ``device`` (default ``"cuda"``; asking for CUDA
 without a card raises).  Ported: ``random_weights=True`` (a full-size
 random FLUX tree made on the device), or parameter trees set by the
-caller (for example carried from the JAX package by ``params_from_jax``).
+caller (for example carried from the JAX package by ``params_from_jax``);
+int8 serving (``int8_serving=True``: W8A8 projections; ``"max_memory"``:
+plus weight-only int8 for the other block kernels), with the LoRA
+adapters attached at run time instead of merged; ``attn_qk8`` set on
+``pipe.flux_cfg`` (the int8-QK attention kernel B3); and the serving-tree
+cache (``params_cache``, optionally int4-packed with
+``params_cache_int4``), whose files either package reads.
 Deferred (``NotImplementedError``): loading checkpoints
-(``pretrain_models``), the weightless stand-in, int8 serving and
-parameter caches, TSD-SR super-resolution, ``async_io``, the LTM pipeline
-and video export.
+(``pretrain_models``), the weightless stand-in, TSD-SR super-resolution,
+``async_io``, the LTM pipeline, video export and multi-GPU placement.
 """
 
 from __future__ import annotations
 
 import os
 import shutil
+import time
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -41,14 +47,16 @@ from .geometry.uv_atlas import preprocess_blank_mesh
 from .image.process_image import preprocess_reference_image
 from .image.rembg import build_background_remover
 from .models.flux.config import FluxConfig
-from .models.flux.lora import init_lora_params, merge_lora
-from .models.flux.model import init_flux_params
+from .models.flux.lora import attach_lora, init_lora_params, merge_lora
+from .models.flux.model import flux_param_spec, init_flux_params
+from .models.flux.quantize import quantize_flux_params
 from .models.flux.pipeline import (
     FluxPipelineConfig,
     run_flux_pipeline,
     torch_reference_rng,
 )
 from .models.flux.vae import VAEConfig, init_vae_params
+from .ops.quant import gemm_layout, pack_int4_tree, unpack_int4_tree
 from .render.conditioning import (
     grid_to_strip,
     grid_to_views,
@@ -57,8 +65,36 @@ from .render.conditioning import (
 )
 from .render.renderer_inverse import bake_texture
 from .utils.image_io import save_image, to_uint8_device
+from .utils.param_cache import load_meta, load_params, save_params
 from .utils.precision import exact_f32, resolve_device
 from .utils.timer import CPUTimer
+
+
+# int8_serving mode -> the cache file's mode name (the JAX package's)
+_CACHE_MODES = {False: "bf16", True: "int8", "max_memory": "int8wo"}
+_INT8_KERNELS = ("kernel_int8", "kernel_int8_wo")
+
+
+def _meta_tree(tree):
+    """A spec tree (``utils/params``: leaves are tuples, bf16) or a tensor
+    tree as tensors on the ``meta`` device: shapes and dtypes only."""
+    if isinstance(tree, dict):
+        return {k: _meta_tree(v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return torch.empty(tree[1], dtype=torch.bfloat16, device="meta")
+    return torch.empty_like(tree, device="meta")
+
+
+def _leaf_types(tree, prefix="") -> Dict[str, tuple]:
+    """{"a/b/c": (shape, dtype)} of a nested dict of tensors."""
+    out = {}
+    for k, v in tree.items():
+        path = f"{prefix}/{k}" if prefix else k
+        if isinstance(v, dict):
+            out.update(_leaf_types(v, path))
+        else:
+            out[path] = (tuple(v.shape), v.dtype)
+    return out
 
 
 def _host(x) -> np.ndarray:
@@ -109,21 +145,34 @@ class RGBTextureFullPipelineBase:
         async_io: bool = False,
         random_weights: bool = False,
         params_cache: Optional[str] = None,
+        params_cache_int4: bool = False,
         device="cuda",
     ):
         if pretrain_models is not None or require_weights:
             raise NotImplementedError("loading checkpoints is not ported")
         if super_resolutions or config.super_resolution:
             raise NotImplementedError("TSD-SR super-resolution is not ported")
-        if int8_serving or params_cache:
-            raise NotImplementedError(
-                "int8 serving and parameter caches are not ported")
         if async_io:
             raise NotImplementedError("async_io is not ported")
+        if int8_serving not in _CACHE_MODES:
+            raise ValueError(f"int8_serving must be False, True or "
+                             f"'max_memory', got {int8_serving!r}")
         self.device = resolve_device(device)
         self.config = config
         self.seed = seed
         self.save_artifacts = save_artifacts
+        # int8_serving: False (bf16) | True (W8A8) | "max_memory" (W8A8 +
+        # weight-only int8 for the rest of the block kernels); the LoRA
+        # adapters are then attached at run time (lora.attach_lora)
+        self.int8_serving = int8_serving
+        # params_cache: a directory for the post-quantization serving tree
+        # (utils/param_cache.py), one file per kind and mode;
+        # params_cache_int4 stores its int8 kernels int4-packed (lossy,
+        # opt-in, int8 modes only) and unpacks them on the device
+        self.params_cache = params_cache
+        self.params_cache_int4 = params_cache_int4 and bool(int8_serving)
+        # kinds whose cache failed validation: the rebuilt tree overwrites
+        self._stale_caches: set = set()
         self.rembg = build_background_remover(None)
         self.flux_cfg = FluxConfig.flux1_dev()
         self.vae_cfg = VAEConfig.flux()
@@ -135,15 +184,32 @@ class RGBTextureFullPipelineBase:
         if random_weights:
             self._init_random_weights()
 
+    # bump when the serving tree's layout or the file encoding changes
+    _PARAMS_CACHE_VERSION = 1
+    # the kind of the port's random tree: another generator than the JAX
+    # package's ``flux_random_s0``, so another tree
+    RANDOM_KIND = "flux_random_torch_s0"
+
     def _init_random_weights(self) -> None:
         """Random-init the serving tree at full size, directly on the
         device in bf16 (the VAE and LoRA in f32, as the JAX package serves
-        them).  Outputs are meaningless images; every shape, kernel launch
-        and memory footprint is the real one."""
+        them), then quantize it for int8 serving, each kernel dropped as
+        soon as it is quantized; or read it from ``params_cache``.
+        Outputs are meaningless images; every shape, kernel launch and
+        memory footprint is the real one."""
         gen = torch.Generator(device=self.device)
-        gen.manual_seed(0)
-        self.transformer_params = init_flux_params(
-            gen, self.flux_cfg, device=self.device, dtype=torch.bfloat16)
+        cached = self._load_cached_tree(self.RANDOM_KIND)
+        if cached is not None:
+            self.transformer_params = self._place_flux_params(*cached)
+        else:
+            params = init_flux_params(gen.manual_seed(0), self.flux_cfg,
+                                      device=self.device, dtype=torch.bfloat16)
+            if self.int8_serving:
+                params = quantize_flux_params(
+                    params, weight_only_rest=self.int8_serving == "max_memory",
+                    consume=True)
+            self.transformer_params = params
+            self._store_cached_tree(self.RANDOM_KIND, params)
         self.texture_lora = init_lora_params(
             gen.manual_seed(1), self.transformer_params, rank=16,
             device=self.device)
@@ -154,6 +220,99 @@ class RGBTextureFullPipelineBase:
                                           device=self.device)
         self._flux_loaded = True
 
+    # ------------------------------------------------------- params cache
+
+    def _cache_path(self, kind: str) -> Optional[str]:
+        if not self.params_cache:
+            return None
+        mode = _CACHE_MODES[self.int8_serving]
+        if self.params_cache_int4:
+            mode += "4"
+        return os.path.join(self.params_cache, f"{kind}_{mode}.npz")
+
+    def _cache_meta(self, kind: str) -> Dict[str, object]:
+        """The cache's fingerprint: the format version and the tree's
+        source (a random tree's kind names its generator and seed)."""
+        return {"version": self._PARAMS_CACHE_VERSION, "source": kind}
+
+    def _expected_serving_tree(self):
+        """The serving tree of ``flux_cfg`` and the int8 mode, as tensors on
+        the ``meta`` device (shapes and dtypes only), from the spec tree."""
+        tree = _meta_tree(flux_param_spec(self.flux_cfg))
+        if self.int8_serving:
+            tree = quantize_flux_params(
+                tree, weight_only_rest=self.int8_serving == "max_memory")
+        return tree
+
+    def _validate_cached_tree(self, tree) -> Optional[str]:
+        """A mismatch of leaf paths, shapes or dtypes against
+        :meth:`_expected_serving_tree`, or None."""
+        want = _leaf_types(self._expected_serving_tree())
+        got = _leaf_types(tree)
+        for path in sorted(set(want) | set(got)):
+            if want.get(path) != got.get(path):
+                return (f"{path}: {got.get(path, 'missing')} != expected "
+                        f"{want.get(path, 'none')}")
+        return None
+
+    def _load_cached_tree(self, kind: str):
+        """(host tree, whether it is int4-packed) from the cache, or None
+        when there is no file or it fails its fingerprint or layout check
+        (the kind is then marked stale, so the rebuilt tree overwrites
+        it)."""
+        path = self._cache_path(kind)
+        if not (path and os.path.exists(path)):
+            return None
+        meta = load_meta(path)
+        if meta is not None and meta != self._cache_meta(kind):
+            print(f"[pipeline] params cache STALE {path}: fingerprint {meta} "
+                  f"!= {self._cache_meta(kind)}; rebuilding")
+            self._stale_caches.add(kind)
+            return None
+        t0 = time.perf_counter()
+        tree = load_params(path)
+        if self.params_cache_int4:
+            try:
+                err = self._validate_cached_tree(
+                    unpack_int4_tree(_meta_tree(tree)))
+            except Exception as e:  # a malformed pack is a stale cache
+                err = f"int4 unpack failed: {e}"
+        else:
+            err = self._validate_cached_tree(tree)
+        if err is not None:
+            print(f"[pipeline] params cache STALE {path}: {err}; rebuilding")
+            self._stale_caches.add(kind)
+            return None
+        print(f"[pipeline] params cache hit {path} "
+              f"({time.perf_counter() - t0:.1f}s)")
+        return tree, self.params_cache_int4
+
+    def _store_cached_tree(self, kind: str, tree) -> None:
+        path = self._cache_path(kind)
+        if path and (not os.path.exists(path) or kind in self._stale_caches):
+            t0 = time.perf_counter()
+            if self.params_cache_int4:
+                tree = pack_int4_tree(tree)
+            save_params(path, tree, meta=self._cache_meta(kind))
+            self._stale_caches.discard(kind)
+            print(f"[pipeline] params cache write {path} "
+                  f"({time.perf_counter() - t0:.1f}s)")
+
+    def _place_flux_params(self, tree, packed: bool):
+        """A host serving tree on the device, one leaf at a time; an
+        int4-packed tree is unpacked there leaf by leaf, each packed leaf
+        dropped once unpacked, so the packed and the unpacked kernels are
+        never both whole.  int8 kernels take the GEMM's layout."""
+        if packed:
+            tree = unpack_int4_tree(tree, consume=True, device=self.device)
+
+        def place(node, key=None):
+            if isinstance(node, dict):
+                return {k: place(v, k) for k, v in node.items()}
+            node = node.to(self.device)
+            return gemm_layout(node) if key in _INT8_KERNELS else node
+
+        return place(tree)
     def _generator(self) -> torch.Generator:
         """A fresh device generator seeded with the job seed: each FLUX
         pass draws its noise from the same seed, as the JAX package passes
@@ -215,6 +374,7 @@ class RGBTextureFullPipelineBase:
                 np.asarray(mesh.faces_uv, np.int64)).to(dev),
         )
         device_mesh = pad_mesh_to_bucket(device_mesh, self.config.mesh.shape_bucket)
+        low_memory = self.int8_serving == "max_memory" and self._flux_loaded
         out = render_geometry_condition(
             device_mesh,
             view_size=cam.view_size,
@@ -223,6 +383,10 @@ class RGBTextureFullPipelineBase:
             background=0.5,
             rows=cam.rows,
             cols=cam.cols,
+            # max_memory serving: slab the per-pixel tail and bound the
+            # binned rasterizer's batch, as the JAX package does
+            row_chunk=64 if low_memory else None,
+            tile_batch=8 if low_memory else 64,
         )
         if self.save_artifacts:
             save_image(os.path.join(save_dir, "mv_alpha.png"), _host(out["alpha"]))
@@ -285,9 +449,11 @@ class RGBTextureFullPipelineBase:
         ds = dcfg.dual_size
         if tuple(dual.shape[:2]) != (ds, ds):
             dual = resize_bilinear(dual, ds, ds)
-        # texture pass: adapters [1, 0]; the merged kernels are fresh
-        # copies, dropped right after the pass
-        params = merge_lora(
+        # texture pass: adapters [1, 0]; merged kernels (bf16) or attached
+        # low-rank leaves (int8 kernels cannot be merged) are fresh
+        # tensors, dropped right after the pass
+        apply_lora = attach_lora if self.int8_serving else merge_lora
+        params = apply_lora(
             self.transformer_params,
             [(self.texture_lora, 1.0), (self.delight_lora, 0.0)],
         )
@@ -302,7 +468,7 @@ class RGBTextureFullPipelineBase:
             save_image(os.path.join(save_dir, "mv_rgb_w_light.png"),
                        _host(strip_w_light))
         # delight pass: adapters [0, 1], control = stage-1 output, no dual
-        params = merge_lora(self.transformer_params,
+        params = apply_lora(self.transformer_params,
                             [(self.delight_lora, 1.0)])
         strip_delight = run_flux_pipeline(
             params, self.flux_cfg, self.vae_params, self.vae_cfg,

@@ -96,6 +96,7 @@ def render_geometry_condition(
     rows: int = 2,
     cols: int = 3,
     face_chunk: int = 512,
+    row_chunk=None,
     tile_batch: int = 64,
 ) -> Dict[str, torch.Tensor]:
     """Render the 6-view geometry conditioning grids of an already scaled
@@ -110,6 +111,9 @@ def render_geometry_condition(
         render_world_normal=True,
         render_world_position=True,
         face_chunk=face_chunk,
+        # the low-memory serving mode slabs the per-pixel tail and bounds
+        # the binned rasterizer's batch (render_views row_chunk/tile_batch)
+        row_chunk=row_chunk,
         tile_batch=tile_batch,
     )
     alpha = out.alpha

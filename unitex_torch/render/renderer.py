@@ -5,9 +5,10 @@ Views are rendered one after another (a Python loop over cameras, the
 JAX package's ``lax.map``).  Output conventions match the JAX package:
 normals/positions lerped to -1 background, alpha in [0, 1], no
 antialiasing.  Ported: the buffers the geometry conditioning reads (mask,
-alpha, tri, bary, world normal, world position) and the UV buffers the
+alpha, tri, bary, world normal, world position), the UV buffers the
 training data renders (uv, and a texture sampled through it as
-``map_attr``); the other render flags, supersampling and row slabs raise
+``map_attr``), and ``row_chunk`` (the per-pixel tail in row slabs, which
+bounds its temporaries); the other render flags and supersampling raise
 ``NotImplementedError``.
 """
 
@@ -21,7 +22,7 @@ import torch
 from ..camera.conversion import get_mvp, transform_points_mat4
 from ..geometry.mesh import Mesh, compute_vertex_normals
 from ..ops.grid_sample import grid_sample
-from ..ops.rasterize import interpolate, rasterize
+from ..ops.rasterize import Rast, interpolate, rasterize
 from ..utils.precision import exact_f32
 
 
@@ -47,7 +48,7 @@ _UNPORTED = {
     "render_z_depth": False, "render_camera_position": False,
     "render_distance": False, "render_ray_direction": False,
     "render_cos_ray_normal": False, "render_v_attr": False,
-    "supersample": 1, "row_chunk": None,
+    "supersample": 1,
 }
 
 
@@ -70,6 +71,7 @@ def render_views(
     face_chunk: int = 512,
     pixel_tile: int = 0,
     tile_batch: int = 64,
+    row_chunk: Optional[int] = None,
     **unported,
 ) -> RenderOutputs:
     """Render a mesh from M cameras.
@@ -77,7 +79,9 @@ def render_views(
     mesh: Mesh; c2ws [M, 4, 4]; intrinsics [3, 3] or [M, 3, 3]
     (normalized); render_size (H, W).  ``map_attr`` [Ht, Wt, C] is a
     texture stored image-style (row 0 = v = 1), sampled at each pixel's
-    interpolated UV with border padding when ``render_map_attr`` is set."""
+    interpolated UV with border padding when ``render_map_attr`` is set.
+    ``row_chunk``: compute the per-pixel buffers in slabs of that many rows
+    when it divides H (a memory bound; the same result)."""
     unknown = sorted(set(unported) - set(_UNPORTED))
     if unknown:
         raise TypeError(f"render_views got unexpected options {unknown}")
@@ -95,11 +99,7 @@ def render_views(
     faces = mesh.faces.long()
     v_nrm = compute_vertex_normals(v, faces) if render_world_normal else None
 
-    outs = []
-    for i in range(M):
-        clip = transform_points_mat4(v, mvp[i])
-        rast = rasterize(clip, faces, (H, W), face_chunk=face_chunk,
-                         tile_batch=tile_batch)
+    def pixel_tail(rast):
         mask = rast.mask[..., None]
         alpha = mask.float()
         out = {"mask": mask, "alpha": alpha, "tri": rast.tri, "bary": rast.bary}
@@ -123,7 +123,21 @@ def render_views(
                 g = torch.stack([gb_uv[..., 0], -gb_uv[..., 1]], dim=-1)
                 out["map_attr"] = grid_sample(map_attr, g,
                                               padding_mode="border") * alpha
-        outs.append(out)
+        return out
+
+    slabs = (row_chunk is not None and H > row_chunk and H % row_chunk == 0)
+    outs = []
+    for i in range(M):
+        clip = transform_points_mat4(v, mvp[i])
+        rast = rasterize(clip, faces, (H, W), face_chunk=face_chunk,
+                         tile_batch=tile_batch)
+        if not slabs:
+            outs.append(pixel_tail(rast))
+            continue
+        parts = [pixel_tail(Rast(*(x[r:r + row_chunk] for x in
+                                   (rast.bary, rast.z, rast.tri))))
+                 for r in range(0, H, row_chunk)]
+        outs.append({k: torch.cat([p[k] for p in parts]) for k in parts[0]})
     return RenderOutputs(**{
         k: torch.stack([o[k] for o in outs]) for k in outs[0]
     })
