@@ -15,7 +15,9 @@ non-zero:
    S = 13824 and 12800, plus a ragged S = 1000), with its time, the plain
    version's, one PyTorch library call's (a yardstick only) and the
    bound: flash attention B1 held to max|dout| <= min(2e-2, 2 % of
-   max|ref|) and max|dlse| <= 1e-3; its backward B2a (dK, dV) and B2b (dQ)
+   max|ref|) and max|dlse| <= 1e-3, its line also giving the share of its
+   bound, its time over the library call's and its ptxas report; its
+   backward B2a (dK, dV) and B2b (dQ)
    to max|d| <= 2 % of max|ref| for each gradient; the int8-QK forward B3,
    on q/k quantized by ``quant_rows``, to max|dout| <= min(2e-2, 2 % of
    max|ref|) against its plain version on the same int8 inputs; and one
@@ -94,7 +96,7 @@ def ptxas_usage(log_path: str):
                            if n in ln), ln)
             elif "spill stores" in ln:
                 spill = ln.split(":", 1)[-1].strip() if ":" in ln else ln.strip()
-            elif "registers" in ln and fn is not None:
+            elif "Used" in ln and "registers" in ln and fn is not None:
                 out.append((fn, f"{ln.split(':', 1)[-1].strip()}; {spill}"))
                 fn = None
     return out
@@ -121,8 +123,10 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def check_flash_attention(attn, torch) -> dict:
-    """B1 against ``attention_reference`` (f32 on the same bf16 inputs)."""
+def check_flash_attention(attn, torch, ptxas: str) -> dict:
+    """B1 against ``attention_reference`` (f32 on the same bf16 inputs);
+    ``ptxas`` is its kernel's register and spill report, printed beside
+    each time."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -166,9 +170,10 @@ def check_flash_attention(attn, torch) -> dict:
         bound_ms = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3
         print(f"[kernels] flash_attn_fwd S={S}: ms={ms:.4f} plain_ms="
               f"{plain_ms:.3f} library_ms={lib_ms:.4f} bound_ms={bound_ms:.4f} "
-              f"({flops / ms / 1e9:.1f} TFLOP/s) max|dout|={err_o:.3e} "
-              f"(tol {out_tol:.3e}, max|ref|={ref_max:.3e}) "
-              f"max|dlse|={err_l:.3e}", flush=True)
+              f"({flops / ms / 1e9:.1f} TFLOP/s, {bound_ms / ms:.1%} of the "
+              f"bound, {ms / lib_ms:.3f}x the library's time) max|dout|="
+              f"{err_o:.3e} (tol {out_tol:.3e}, max|ref|={ref_max:.3e}) "
+              f"max|dlse|={err_l:.3e}; ptxas: {ptxas}", flush=True)
         if S == ATTN_SHAPES[0]:
             record = {
                 "name": "flash_attn_fwd", "route": "cuda",
@@ -627,11 +632,13 @@ def main() -> int:
     nvcc_s = cuda_build.build(attn.KERNEL, attn.KERNEL_BWD, attn.KERNEL_QK8)
     print(f"[build] {time.perf_counter() - t0:.2f}s " + " ".join(
         f"{k}={v:.2f}s" for k, v in nvcc_s.items()), flush=True)
+    usage = {}
     for source in nvcc_s:
-        for fn, usage in ptxas_usage(cuda_build.library_path(source) + ".log"):
-            print(f"[build] {source} {fn} ptxas: {usage}", flush=True)
+        for fn, use in ptxas_usage(cuda_build.library_path(source) + ".log"):
+            print(f"[build] {source} {fn} ptxas: {use}", flush=True)
+            usage[fn] = use
 
-    records = [check_flash_attention(attn, torch)]
+    records = [check_flash_attention(attn, torch, usage["flash_fwd_kernel"])]
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     records += check_flash_backward(attn, torch)

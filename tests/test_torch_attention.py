@@ -19,6 +19,9 @@ from jax.experimental.pallas import tpu as pltpu
 
 from unitex_tpu.ops import attention as jattn
 from unitex_torch.ops import attention as tattn
+from torch_cpu_share import share_cpu
+
+share_cpu()
 
 OUT_ATOL = 2e-5   # f32 softmax(QK^T)V of unit-normal inputs, reduction order
 LSE_ATOL = 1e-5   # f32 logsumexp, reduction order

@@ -29,6 +29,9 @@ from unitex_torch.models.flux import quantize as tquant
 from unitex_torch.models.flux.config import FluxConfig as TFluxConfig
 from unitex_torch.ops import attention as tattn
 from unitex_torch.utils.params import params_from_jax, tree_shapes
+from torch_cpu_share import share_cpu
+
+share_cpu()
 
 # f32 on both sides; the differences are summation order over tiny depths
 REL = 1e-4

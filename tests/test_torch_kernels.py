@@ -55,10 +55,11 @@ def _check_against_plain(q, k, v):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("S", [1, 63, 130, 1000, 4096])
+@pytest.mark.parametrize("S", [1, 63, 127, 129, 130, 255, 257, 1000, 4096])
 def test_flash_kernel_matches_plain(card, S):
-    """Whole and ragged query/key tiles (the kernel takes 128 queries and
-    64 keys a step)."""
+    """Whole and ragged query/key tiles on both sides of a tile edge (the
+    kernel takes 128 queries and 128 keys a step), and odd (1, 257) and
+    even (129 .. 4096) counts of key tiles through its two-stage ring."""
     _check_against_plain(*_qkv(S, 4, S, card))
 
 

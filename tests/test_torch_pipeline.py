@@ -1,7 +1,8 @@
 """The ported texturing path as a whole against the JAX pipeline.
 
 Both ``CustomRGBTextureFullPipeline``s run one job on the small config of
-tests/test_golden_parity.py with a tiny random FLUX + VAE (one numpy tree,
+tests/test_golden_parity.py, cut to 32² views and 128² atlases, with a tiny
+random FLUX + VAE (one numpy tree,
 made by the port's seeded init and carried into the port by
 ``params_from_jax``) and
 ``torch_rng_parity=True``, so both draw identical noise.  Every image
@@ -40,8 +41,11 @@ from unitex_torch.pipeline import CustomRGBTextureFullPipeline as TPipeline
 from unitex_torch.utils.params import params_from_jax
 
 from test_golden_parity import small_config
+from torch_cpu_share import share_cpu
 
-DIFFUSION = dict(height=64, width=384, dual_size=16, num_inference_steps=2,
+share_cpu()
+
+DIFFUSION = dict(height=32, width=192, dual_size=16, num_inference_steps=2,
                  max_sequence_length=8, torch_rng_parity=True)
 
 
@@ -49,8 +53,19 @@ def _numpy_tree(tree):
     return jax.tree.map(lambda t: t.numpy(), tree)
 
 
-def _port_config(diffusion=DIFFUSION):
+def _small():
+    """tests/test_golden_parity.py's small config with 32² views and 128²
+    atlases: every stage and artifact of the job, at a quarter of the
+    pixels."""
     jc = small_config()
+    return dataclasses.replace(
+        jc, camera=dataclasses.replace(jc.camera, view_size=32),
+        mesh=dataclasses.replace(jc.mesh, uv_size=128),
+        bake=dataclasses.replace(jc.bake, uv_size=128))
+
+
+def _port_config(diffusion=DIFFUSION):
+    jc = _small()
     return tconfig.PipelineConfig(
         camera=tconfig.CameraConfig(**dataclasses.asdict(jc.camera)),
         mesh=tconfig.MeshConfig(**dataclasses.asdict(jc.mesh)),
@@ -89,7 +104,7 @@ def test_pipeline_artifacts_match_jax(assets, tmp_path):
             lambda x: (0.02 * rng.standard_normal(x.shape)).astype(np.float32)
             if not np.any(x) else x, lora)
 
-    jcfg = dataclasses.replace(small_config(),
+    jcfg = dataclasses.replace(_small(),
                                diffusion=DiffusionConfig(**DIFFUSION))
     jpipe = JPipeline(pretrain_models=None, seed=63, config=jcfg)
     jpipe.flux_cfg, jpipe.vae_cfg = JFluxConfig.tiny(), JVAEConfig.tiny()
@@ -155,10 +170,8 @@ def test_int8_infer_mv_matches_jax(int8_trees, tmp_path):
     grid = {k: rng.uniform(size=(64, 96, 3)).astype(np.float32)
             for k in ("normal", "ccm")}
     ref_image = rng.uniform(size=(32, 32, 3)).astype(np.float32)
-    diffusion = dict(DIFFUSION, height=32, width=192)
-
-    jcfg = dataclasses.replace(small_config(),
-                               diffusion=DiffusionConfig(**diffusion))
+    jcfg = dataclasses.replace(_small(),
+                               diffusion=DiffusionConfig(**DIFFUSION))
     jpipe = JPipeline(pretrain_models=None, seed=63, config=jcfg,
                       int8_serving=True, save_artifacts=False)
     jpipe.flux_cfg, jpipe.vae_cfg = JFluxConfig.tiny(), JVAEConfig.tiny()
@@ -170,7 +183,7 @@ def test_int8_infer_mv_matches_jax(int8_trees, tmp_path):
         str(tmp_path), ref_image,
         {k: jax.numpy.asarray(v) for k, v in grid.items()}, apply_sr=False)
 
-    tpipe = TPipeline(seed=63, config=_port_config(diffusion),
+    tpipe = TPipeline(seed=63, config=_port_config(),
                       int8_serving=True, save_artifacts=False, device="cpu")
     tpipe.flux_cfg, tpipe.vae_cfg = TFluxConfig.tiny(), TVAEConfig.tiny()
     for attr, key in (("transformer_params", "flux"), ("vae_params", "vae"),

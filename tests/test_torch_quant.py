@@ -25,6 +25,9 @@ from unitex_torch.models.flux.config import FluxConfig as TFluxConfig
 from unitex_torch.ops import quant as tquant
 from unitex_torch.utils import param_cache as tcache
 from unitex_torch.utils.params import params_from_jax
+from torch_cpu_share import share_cpu
+
+share_cpu()
 
 jquant = importlib.import_module("unitex_tpu.ops.quant")
 jcache = importlib.import_module("unitex_tpu.utils.param_cache")

@@ -4,9 +4,10 @@ f32 on the CPU.
 
 Rasterizers decide ``tri`` at silhouette and shared-edge pixels by
 edge-inclusion and depth-tie rules, where one ulp of difference in an edge
-function flips a pixel; so the tests count how many pixels disagree
-(at most 0.1 %) and compare barycentrics and depth only where ``tri``
-agrees.
+function flips a pixel.  The port computes its edge functions with XLA's
+rounding, so on the shared-edge case the triangles agree at every pixel;
+elsewhere the tests count how many pixels disagree (at most 0.1 %) and
+compare barycentrics and depth only where ``tri`` agrees.
 """
 
 import importlib
@@ -29,6 +30,9 @@ from unitex_torch.geometry import mesh as tmesh
 from unitex_torch.ops import grid_sample as tgs
 from unitex_torch.ops import rasterize as trast
 from unitex_torch.render import conditioning as tcond
+from torch_cpu_share import share_cpu
+
+share_cpu()
 
 # the JAX package's ops/__init__ re-exports the function under the module's
 # name, so the module is taken from the import system
@@ -133,6 +137,31 @@ def test_rasterize_matches_jax(sphere, route, maker, view):
                          binned_threshold=threshold, tile_batch=2)
     _assert_rast_close(tr, jr)
     assert (tr.tri.numpy() >= 0).mean() > 0.2
+
+
+@pytest.mark.parametrize("route", ["brute", "binned"])
+def test_rasterize_picks_jax_triangle_on_shared_edges(route):
+    """The UV-unwrapped torus x 0.9 in the six 32² condition views puts
+    pixel centres exactly on shared edges (barycentric 0 to 1e-17).  The
+    port evaluates its edge functions as XLA's CPU backend does (an FMA
+    with one rounded product), so every pixel takes the JAX package's
+    triangle on both routes; with plain f32 products 20 of 6144 did not."""
+    host = unwrap_atlas(make_torus(), size=128, gutter=2)
+    v = host.vertices.astype(np.float32) * np.float32(0.9)
+    faces = host.faces
+    c2ws, intr = jcond.condition_cameras()
+    mvp = jconv.get_mvp(c2ws, jnp.broadcast_to(intr, (6, 3, 3)))
+    threshold = 0 if route == "brute" else 256
+    assert route == "brute" or faces.shape[0] > threshold
+    for view in range(6):
+        clip = np.asarray(jconv.transform_points_mat4(jnp.asarray(v), mvp[view]))
+        tr = trast.rasterize(_t(clip), _t(faces, torch.int64), (32, 32),
+                             binned_threshold=threshold, tile_batch=2)
+        jr = jrast.rasterize(jnp.asarray(clip), jnp.asarray(faces), (32, 32),
+                             binned_threshold=threshold, tile_batch=2)
+        np.testing.assert_array_equal(tr.tri.numpy(), np.asarray(jr.tri),
+                                      err_msg=f"view {view}")
+        assert (tr.tri.numpy() >= 0).mean() > 0.1  # the torus fills the view
 
 
 def test_rasterize_uv_and_interpolate_match_jax(sphere):

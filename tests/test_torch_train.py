@@ -36,6 +36,9 @@ from unitex_torch.training import data as tdata
 from unitex_torch.training import flux_lora as tfl
 from unitex_torch.utils.image_io import save_image
 from unitex_torch.utils.params import params_from_jax
+from torch_cpu_share import share_cpu
+
+share_cpu()
 
 # f32 on both sides over a 2 + 2 block tiny model; the differences are
 # summation order

@@ -2,10 +2,12 @@
 plain versions.
 
 ``flash_attention`` is the hand-written Hopper flash-attention forward
-(``csrc/flash_attn_fwd.cu``, kernel B1), the counterpart of the JAX
+(``csrc/flash_attn_fwd.cu``, kernel B1: TMA into an mbarrier ring, wgmma,
+a producer and two consumer warpgroups), the counterpart of the JAX
 package's Pallas ``_flash_kernel``.  It takes q/k/v ``[B, S, H, D]`` bf16
-on a CUDA device through their strides (no transpose copy), any S,
-D = 128, and returns ``(out [B, S, H, D] bf16, lse [B·H, S] f32)``.
+on a CUDA device through their strides (no transpose copy; the base and
+strides 16-byte aligned), any S, D = 128, and returns ``(out [B, S, H, D]
+bf16, lse [B·H, S] f32)``.
 
 ``flash_attention_backward`` is the matching backward
 (``csrc/flash_attn_bwd.cu``): kernel B2a for dK/dV
@@ -53,6 +55,7 @@ launches_bwd_dq = 0     # B2b
 launches_qk8 = 0        # B3
 
 _fns: Dict[str, object] = {}  # bound ctypes functions by name
+_MAP_ERROR = 100000  # B1's return code base for a tensor map (csrc/hopper.cuh)
 
 
 def attention_reference(
@@ -156,7 +159,8 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise TypeError(f"flash attention takes bf16, {name} is {t.dtype}")
         if t.stride(-1) != 1:
             raise ValueError(f"{name} must be contiguous along D")
-        # cp.async copies 16-byte chunks: every row start must be aligned
+        # B1's TMA and B2's cp.async copy 16-byte units: the base and every
+        # stride must be 16-byte aligned
         if t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3]):
             raise ValueError(f"{name} rows must be 16-byte aligned")
 
@@ -195,6 +199,9 @@ def flash_attention(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
         1.0 / math.sqrt(D), _stream(q.device),
     )
+    if rc >= _MAP_ERROR:
+        raise RuntimeError("flash_attn_fwd_bf16: a TMA tensor map could not be "
+                           f"encoded (CUresult {rc - _MAP_ERROR})")
     if rc != 0:
         raise RuntimeError(f"flash_attn_fwd_bf16 launch failed: CUDA error {rc}")
     launches += 1

@@ -61,6 +61,17 @@ def _triangle_setup(verts_clip: torch.Tensor, faces: torch.Tensor, H: int, W: in
     return pix, ndc[..., 2], w, valid
 
 
+def _cross(a, b, c, d):
+    """a·b − c·d in f32 as XLA's CPU backend computes it in the JAX
+    package, fma(a, b, −rn(c·d)): the exact product a·b (exact in f64 for
+    f32 operands) minus the f32-rounded c·d, rounded once to f32.  On
+    pixel centres that lie exactly on a shared edge the plain f32
+    expression can give the other sign, and the pixel another triangle.
+    Only ``a`` is converted: type promotion forms a·b and the difference
+    in f64 without f64 copies of the other operands."""
+    return (a.double() * b - c * d).float()
+
+
 def _edge_eval(px, py, pix, z, w, valid):
     """Edge functions of candidate triangles at pixel centers.
 
@@ -69,16 +80,15 @@ def _edge_eval(px, py, pix, z, w, valid):
     ax, ay = pix[..., 0, 0], pix[..., 0, 1]
     bx, by = pix[..., 1, 0], pix[..., 1, 1]
     cx, cy = pix[..., 2, 0], pix[..., 2, 1]
-    area = (bx - ax) * (cy - ay) - (by - ay) * (cx - ax)     # [..., K]
+    area = _cross(bx - ax, cy - ay, by - ay, cx - ax)         # [..., K]
     nz = torch.abs(area) > 1e-12
     inv_area = torch.where(nz, 1.0 / area, torch.zeros_like(area))
     pxe = px[..., :, None]
     pye = py[..., :, None]
 
     def edge(x1, y1, x2, y2):
-        return (x2 - x1)[..., None, :] * (pye - y1[..., None, :]) - (
-            (y2 - y1)[..., None, :] * (pxe - x1[..., None, :])
-        )
+        return _cross((x2 - x1)[..., None, :], pye - y1[..., None, :],
+                      (y2 - y1)[..., None, :], pxe - x1[..., None, :])
 
     e0 = edge(bx, by, cx, cy)    # weight of v0
     e1 = edge(cx, cy, ax, ay)    # weight of v1
