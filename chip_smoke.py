@@ -17,8 +17,10 @@ non-zero:
    bound: flash attention B1 held to max|dout| <= min(2e-2, 2 % of
    max|ref|) and max|dlse| <= 1e-3, its line also giving the share of its
    bound, its time over the library call's and its ptxas report; its
-   backward B2a (dK, dV) and B2b (dQ)
-   to max|d| <= 2 % of max|ref| for each gradient; the int8-QK forward B3,
+   backward B2a (dK, dV) and B2b (dQ) to max|d| <= 2 % of max|ref| for
+   each gradient, each kernel's line giving its share of the bound and its
+   ptxas report, and the pair's line its time over the library's backward;
+   the int8-QK forward B3,
    on q/k quantized by ``quant_rows``, to max|dout| <= min(2e-2, 2 % of
    max|ref|) against its plain version on the same int8 inputs; and one
    W8A8 projection ([13312, 3072] @ [3072, 12288], ``torch._int_mm``)
@@ -43,9 +45,12 @@ non-zero:
    the same 4-step config: a GLB and a finite 2048² texture, 456 launches
    of B3 and none of B1, the peak under 80 GB.
 
-The line before the last is the kernels' JSON record; the last line is
-``{"ok": true, "device": {...}}``.  Without a CUDA device, or run outside
-a checkout of the repository, it exits non-zero and prints no result.
+The output ends with three lines: the kernels' JSON record
+(``{"kernels": [...]}``), the card's name and power limit as
+``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
+them, and ``{"ok": true, "device": {...}}``.  Without a CUDA device, or run
+outside a checkout of the repository, it exits non-zero and prints no
+result.
 """
 
 from __future__ import annotations
@@ -84,21 +89,33 @@ TRAIN_S = 12800          # 512 text + 6144 noise + 6144 control tokens
 PEAK_LIMIT = 80e9        # bytes: one H100
 
 
+KERNEL_FUNCTIONS = ("flash_fwd_kernel", "flash_bwd_dkv_kernel",
+                    "flash_bwd_dq_kernel", "flash_qk8_kernel")
+
+
 def ptxas_usage(log_path: str):
-    """(kernel, "N registers, S bytes spill stores, L bytes spill loads")
-    for each kernel that ptxas reports in ``log_path``."""
-    out, fn, spill = [], None, ""
+    """(kernel, "Used N registers, ...; S bytes spill stores, L bytes spill
+    loads") for each kernel that ptxas reports in ``log_path`` (nvcc's
+    ``-Xptxas -v`` output), with "; wgmma serialized (C7512)" appended
+    where ptxas serialized the kernel's wgmma products.  A kernel of
+    ``KERNEL_FUNCTIONS`` is named by that name, any other by its line."""
     with open(log_path) as f:
-        for ln in f:
-            if "Compiling entry function" in ln:
-                fn = next((n for n in ("flash_fwd_kernel", "flash_bwd_dkv_kernel",
-                                       "flash_bwd_dq_kernel", "flash_qk8_kernel")
-                           if n in ln), ln)
-            elif "spill stores" in ln:
-                spill = ln.split(":", 1)[-1].strip() if ":" in ln else ln.strip()
-            elif "Used" in ln and "registers" in ln and fn is not None:
-                out.append((fn, f"{ln.split(':', 1)[-1].strip()}; {spill}"))
-                fn = None
+        lines = f.read().splitlines()
+
+    def kernel(ln):
+        return next((n for n in KERNEL_FUNCTIONS if n in ln), None)
+
+    serialized = {kernel(ln) for ln in lines if "C7512" in ln}
+    out, fn, spill = [], None, ""
+    for ln in lines:
+        if "Compiling entry function" in ln:
+            fn, spill = kernel(ln) or ln.strip(), ""
+        elif "spill stores" in ln:
+            spill = ln.split(":", 1)[-1].strip() if ":" in ln else ln.strip()
+        elif "Used" in ln and "registers" in ln and fn is not None:
+            note = "; wgmma serialized (C7512)" if fn in serialized else ""
+            out.append((fn, f"{ln.split(':', 1)[-1].strip()}; {spill}{note}"))
+            fn = None
     return out
 
 
@@ -189,9 +206,10 @@ def check_flash_attention(attn, torch, ptxas: str) -> dict:
     return record
 
 
-def check_flash_backward(attn, torch) -> list:
+def check_flash_backward(attn, torch, ptxas: dict) -> list:
     """B2a and B2b against the plain backward (f32 on the same bf16 inputs,
-    one head at a time), on out and lse from B1."""
+    one head at a time), on out and lse from B1; ``ptxas`` maps each
+    kernel function to its register and spill report."""
     import torch.nn.functional as F
 
     assert not torch.backends.cuda.matmul.allow_tf32  # the f32 reference
@@ -252,13 +270,15 @@ def check_flash_backward(attn, torch) -> list:
         lib_ms = cuda_ms(sdpa_fwd_bwd, iters) - fwd_ms
         bsd = B * S * H * D
         in_bytes = 4 * bsd * 2 + 2 * B * H * S * 4   # q, k, v, dO; lse, Drow
-        for name, mult, n_out, ms in (("flash_attn_bwd_dkv", 8, 2, ms_dkv),
-                                      ("flash_attn_bwd_dq", 6, 1, ms_dq)):
+        for name, fn, mult, n_out, ms in (
+                ("flash_attn_bwd_dkv", "flash_bwd_dkv_kernel", 8, 2, ms_dkv),
+                ("flash_attn_bwd_dq", "flash_bwd_dq_kernel", 6, 1, ms_dq)):
             flops = mult * B * H * S * S * D
             nbytes = in_bytes + n_out * bsd * 2
             bound_ms = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3
             print(f"[kernels] {name} S={S}: ms={ms:.4f} bound_ms={bound_ms:.4f} "
-                  f"({flops / ms / 1e9:.1f} TFLOP/s)", flush=True)
+                  f"({flops / ms / 1e9:.1f} TFLOP/s, {bound_ms / ms:.1%} of the "
+                  f"bound); ptxas: {ptxas[fn]}", flush=True)
             if S == TRAIN_S:
                 records[name] = {
                     "name": name, "route": "cuda",
@@ -272,6 +292,7 @@ def check_flash_backward(attn, torch) -> list:
                 }
         print(f"[kernels] flash backward S={S}: B2a+B2b={ms_dkv + ms_dq:.4f} ms "
               f"plain_ms={plain_ms:.3f} library_ms (sdpa backward)={lib_ms:.4f} "
+              f"({(ms_dkv + ms_dq) / lib_ms:.3f}x the library's time) "
               + " ".join(f"max|d{n}|={err[n]:.3e} (tol "
                          f"{GRAD_REL * ref_max[n]:.3e})" for n in got), flush=True)
         del q, k, v, g, out, lse, drow, dq, dk, dv, got, qt, kt, vt, gt
@@ -641,7 +662,7 @@ def main() -> int:
     records = [check_flash_attention(attn, torch, usage["flash_fwd_kernel"])]
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    records += check_flash_backward(attn, torch)
+    records += check_flash_backward(attn, torch, usage)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     records.append(check_flash_qk8(attn, torch))

@@ -35,9 +35,9 @@ def card():
     return torch.device("cuda")
 
 
-def _qkv(S, H, seed, device):
+def _qkv(S, H, seed, device, B=1):
     gen = torch.Generator(device=device).manual_seed(seed)
-    return [torch.randn((1, S, H, 128), generator=gen, device=device).bfloat16()
+    return [torch.randn((B, S, H, 128), generator=gen, device=device).bfloat16()
             for _ in range(3)]
 
 
@@ -98,12 +98,38 @@ def _check_backward_against_plain(q, k, v, g):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("S", [1, 63, 130, 1000])
+@pytest.mark.parametrize(
+    "S", [1, 63, 64, 65, 127, 128, 129, 130, 191, 255, 257, 1000, 4096])
 def test_flash_backward_matches_plain(card, S):
-    """Whole and ragged tiles (both kernels own 128 rows and stream 64)."""
+    """Whole and ragged tiles on both sides of 64 and 128 rows: both kernels
+    own 128 rows; B2a streams 64-query tiles through a three-stage ring and
+    B2b 128-key tiles through a two-stage ring, so the tile counts here wrap
+    each ring at both parities."""
     q, k, v = _qkv(S, 4, S, card)
     g = _qkv(S, 4, S + 1, card)[0]
     _check_backward_against_plain(q, k, v, g)
+
+
+@pytest.mark.cuda
+def test_flash_backward_two_batches(card):
+    """B = 2: the tensor maps' batch coordinate and the [B·H, S] rows."""
+    q, k, v = _qkv(300, 3, 11, card, B=2)
+    g = _qkv(300, 3, 12, card, B=2)[0]
+    _check_backward_against_plain(q, k, v, g)
+
+
+@pytest.mark.cuda
+def test_flash_backward_is_bit_identical_across_calls(card):
+    """Each block owns its rows of dq, dk and dv and sums in a fixed order
+    (no atomics), so two calls on the same inputs agree bit for bit."""
+    q, k, v = _qkv(1000, 4, 13, card)
+    g = _qkv(1000, 4, 14, card)[0]
+    out, lse = attn.flash_attention(q, k, v)
+    first = attn.flash_attention_backward(q, k, v, out, lse, g)
+    second = attn.flash_attention_backward(q, k, v, out, lse, g)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), name
 
 
 @pytest.mark.cuda

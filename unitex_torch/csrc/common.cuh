@@ -1,6 +1,8 @@
-// Building blocks shared by the flash-attention kernels (sm_90a, bf16 in,
-// f32 accumulate): cp.async copies into XOR-swizzled shared-memory tiles,
-// ldmatrix fragment loads and the m16n8k16 tensor-core product.
+// Building blocks of the mma.sync flash-attention kernel B3
+// (flash_attn_qk8.cu; sm_90a, f32 accumulate): cp.async copies into
+// XOR-swizzled shared-memory tiles, ldmatrix fragment loads and the
+// m16n8k16 tensor-core product.  hopper.cuh reuses its constants, the
+// shared-memory address and the bf16 packing.
 //
 // A tile is [rows][kD] bf16, one 256-byte row per sequence position; its
 // 16-byte chunks are XOR-swizzled by row so that the 8 row addresses of
@@ -101,23 +103,6 @@ __device__ __forceinline__ void load_tile(uint32_t dst,
     const __nv_bfloat16* p = src + (ok ? s : 0) * row_stride + c * 8;
     cp_async16(dst + swz(r, c), p, ok);
   }
-}
-
-// A fragments (16 rows x 16 along D, k-step kk) of the 16 tile rows that
-// start at row0, for the first operand of a product over D.
-__device__ __forceinline__ void ldsm_rows(uint32_t tile, int row0, int kk,
-                                          int lane, uint32_t (&a)[4]) {
-  ldsm_x4(tile + swz(row0 + (lane & 15), kk * 2 + (lane >> 4)), a[0], a[1],
-          a[2], a[3]);
-}
-
-// B fragments of two n-tiles (rows n0..n0+15 of a [n][kD] tile) for a
-// product over D (the tile is the transposed second operand).
-__device__ __forceinline__ void ldsm_cols(uint32_t tile, int n0, int kk,
-                                          int lane, uint32_t& b0, uint32_t& b1,
-                                          uint32_t& b2, uint32_t& b3) {
-  const int row = n0 + ((lane >> 4) << 3) + (lane & 7);
-  ldsm_x4(tile + swz(row, kk * 2 + ((lane >> 3) & 1)), b0, b1, b2, b3);
 }
 
 // B fragments of two 8-wide D tiles (dp * 16 ..) for a product over the

@@ -14,325 +14,578 @@
 // dSᵀ Q): 8·B·H·S²·D FLOPs; B2b three (Q Kᵀ, dO Vᵀ, dS K): 6·B·H·S²·D.  At
 // 989 TFLOP/s (bf16 dense, H100 SXM) that is 4.07 ms and 3.05 ms at
 // S = 12800, against ~0.4 GB of q/k/v/dO/dq/dk/dv traffic (0.12 ms at
-// 3.35 TB/s).  So the design keeps the tensor cores fed and the
-// recomputed P, dP and dS in registers:
-//   * the TPU's sequential grid axis becomes a loop inside the block.  B2a:
-//     one block per (batch·head, 128-key tile), 8 warps of 16 key rows,
-//     looping over 64-query tiles; B2b: one block per (batch·head,
-//     128-query tile), 8 warps of 16 query rows, looping over 64-key
-//     tiles.  Each block owns its outputs, so there are no atomics and
-//     the gradients are the same from run to run (FlashAttention-2's
-//     atomic dQ is not used);
-//   * B2a computes Sᵀ = K Qᵀ and dPᵀ = V dOᵀ with the keys as the mma rows,
-//     so Pᵀ and dSᵀ come out of the accumulators already in the layout of
-//     the A operand of Pᵀ·dO and dSᵀ·Q (as P feeds P·V in B1); B2b keeps
-//     the queries as rows and feeds dS to dS·K the same way;
-//   * every product is mma.sync m16n8k16 bf16 -> f32; P and dS are rounded
-//     to bf16 before their products, as the JAX kernels do; the dK/dV or
-//     dQ accumulators stay in f32 registers and are written once in bf16;
-//   * the streamed tiles (Q/dO/lse/Drow in B2a, K/V in B2b) are
-//     double-buffered with cp.async; the block's own tiles stay in shared
-//     memory; 16-byte chunks are XOR-swizzled (common.cuh);
-//   * any S: rows past S are zero-filled by cp.async (lse and Drow too).
-//     A query row past S then has Q = dO = Drow = 0, so its P·dO, dS and
-//     dS·Q terms are 0 in B2a; key rows past S only reach their own dK/dV
-//     rows, whose stores are guarded.  B2b masks P of keys past S to 0
-//     before it forms dS.
-// Wgmma, TMA and warp specialisation are not used yet.
+// 3.35 TB/s).  So both kernels take B1's shape (flash_attn_fwd.cu, on
+// hopper.cuh) and keep the tensor cores fed from shared memory:
+//   * one block per (batch·head, 128 owned rows) with three warpgroups: a
+//     producer (TMA copies by one thread, its registers given to the
+//     others by setmaxnreg) and two consumers of 64 owned rows each.  The
+//     TPU's sequential grid axis is the loop over a ring of streamed
+//     tiles.  Each block owns its outputs, so there are no atomics and the
+//     gradients are the same bit for bit from run to run;
+//   * B2b owns 128 queries: TMA loads Q and dO once and streams K and V in
+//     128-key tiles through a two-stage ring (K and V with full and empty
+//     mbarriers of their own).  Per tile a consumer computes S = Q·Kᵀ and
+//     dP = dO·Vᵀ (wgmma m64n128k16, K-major operands), P = exp2(S·s·log2 e
+//     − lse·log2 e) with keys past S set to 0, dS = P ∘ (dP − Drow) rounded
+//     to bf16 into a 16 KB tile of its own (K-major, as B1 stores P), and
+//     dQ += dS·K with K read MN-major;
+//   * B2a owns 128 keys: TMA loads K and V once and streams Q and dO in
+//     64-query tiles through a three-stage ring; a producer warp copies
+//     the tile's lse (times log2 e) and Drow into the stage beside them.
+//     With the keys as the 64 rows of a warpgroup, Sᵀ = K·Qᵀ and dPᵀ =
+//     V·dOᵀ are wgmma m64n64k16; Pᵀ and dSᵀ are rounded to bf16 into two
+//     8 KB tiles of the consumer's own, and dV += Pᵀ·dO and dK += dSᵀ·Q are
+//     m64n128k16 over a 64-row MN-major tile (8 KB between its two
+//     64-column boxes).  dK, dV, Sᵀ and dPᵀ take 192 accumulator registers
+//     of the 240 that setmaxnreg gives; 128-query tiles would need 256;
+//   * a turn issues the previous tile's gradient product first and this
+//     tile's two score products after it, so the streamed tile that the
+//     gradient product read is released one turn before the ring needs it
+//     again; two named barriers pass the turn from one consumer to the
+//     other, so one's exp2 and dS arithmetic runs under the other's
+//     products;
+//   * the consumers wait on the ring by spinning without a trap
+//     (hop::mbar_wait_spin): with a trap in their loop ptxas kept them to
+//     the launch's 168 registers instead of setmaxnreg's 240 and spilled.
+//     The producer thread waits, with a trap, until both consumers arrive
+//     on a `done` barrier at their end, so a fault in the bookkeeping
+//     still fails the launch instead of holding the card;
+//   * any S: TMA reads rows past S as zeros and the producer gives them
+//     lse = Drow = 0, so a query row past S has Q = dO = 0, P = 1 and
+//     dS = 0 and adds nothing to dK and dV; B2b sets P of keys past S to
+//     0; rows past S are computed and not stored.
 //
 // Layout: q/k/v/dO/dq/dk/dv are [B, S, H, D] read through their strides
-// (the innermost D stride must be 1); lse and Drow are [B·H, S] f32.
-// D = 128 only.
+// (D contiguous, rows 16-byte aligned, as TMA requires); lse (natural
+// log) and Drow are [B·H, S] f32.  D = 128 only.
 
 #include <math.h>
 
-#include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-using namespace fa;
+using namespace hop;
+using fa::kD;
+using fa::kLog2e;
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kOwn = kWarps * 16;  // rows a block owns: 16 per warp
-constexpr int kStream = 64;        // rows of a streamed tile
-constexpr int kOwnBytes = kOwn * kRowBytes;
-constexpr int kStreamBytes = kStream * kRowBytes;
-// B2a: K, V (owned) + 2x(Q, dO) tiles + 2x(lse, Drow) rows
-constexpr int kDkvSmem = 2 * kOwnBytes + 4 * kStreamBytes + 4 * kStream * 4;
-// B2b: Q, dO (owned) + 2x(K, V) tiles
-constexpr int kDqSmem = 2 * kOwnBytes + 4 * kStreamBytes;
+constexpr int kThreads = 3 * 128;
+constexpr int kOwn = 128;                         // rows a block owns
+constexpr uint32_t kOwnBytes = kOwn * kD * 2;     // one 128-row tile
+constexpr uint32_t kOwnBox = kOwnBytes / 2;       // its [128][64] half
 
-struct Strides {
-  long long b, s, h;
-};
+// B2b: Q, dO, the K and V rings, both consumers' dS ([64][128] bf16 as two
+// [64][64] boxes), the barriers, and slack to align the base to 1024.
+constexpr int kDqStages = 2;
+constexpr uint32_t kDsBytes = 64 * 128 * 2;
+constexpr uint32_t kDqSmem = kOwnBytes * (2 + 2 * kDqStages) + 2 * kDsBytes +
+                             8 * (2 + 4 * kDqStages) + 1024;
 
-__device__ __forceinline__ const __nv_bfloat16* head(const void* p,
-                                                     Strides st, int b,
-                                                     int h) {
-  return static_cast<const __nv_bfloat16*>(p) + b * st.b + h * st.h;
+// B2a: K, V, the Q and dO rings of 64-query tiles, both consumers' Pᵀ and
+// dSᵀ ([64 keys][64 queries] bf16, one box each), each stage's lse and
+// Drow, the barriers, and the alignment slack.
+constexpr int kStream = 64;
+constexpr uint32_t kStreamBytes = kStream * kD * 2;
+constexpr uint32_t kStreamBox = kStreamBytes / 2;
+constexpr int kDkvStages = 3;
+constexpr uint32_t kTBytes = 64 * 64 * 2;
+constexpr uint32_t kRowsBytes = 2 * kStream * 4;  // lse | Drow of a stage
+constexpr uint32_t kDkvSmem = 2 * kOwnBytes + 2 * kDkvStages * kStreamBytes +
+                              4 * kTBytes + kDkvStages * kRowsBytes +
+                              8 * (2 + 2 * kDkvStages) + 1024;
+
+// x, which the compiler must take as a new value here: an address or
+// descriptor derived from an opaque base is computed where it is used
+// instead of being hoisted out of the loop into a register of its own.
+// With 192 accumulator registers live, B2b ran 1–2 % faster on an H100
+// with its descriptors and dS store addresses built so, in every paired
+// run (unitex_torch/scripts/probe_flash_bwd.py, variant hoisted_bases;
+// PERF.md).
+__device__ __forceinline__ uint32_t opaque(uint32_t x) {
+  asm volatile("" : "+r"(x));
+  return x;
 }
 
-__device__ __forceinline__ void zero(float (&acc)[kD / 8][4]) {
-#pragma unroll
-  for (int i = 0; i < kD / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+__device__ __forceinline__ uint64_t opaque(uint64_t x) {
+  asm volatile("" : "+l"(x));
+  return x;
 }
 
-// acc[16 x kStream] = rows(a_tile, row0) · rows(b_tile)ᵀ over D.
-__device__ __forceinline__ void qk_product(float (&acc)[kStream / 8][4],
-                                           uint32_t a_tile, int row0,
-                                           uint32_t b_tile, int lane) {
-#pragma unroll
-  for (int i = 0; i < kStream / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < kD / 16; ++kk) {
-    uint32_t a[4];
-    ldsm_rows(a_tile, row0, kk, lane, a);
-#pragma unroll
-    for (int np = 0; np < kStream / 16; ++np) {
-      uint32_t b0, b1, b2, b3;
-      ldsm_cols(b_tile, np * 16, kk, lane, b0, b1, b2, b3);
-      mma_bf16(acc[2 * np], a, b0, b1);
-      mma_bf16(acc[2 * np + 1], a, b2, b3);
-    }
-  }
+// A descriptor whose start address is moved by `bytes` (no carry leaves
+// the 14-bit address field: shared memory ends below 256 KB).
+__device__ __forceinline__ uint64_t desc_add(uint64_t desc, uint32_t bytes) {
+  return desc + (bytes >> 4);
 }
 
-// out[16 x kD] += p[16 x kStream] (bf16) · tile[kStream x kD].
-__device__ __forceinline__ void pv_product(float (&out)[kD / 8][4],
-                                           const float (&p)[kStream / 8][4],
-                                           uint32_t tile, int lane) {
-#pragma unroll
-  for (int kk = 0; kk < kStream / 16; ++kk) {
-    uint32_t a[4];
-    acc_to_a(p[2 * kk], p[2 * kk + 1], a);
-#pragma unroll
-    for (int dp = 0; dp < kD / 16; ++dp) {
-      uint32_t b0, b1, b2, b3;
-      ldsm_kd(tile, kk * 16, dp, lane, b0, b1, b2, b3);
-      mma_bf16(out[2 * dp], a, b0, b1);
-      mma_bf16(out[2 * dp + 1], a, b2, b3);
-    }
-  }
-}
-
-// Store 16 rows (row0 + g, row0 + g + 8) of an f32 accumulator as bf16,
-// times `scale`, guarding rows at or past S.
-__device__ __forceinline__ void store_rows(__nv_bfloat16* base,
-                                           long long row_stride, int row0,
-                                           int S, const float (&acc)[kD / 8][4],
-                                           float scale, int g, int t) {
+// The f32 accumulator of a 64 x N product (rows 16·warp + g and + 8,
+// columns 8·nt + 2t and + 1) to bf16 in a tile of [64][64] boxes, 128-byte
+// swizzled as TMA would write it; the 8 rows of a store land in 8
+// different bank groups.  Row r has r & 7 == g and its 16-byte chunk nt
+// sits at chunk nt ^ g, bits 4-6 of the address, which are 0 in the
+// 1024-aligned tile plus r·128 + 4t: so each store is one XOR away from a
+// per-row base.
+template <int N>
+__device__ __forceinline__ void store_tile(const float (&x)[N / 2],
+                                           uint32_t tile, int warp, int g,
+                                           int t) {
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
-    const int row = row0 + g + 8 * half;
+    const uint32_t row =
+        opaque(tile + (warp * 16 + g + 8 * half) * 128 + (g << 4) + 4 * t);
+#pragma unroll
+    for (int nt = 0; nt < N / 8; ++nt) {
+      const uint32_t a = (row ^ ((nt % 8) << 4)) + (nt / 8) * (64 * 128);
+      const uint32_t v =
+          pack_bf16(x[4 * nt + 2 * half], x[4 * nt + 2 * half + 1]);
+      asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(a), "r"(v) : "memory");
+    }
+  }
+}
+
+// Store 64 rows of an f32 [64][128] accumulator as bf16, times `scale`,
+// guarding rows at or past S; row0 is this warpgroup's first row.
+__device__ __forceinline__ void store_rows(__nv_bfloat16* base,
+                                           long long row_stride, int row0,
+                                           int S, const float (&acc)[64],
+                                           float scale, int warp, int g,
+                                           int t) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = row0 + warp * 16 + g + 8 * half;
     if (row >= S) continue;
     __nv_bfloat16* p = base + row * row_stride + 2 * t;
 #pragma unroll
     for (int dt = 0; dt < kD / 8; ++dt) {
       *reinterpret_cast<__nv_bfloat162*>(p + dt * 8) = __floats2bfloat162_rn(
-          acc[dt][2 * half] * scale, acc[dt][2 * half + 1] * scale);
+          acc[4 * dt + 2 * half] * scale, acc[4 * dt + 2 * half + 1] * scale);
     }
   }
 }
 
-// B2a: one block per (128-key tile, batch·head); loops over query tiles.
-__global__ void __launch_bounds__(kThreads, 1)
-    flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
-                         const __nv_bfloat16* __restrict__ k,
-                         const __nv_bfloat16* __restrict__ v,
-                         const __nv_bfloat16* __restrict__ dout,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ drow,
-                         __nv_bfloat16* __restrict__ dk,
-                         __nv_bfloat16* __restrict__ dv, int S, int H,
-                         Strides qst, Strides kst, Strides vst, Strides gst,
-                         Strides dkst, Strides dvst, float scale,
-                         float scale_log2) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int n0 = blockIdx.x * kOwn;
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int h = bh % H;
+// ---- B2b ----------------------------------------------------------------
 
-  const __nv_bfloat16* qp = head(q, qst, b, h);
-  const __nv_bfloat16* gp = head(dout, gst, b, h);
-  const float* lse_p = lse + static_cast<long long>(bh) * S;
-  const float* dr_p = drow + static_cast<long long>(bh) * S;
-
-  const uint32_t sK = smem_u32(smem);
-  const uint32_t sV = sK + kOwnBytes;
-  const uint32_t sQ = sV + kOwnBytes;         // buffers 0/1 at sQ + i * kStreamBytes
-  const uint32_t sG = sQ + 2 * kStreamBytes;  // dO buffers 0/1
-  const uint32_t sRow = sG + 2 * kStreamBytes;  // [2][lse | Drow][kStream] f32
-  const float* rowf = reinterpret_cast<const float*>(smem + 2 * kOwnBytes +
-                                                      4 * kStreamBytes);
-
-  // Query tile i (and its lse / Drow) into buffer `buf`.
-  auto load_q = [&](int i, int buf) {
-    const int m0 = i * kStream;
-    load_tile<kStream, kThreads>(sQ + buf * kStreamBytes, qp, qst.s, m0, S, tid);
-    load_tile<kStream, kThreads>(sG + buf * kStreamBytes, gp, gst.s, m0, S, tid);
-    if (tid < 2 * kStream) {
-      const int r = tid % kStream;
-      const bool ok = m0 + r < S;
-      const float* src = (tid < kStream ? lse_p : dr_p) + (ok ? m0 + r : 0);
-      cp_async4(sRow + (buf * 2 * kStream + tid) * 4, src, ok);
-    }
-  };
-
-  load_tile<kOwn, kThreads>(sK, head(k, kst, b, h), kst.s, n0, S, tid);
-  load_tile<kOwn, kThreads>(sV, head(v, vst, b, h), vst.s, n0, S, tid);
-  load_q(0, 0);
-  cp_async_commit();
-
-  float dk_acc[kD / 8][4];
-  float dv_acc[kD / 8][4];
-  zero(dk_acc);
-  zero(dv_acc);
-  const int row0 = warp * 16;  // this warp's keys in the tile
-
-  const int n_tiles = (S + kStream - 1) / kStream;
-  for (int i = 0; i < n_tiles; ++i) {
-    const int cur = i & 1;
-    if (i + 1 < n_tiles) load_q(i + 1, cur ^ 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const uint32_t cQ = sQ + cur * kStreamBytes;
-    const uint32_t cG = sG + cur * kStreamBytes;
-    const float* cL = rowf + cur * 2 * kStream;
-    const float* cDr = cL + kStream;
-
-    // Sᵀ = K Qᵀ and dPᵀ = V dOᵀ: 16 keys x 64 queries per warp.
-    float st[kStream / 8][4];
-    float dpt[kStream / 8][4];
-    qk_product(st, sK, row0, cQ, lane);
-    qk_product(dpt, sV, row0, cG, lane);
-
-    // Pᵀ = exp(Sᵀ·s − lse[q]); dSᵀ = Pᵀ ∘ (dPᵀ − Drow[q]).  Element e of
-    // n-tile nt is query nt * 8 + 2t + (e & 1).
+// x (64 x 128) = rows (64 of a 128-row tile) · tileᵀ (128 rows), 8 k-steps
+// of 16 over D, both K-major: S = Q·Kᵀ and dP = dO·Vᵀ.
+__device__ __forceinline__ void issue_scores(float (&x)[64], uint32_t rows,
+                                             uint32_t tile) {
+  const uint64_t da = opaque(desc_sw128(rows, 16, 1024));
+  const uint64_t db = opaque(desc_sw128(tile, 16, 1024));
+  wgmma_m64n128_ss_zero(x, da, db);
 #pragma unroll
-    for (int nt = 0; nt < kStream / 8; ++nt) {
-      const float2 l2 = *reinterpret_cast<const float2*>(cL + nt * 8 + 2 * t);
-      const float2 d2 = *reinterpret_cast<const float2*>(cDr + nt * 8 + 2 * t);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float l = (e & 1) ? l2.y : l2.x;
-        const float d = (e & 1) ? d2.y : d2.x;
-        const float p = exp2f(st[nt][e] * scale_log2 - l * kLog2e);
-        st[nt][e] = p;
-        dpt[nt][e] = p * (dpt[nt][e] - d);
-      }
-    }
-
-    pv_product(dv_acc, st, cG, lane);   // dV += Pᵀ dO
-    pv_product(dk_acc, dpt, cQ, lane);  // dK += dSᵀ Q
-    // Every warp is done with buffer `cur` before iteration i + 1 refills it.
-    __syncthreads();
+  for (int kk = 1; kk < kD / 16; ++kk) {
+    const uint32_t off = (kk / 4) * kOwnBox + (kk % 4) * 32;
+    wgmma_m64n128_ss(x, desc_add(da, off), desc_add(db, off));
   }
-
-  store_rows(dk + b * dkst.b + h * dkst.h, dkst.s, n0 + row0, S, dk_acc,
-             scale, g, t);
-  store_rows(dv + b * dvst.b + h * dvst.h, dvst.s, n0 + row0, S, dv_acc, 1.f,
-             g, t);
 }
 
-// B2b: one block per (128-query tile, batch·head); loops over key tiles.
+// dQ (64 x 128) += dS (shared memory, K-major) · K tile (MN-major), 8
+// k-steps of 16 keys.
+__device__ __forceinline__ void issue_dq(float (&dq)[64], uint32_t ds_tile,
+                                         uint32_t k_tile) {
+  const uint64_t da = opaque(desc_sw128(ds_tile, 16, 1024));
+  const uint64_t db = opaque(desc_sw128(k_tile, kOwnBox, 1024));
+#pragma unroll
+  for (int kk = 0; kk < kOwn / 16; ++kk) {
+    const uint32_t off = (kk / 4) * (kDsBytes / 2) + (kk % 4) * 32;
+    wgmma_m64n128_ss<1>(dq, desc_add(da, off), desc_add(db, kk * 16 * 128));
+  }
+}
+
+// The mbarriers of B2b, 8 bytes each from `base`: Q and dO's, per stage K
+// full, V full, K empty and V empty, then the consumers' done.
+struct DqBars {
+  uint32_t base;
+  __device__ uint32_t own() const { return base; }
+  __device__ uint32_t done() const { return base + 8u * (1 + 4 * kDqStages); }
+  __device__ uint32_t kfull(int s) const { return base + 8u * (1 + s); }
+  __device__ uint32_t vfull(int s) const {
+    return base + 8u * (1 + kDqStages + s);
+  }
+  __device__ uint32_t kempty(int s) const {
+    return base + 8u * (1 + 2 * kDqStages + s);
+  }
+  __device__ uint32_t vempty(int s) const {
+    return base + 8u * (1 + 3 * kDqStages + s);
+  }
+};
+
 __global__ void __launch_bounds__(kThreads, 1)
-    flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
-                        const __nv_bfloat16* __restrict__ k,
-                        const __nv_bfloat16* __restrict__ v,
-                        const __nv_bfloat16* __restrict__ dout,
+    flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tg,
+                        const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv,
                         const float* __restrict__ lse,
                         const float* __restrict__ drow,
                         __nv_bfloat16* __restrict__ dq, int S, int H,
-                        Strides qst, Strides kst, Strides vst, Strides gst,
-                        Strides dqst, float scale, float scale_log2) {
-  extern __shared__ __align__(128) unsigned char smem[];
+                        long long ob, long long os, long long oh, float scale,
+                        float scale_log2) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t sQ = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sG = sQ + kOwnBytes;
+  const uint32_t sK = sG + kOwnBytes;
+  const uint32_t sV = sK + kDqStages * kOwnBytes;
+  const uint32_t sDs = sV + kDqStages * kOwnBytes;
+  const DqBars bar{sDs + 2 * kDsBytes};
   const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
+  // the warpgroup, broadcast from lane 0 so that the compiler sees each
+  // role's branch taken by whole warps (setmaxnreg needs that)
+  const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);
   const int m0 = blockIdx.x * kOwn;
   const int bh = blockIdx.y;
   const int b = bh / H;
   const int h = bh % H;
+  const int n_tiles = (S + kOwn - 1) / kOwn;
 
-  const __nv_bfloat16* kp = head(k, kst, b, h);
-  const __nv_bfloat16* vp = head(v, vst, b, h);
-
-  const uint32_t sQ = smem_u32(smem);
-  const uint32_t sG = sQ + kOwnBytes;
-  const uint32_t sK = sG + kOwnBytes;         // buffers 0/1 at sK + i * kStreamBytes
-  const uint32_t sV = sK + 2 * kStreamBytes;  // V buffers 0/1
-
-  load_tile<kOwn, kThreads>(sQ, head(q, qst, b, h), qst.s, m0, S, tid);
-  load_tile<kOwn, kThreads>(sG, head(dout, gst, b, h), gst.s, m0, S, tid);
-  load_tile<kStream, kThreads>(sK, kp, kst.s, 0, S, tid);
-  load_tile<kStream, kThreads>(sV, vp, vst.s, 0, S, tid);
-  cp_async_commit();
-
-  // lse (scaled into the exp2 domain) and Drow of this thread's two rows.
-  const int row0 = warp * 16;
-  float lrow[2], drw[2];
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int row = m0 + row0 + g + 8 * half;
-    const long long idx = static_cast<long long>(bh) * S + row;
-    lrow[half] = row < S ? lse[idx] * kLog2e : 0.f;
-    drw[half] = row < S ? drow[idx] : 0.f;
-  }
-
-  float dq_acc[kD / 8][4];
-  zero(dq_acc);
-
-  const int n_tiles = (S + kStream - 1) / kStream;
-  for (int j = 0; j < n_tiles; ++j) {
-    const int cur = j & 1;
-    if (j + 1 < n_tiles) {
-      const int nxt = (cur ^ 1) * kStreamBytes;
-      load_tile<kStream, kThreads>(sK + nxt, kp, kst.s, (j + 1) * kStream, S, tid);
-      load_tile<kStream, kThreads>(sV + nxt, vp, vst.s, (j + 1) * kStream, S, tid);
+  if (tid == 0) {
+    tma_prefetch(&tq);
+    tma_prefetch(&tg);
+    tma_prefetch(&tk);
+    tma_prefetch(&tv);
+    mbar_init(bar.own(), 1);
+    mbar_init(bar.done(), 2);  // one arrival per consumer warpgroup
+    for (int s = 0; s < kDqStages; ++s) {
+      mbar_init(bar.kfull(s), 1);
+      mbar_init(bar.vfull(s), 1);
+      mbar_init(bar.kempty(s), 2);  // one arrival per consumer warpgroup
+      mbar_init(bar.vempty(s), 2);
     }
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const uint32_t cK = sK + cur * kStreamBytes;
-    const uint32_t cV = sV + cur * kStreamBytes;
+    mbar_fence_init();
+  }
+  __syncthreads();
 
-    // S = Q Kᵀ and dP = dO Vᵀ: 16 queries x 64 keys per warp.
-    float s[kStream / 8][4];
-    float dp[kStream / 8][4];
-    qk_product(s, sQ, row0, cK, lane);
-    qk_product(dp, sG, row0, cV, lane);
+  if (wg == 0) {
+    // ---- producer: one thread keeps the ring full ----
+    reg_dealloc<24>();
+    if (tid == 0) {
+      mbar_expect_tx(bar.own(), 2 * kOwnBytes);
+      tma_load_4d(sQ, &tq, bar.own(), 0, h, m0, b);
+      tma_load_4d(sQ + kOwnBox, &tq, bar.own(), 64, h, m0, b);
+      tma_load_4d(sG, &tg, bar.own(), 0, h, m0, b);
+      tma_load_4d(sG + kOwnBox, &tg, bar.own(), 64, h, m0, b);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % kDqStages;
+        const uint32_t free_parity = ((j / kDqStages) & 1) ^ 1;
+        const int key0 = j * kOwn;
+        // V is released a turn before K (K also feeds dS·K), so it goes
+        // first and never waits behind K's slot
+        mbar_wait(bar.vempty(s), free_parity);
+        mbar_expect_tx(bar.vfull(s), kOwnBytes);
+        tma_load_4d(sV + s * kOwnBytes, &tv, bar.vfull(s), 0, h, key0, b);
+        tma_load_4d(sV + s * kOwnBytes + kOwnBox, &tv, bar.vfull(s), 64, h,
+                    key0, b);
+        mbar_wait(bar.kempty(s), free_parity);
+        mbar_expect_tx(bar.kfull(s), kOwnBytes);
+        tma_load_4d(sK + s * kOwnBytes, &tk, bar.kfull(s), 0, h, key0, b);
+        tma_load_4d(sK + s * kOwnBytes + kOwnBox, &tk, bar.kfull(s), 64, h,
+                    key0, b);
+      }
+      // the consumers spin without a trap (see mbar_wait_spin): a fault
+      // in their bookkeeping traps here
+      mbar_wait(bar.done(), 0);
+    }
+  } else {
+    // ---- consumers: 64 query rows each ----
+    reg_alloc<240>();
+    const int c = wg - 1;
+    const int ltid = tid % 128;
+    const int warp = ltid / 32;
+    const int lane = ltid % 32;
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    const uint32_t q_rows = sQ + c * 64 * 128;  // 128 bytes a row in a box
+    const uint32_t g_rows = sG + c * 64 * 128;
+    const uint32_t ds_tile = sDs + c * kDsBytes;
 
-    // P = exp(S·s − lse) (0 for keys past S); dS = P ∘ (dP − Drow).
-    const int key0 = j * kStream;
-    const bool tail = key0 + kStream > S;
+    // lse (in the exp2 domain) and Drow of this thread's two rows; rows
+    // past S take 0 (their Q and dO are zeros, so dS is 0 there)
+    float lrow[2], drw[2];
 #pragma unroll
-    for (int nt = 0; nt < kStream / 8; ++nt) {
+    for (int half = 0; half < 2; ++half) {
+      const int row = m0 + c * 64 + warp * 16 + g + 8 * half;
+      const long long idx = static_cast<long long>(bh) * S + row;
+      lrow[half] = row < S ? lse[idx] * kLog2e : 0.f;
+      drw[half] = row < S ? drow[idx] : 0.f;
+    }
+
+    float dqacc[64];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int half = e >> 1;
-        float p = exp2f(s[nt][e] * scale_log2 - lrow[half]);
-        if (tail && key0 + nt * 8 + 2 * t + (e & 1) >= S) p = 0.f;
-        dp[nt][e] = p * (dp[nt][e] - drw[half]);
+    for (int i = 0; i < 64; ++i) dqacc[i] = 0.f;
+    float sacc[64];
+    float dpacc[64];
+
+    // Named barrier 1 + c is this warpgroup's turn to issue its products;
+    // warpgroup 0 starts, and each hands over once it has issued.  Barrier
+    // 3 + c joins this warpgroup's dS stores before dS·K reads them.  Turn
+    // j issues dQ += dS_{j-1}·K_{j-1} first, then S_j and dP_j, so K_{j-1}
+    // is released as soon as its product is done.
+    mbar_wait_spin(bar.own(), 0);
+    if (c == 0) bar_arrive(1, 256);
+    for (int j = 0; j < n_tiles; ++j) {
+      const int s = j % kDqStages;
+      const uint32_t parity = (j / kDqStages) & 1;
+      const int sp = (j + kDqStages - 1) % kDqStages;  // tile j - 1
+      mbar_wait_spin(bar.kfull(s), parity);
+      mbar_wait_spin(bar.vfull(s), parity);
+      bar_sync(1 + c, 256);
+      wgmma_fence();
+      if (j > 0) issue_dq(dqacc, ds_tile, sK + sp * kOwnBytes);
+      wgmma_commit();
+      issue_scores(sacc, q_rows, sK + s * kOwnBytes);
+      issue_scores(dpacc, g_rows, sV + s * kOwnBytes);
+      wgmma_commit();
+      // the other warpgroup takes no turn after its last tile
+      if (!(c == 1 && j == n_tiles - 1)) bar_arrive(2 - c, 256);
+      wgmma_wait<1>();  // dS_{j-1}·K_{j-1} is done
+      fence_regs(dqacc);
+      if (j > 0 && ltid == 0) mbar_arrive(bar.kempty(sp));
+      wgmma_wait<0>();
+      fence_regs(sacc);
+      fence_regs(dpacc);
+      if (ltid == 0) mbar_arrive(bar.vempty(s));
+
+      // P = exp2(S·s·log2 e − lse·log2 e), 0 for keys past S; dS = P ∘
+      // (dP − Drow), left in dpacc.  Element i is row g + 8·((i >> 1) & 1)
+      // and key 8·(i / 4) + 2t + (i & 1) of the tile.
+      const int key0 = j * kOwn;
+      const bool tail = key0 + kOwn > S;
+#pragma unroll
+      for (int i = 0; i < 64; ++i) {
+        const int half = (i >> 1) & 1;
+        float p = ex2(fmaf(sacc[i], scale_log2, -lrow[half]));
+        if (tail && key0 + (i / 4) * 8 + 2 * t + (i & 1) >= S) p = 0.f;
+        dpacc[i] = p * (dpacc[i] - drw[half]);
+      }
+      store_tile<128>(dpacc, ds_tile, warp, g, t);
+      fence_proxy_async();
+      bar_sync(3 + c, 128);
+    }
+    wgmma_fence();
+    issue_dq(dqacc, ds_tile, sK + ((n_tiles - 1) % kDqStages) * kOwnBytes);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dqacc);
+    if (ltid == 0) mbar_arrive(bar.done());
+    store_rows(dq + b * ob + h * oh, os, m0 + c * 64, S, dqacc, scale, warp,
+               g, t);
+  }
+}
+
+// ---- B2a ----------------------------------------------------------------
+
+// x (64 x 64) = rows (64 of a 128-row tile) · tileᵀ (64 rows), 8 k-steps
+// of 16 over D, both K-major: Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ.
+__device__ __forceinline__ void issue_scores_t(float (&x)[32], uint32_t rows,
+                                               uint32_t tile) {
+  const uint64_t da = opaque(desc_sw128(rows, 16, 1024));
+  const uint64_t db = opaque(desc_sw128(tile, 16, 1024));
+  wgmma_m64n64_ss_zero(x, da, db);
+#pragma unroll
+  for (int kk = 1; kk < kD / 16; ++kk) {
+    const uint32_t col = (kk % 4) * 32;
+    wgmma_m64n64_ss(x, desc_add(da, (kk / 4) * kOwnBox + col),
+                    desc_add(db, (kk / 4) * kStreamBox + col));
+  }
+}
+
+// acc (64 x 128) += t_tile ([64 keys][64 queries], K-major) · a 64-row
+// streamed tile (MN-major; its two 64-column boxes 8 KB apart), 4 k-steps
+// of 16 queries: dV += Pᵀ·dO and dK += dSᵀ·Q.
+__device__ __forceinline__ void issue_grad(float (&acc)[64], uint32_t t_tile,
+                                           uint32_t tile) {
+  const uint64_t da = opaque(desc_sw128(t_tile, 16, 1024));
+  const uint64_t db = opaque(desc_sw128(tile, kStreamBox, 1024));
+#pragma unroll
+  for (int kk = 0; kk < kStream / 16; ++kk) {
+    wgmma_m64n128_ss<1>(acc, desc_add(da, kk * 32),
+                        desc_add(db, kk * 16 * 128));
+  }
+}
+
+// The mbarriers of B2a, 8 bytes each from `base`: K and V's, per stage
+// full (TMA bytes and the 32 arrivals of the row-copying warp) and empty,
+// then the consumers' done.
+struct DkvBars {
+  uint32_t base;
+  __device__ uint32_t own() const { return base; }
+  __device__ uint32_t done() const { return base + 8u * (1 + 2 * kDkvStages); }
+  __device__ uint32_t full(int s) const { return base + 8u * (1 + s); }
+  __device__ uint32_t empty(int s) const {
+    return base + 8u * (1 + kDkvStages + s);
+  }
+};
+
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tk,
+                         const __grid_constant__ CUtensorMap tv,
+                         const __grid_constant__ CUtensorMap tq,
+                         const __grid_constant__ CUtensorMap tg,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ drow,
+                         __nv_bfloat16* __restrict__ dk,
+                         __nv_bfloat16* __restrict__ dv, int S, int H,
+                         long long dkb, long long dks, long long dkh,
+                         long long dvb, long long dvs, long long dvh,
+                         float scale, float scale_log2) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t sK = (raw + 1023u) & ~1023u;
+  const uint32_t sV = sK + kOwnBytes;
+  const uint32_t sQ = sV + kOwnBytes;                   // stage s at + s·16 KB
+  const uint32_t sG = sQ + kDkvStages * kStreamBytes;   // dO, likewise
+  const uint32_t sT = sG + kDkvStages * kStreamBytes;   // Pᵀ, Pᵀ, dSᵀ, dSᵀ
+  const uint32_t sRows = sT + 4 * kTBytes;              // [stage][lse | Drow]
+  float* rows_f = reinterpret_cast<float*>(smem_raw + (sRows - raw));
+  const DkvBars bar{sRows + kDkvStages * kRowsBytes};
+  const int tid = threadIdx.x;
+  const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);
+  const int n0 = blockIdx.x * kOwn;
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int h = bh % H;
+  const int n_tiles = (S + kStream - 1) / kStream;
+
+  if (tid == 0) {
+    tma_prefetch(&tk);
+    tma_prefetch(&tv);
+    tma_prefetch(&tq);
+    tma_prefetch(&tg);
+    mbar_init(bar.own(), 1);
+    mbar_init(bar.done(), 2);
+    for (int s = 0; s < kDkvStages; ++s) {
+      mbar_init(bar.full(s), 1 + 32);  // the TMA thread and the row warp
+      mbar_init(bar.empty(s), 2);      // one arrival per consumer warpgroup
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // ---- producer: thread 0 issues the TMA copies, warp 1 the rows ----
+    reg_dealloc<24>();
+    const int warp = tid / 32;
+    const int lane = tid % 32;
+    if (tid == 0) {
+      mbar_expect_tx(bar.own(), 2 * kOwnBytes);
+      tma_load_4d(sK, &tk, bar.own(), 0, h, n0, b);
+      tma_load_4d(sK + kOwnBox, &tk, bar.own(), 64, h, n0, b);
+      tma_load_4d(sV, &tv, bar.own(), 0, h, n0, b);
+      tma_load_4d(sV + kOwnBox, &tv, bar.own(), 64, h, n0, b);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % kDkvStages;
+        const int m0 = i * kStream;
+        mbar_wait(bar.empty(s), ((i / kDkvStages) & 1) ^ 1);
+        mbar_expect_tx(bar.full(s), 2 * kStreamBytes);
+        const uint32_t q_st = sQ + s * kStreamBytes;
+        const uint32_t g_st = sG + s * kStreamBytes;
+        tma_load_4d(q_st, &tq, bar.full(s), 0, h, m0, b);
+        tma_load_4d(q_st + kStreamBox, &tq, bar.full(s), 64, h, m0, b);
+        tma_load_4d(g_st, &tg, bar.full(s), 0, h, m0, b);
+        tma_load_4d(g_st + kStreamBox, &tg, bar.full(s), 64, h, m0, b);
+      }
+      mbar_wait(bar.done(), 0);  // as in B2b
+    } else if (warp == 1) {
+      // lse (times log2 e) and Drow of the stage's 64 queries, 0 past S:
+      // plain loads, stores to shared memory, then a release arrival
+      const float* lse_h = lse + static_cast<long long>(bh) * S;
+      const float* drow_h = drow + static_cast<long long>(bh) * S;
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % kDkvStages;
+        mbar_wait(bar.empty(s), ((i / kDkvStages) & 1) ^ 1);
+        float* slot = rows_f + s * 2 * kStream;
+#pragma unroll
+        for (int r = lane; r < kStream; r += 32) {
+          const int m = i * kStream + r;
+          slot[r] = m < S ? lse_h[m] * kLog2e : 0.f;
+          slot[kStream + r] = m < S ? drow_h[m] : 0.f;
+        }
+        mbar_arrive(bar.full(s));
       }
     }
+  } else {
+    // ---- consumers: 64 keys each ----
+    reg_alloc<240>();
+    const int c = wg - 1;
+    const int ltid = tid % 128;
+    const int warp = ltid / 32;
+    const int lane = ltid % 32;
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    const uint32_t k_rows = sK + c * 64 * 128;  // 128 bytes a row in a box
+    const uint32_t v_rows = sV + c * 64 * 128;
+    const uint32_t pt_tile = sT + c * kTBytes;
+    const uint32_t dst_tile = sT + (2 + c) * kTBytes;
 
-    pv_product(dq_acc, dp, cK, lane);  // dQ += dS K
-    // Every warp is done with buffer `cur` before iteration j + 1 refills it.
-    __syncthreads();
+    float dkacc[64], dvacc[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) dkacc[i] = dvacc[i] = 0.f;
+    float st[32];
+    float dpt[32];
+
+    // Turns as in B2b: turn i issues dV += Pᵀ_{i-1}·dO_{i-1} and dK +=
+    // dSᵀ_{i-1}·Q_{i-1} first, then Sᵀ_i and dPᵀ_i, and releases stage
+    // i - 1 once the first two are done.
+    mbar_wait_spin(bar.own(), 0);
+    if (c == 0) bar_arrive(1, 256);
+    for (int i = 0; i < n_tiles; ++i) {
+      const int s = i % kDkvStages;
+      const uint32_t parity = (i / kDkvStages) & 1;
+      const int sp = (i + kDkvStages - 1) % kDkvStages;  // tile i - 1
+      mbar_wait_spin(bar.full(s), parity);
+      bar_sync(1 + c, 256);
+      wgmma_fence();
+      if (i > 0) {
+        issue_grad(dvacc, pt_tile, sG + sp * kStreamBytes);
+        issue_grad(dkacc, dst_tile, sQ + sp * kStreamBytes);
+      }
+      wgmma_commit();
+      issue_scores_t(st, k_rows, sQ + s * kStreamBytes);
+      issue_scores_t(dpt, v_rows, sG + s * kStreamBytes);
+      wgmma_commit();
+      if (!(c == 1 && i == n_tiles - 1)) bar_arrive(2 - c, 256);
+      wgmma_wait<1>();  // the products of tile i - 1 are done
+      fence_regs(dkacc);
+      fence_regs(dvacc);
+      if (i > 0 && ltid == 0) mbar_arrive(bar.empty(sp));
+      wgmma_wait<0>();
+      fence_regs(st);
+      fence_regs(dpt);
+
+      // Pᵀ = exp2(Sᵀ·s·log2 e − lse[q]·log2 e); dSᵀ = Pᵀ ∘ (dPᵀ − Drow[q]).
+      // Element 4·nt + e is key g + 8·(e >> 1) and query 8·nt + 2t +
+      // (e & 1) of the tile.
+      const float* lrow = rows_f + s * 2 * kStream;
+      const float* drw = lrow + kStream;
+#pragma unroll
+      for (int nt = 0; nt < kStream / 8; ++nt) {
+        const float2 l2 = *reinterpret_cast<const float2*>(lrow + nt * 8 + 2 * t);
+        const float2 d2 = *reinterpret_cast<const float2*>(drw + nt * 8 + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i4 = 4 * nt + e;
+          const float p = ex2(fmaf(st[i4], scale_log2, (e & 1) ? -l2.y : -l2.x));
+          st[i4] = p;
+          dpt[i4] = p * (dpt[i4] - ((e & 1) ? d2.y : d2.x));
+        }
+      }
+      store_tile<64>(st, pt_tile, warp, g, t);
+      store_tile<64>(dpt, dst_tile, warp, g, t);
+      fence_proxy_async();
+      bar_sync(3 + c, 128);
+    }
+    const int s = (n_tiles - 1) % kDkvStages;
+    wgmma_fence();
+    issue_grad(dvacc, pt_tile, sG + s * kStreamBytes);
+    issue_grad(dkacc, dst_tile, sQ + s * kStreamBytes);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dkacc);
+    fence_regs(dvacc);
+    if (ltid == 0) mbar_arrive(bar.done());
+    store_rows(dk + b * dkb + h * dkh, dks, n0 + c * 64, S, dkacc, scale,
+               warp, g, t);
+    store_rows(dv + b * dvb + h * dvh, dvs, n0 + c * 64, S, dvacc, 1.f, warp,
+               g, t);
   }
-
-  store_rows(dq + b * dqst.b + h * dqst.h, dqst.s, m0 + row0, S, dq_acc,
-             scale, g, t);
 }
 
 bool bad_args(int B, int S, int H, int D) {
@@ -343,8 +596,10 @@ bool bad_args(int B, int S, int H, int D) {
 
 // Plain C entry points (bound with ctypes).  Strides are in elements, three
 // (batch, sequence, head) per [B, S, H, D] tensor; the innermost D stride
-// of every tensor must be 1.  Each returns cudaGetLastError() after its
-// launch (0 on success).
+// of every tensor must be 1 and the others multiples of 8 (16 bytes, for
+// TMA).  Each returns cudaGetLastError() after its launch (0 on success),
+// or hop::kMapError + the driver's CUresult if a tensor map could not be
+// encoded.
 extern "C" int flash_attn_bwd_dkv_bf16(
     const void* q, const void* k, const void* v, const void* dout,
     const float* lse, const float* drow, void* dk, void* dv, int B, int S,
@@ -354,6 +609,12 @@ extern "C" int flash_attn_bwd_dkv_bf16(
     long long dkh, long long dvb, long long dvs, long long dvh, float scale,
     void* stream) {
   if (bad_args(B, S, H, D)) return cudaErrorInvalidValue;
+  CUtensorMap tk, tv, tq, tg;
+  int rc = make_map_bshd(&tk, k, B, S, H, kb, ks, kh, kOwn);
+  if (rc == 0) rc = make_map_bshd(&tv, v, B, S, H, vb, vs, vh, kOwn);
+  if (rc == 0) rc = make_map_bshd(&tq, q, B, S, H, qb, qs, qh, kStream);
+  if (rc == 0) rc = make_map_bshd(&tg, dout, B, S, H, gb, gs, gh, kStream);
+  if (rc != 0) return rc;
   const cudaError_t err = cudaFuncSetAttribute(
       flash_bwd_dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       kDkvSmem);
@@ -361,13 +622,8 @@ extern "C" int flash_attn_bwd_dkv_bf16(
   const dim3 grid((S + kOwn - 1) / kOwn, B * H);
   flash_bwd_dkv_kernel<<<grid, kThreads, kDkvSmem,
                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v),
-      static_cast<const __nv_bfloat16*>(dout), lse, drow,
-      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), S, H,
-      Strides{qb, qs, qh}, Strides{kb, ks, kh}, Strides{vb, vs, vh},
-      Strides{gb, gs, gh}, Strides{dkb, dks, dkh}, Strides{dvb, dvs, dvh},
+      tk, tv, tq, tg, lse, drow, static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), S, H, dkb, dks, dkh, dvb, dvs, dvh,
       scale, scale * kLog2e);
   return cudaGetLastError();
 }
@@ -380,6 +636,12 @@ extern "C" int flash_attn_bwd_dq_bf16(
     long long gs, long long gh, long long dqb, long long dqs, long long dqh,
     float scale, void* stream) {
   if (bad_args(B, S, H, D)) return cudaErrorInvalidValue;
+  CUtensorMap tq, tg, tk, tv;
+  int rc = make_map_bshd(&tq, q, B, S, H, qb, qs, qh, kOwn);
+  if (rc == 0) rc = make_map_bshd(&tg, dout, B, S, H, gb, gs, gh, kOwn);
+  if (rc == 0) rc = make_map_bshd(&tk, k, B, S, H, kb, ks, kh, kOwn);
+  if (rc == 0) rc = make_map_bshd(&tv, v, B, S, H, vb, vs, vh, kOwn);
+  if (rc != 0) return rc;
   const cudaError_t err = cudaFuncSetAttribute(
       flash_bwd_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       kDqSmem);
@@ -387,12 +649,7 @@ extern "C" int flash_attn_bwd_dq_bf16(
   const dim3 grid((S + kOwn - 1) / kOwn, B * H);
   flash_bwd_dq_kernel<<<grid, kThreads, kDqSmem,
                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v),
-      static_cast<const __nv_bfloat16*>(dout), lse, drow,
-      static_cast<__nv_bfloat16*>(dq), S, H, Strides{qb, qs, qh},
-      Strides{kb, ks, kh}, Strides{vb, vs, vh}, Strides{gb, gs, gh},
-      Strides{dqb, dqs, dqh}, scale, scale * kLog2e);
+      tq, tg, tk, tv, lse, drow, static_cast<__nv_bfloat16*>(dq), S, H, dqb,
+      dqs, dqh, scale, scale * kLog2e);
   return cudaGetLastError();
 }

@@ -10,9 +10,10 @@ strides 16-byte aligned), any S, D = 128, and returns ``(out [B, S, H, D]
 bf16, lse [B·H, S] f32)``.
 
 ``flash_attention_backward`` is the matching backward
-(``csrc/flash_attn_bwd.cu``): kernel B2a for dK/dV
-(``flash_attention_bwd_dkv``) and B2b for dQ (``flash_attention_bwd_dq``),
-the counterparts of ``_flash_bwd_dkv_kernel`` and ``_flash_bwd_dq_kernel``.
+(``csrc/flash_attn_bwd.cu``, on the same TMA/wgmma design): kernel B2a for
+dK/dV (``flash_attention_bwd_dkv``) and B2b for dQ
+(``flash_attention_bwd_dq``), the counterparts of ``_flash_bwd_dkv_kernel``
+and ``_flash_bwd_dq_kernel``.
 ``FlashAttention`` ties the two into a ``torch.autograd.Function``, so
 ``attention`` on a CUDA tensor is differentiable through the kernels.
 
@@ -55,7 +56,7 @@ launches_bwd_dq = 0     # B2b
 launches_qk8 = 0        # B3
 
 _fns: Dict[str, object] = {}  # bound ctypes functions by name
-_MAP_ERROR = 100000  # B1's return code base for a tensor map (csrc/hopper.cuh)
+_MAP_ERROR = 100000  # return code base for a TMA tensor map (csrc/hopper.cuh)
 
 
 def attention_reference(
@@ -159,10 +160,19 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise TypeError(f"flash attention takes bf16, {name} is {t.dtype}")
         if t.stride(-1) != 1:
             raise ValueError(f"{name} must be contiguous along D")
-        # B1's TMA and B2's cp.async copy 16-byte units: the base and every
+        # TMA (B1, B2a, B2b) copies 16-byte units: the base and every
         # stride must be 16-byte aligned
         if t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3]):
             raise ValueError(f"{name} rows must be 16-byte aligned")
+
+
+def _raise_on(rc: int, name: str) -> None:
+    """Raise for a nonzero return code of a TMA kernel's entry point."""
+    if rc >= _MAP_ERROR:
+        raise RuntimeError(f"{name}: a TMA tensor map could not be encoded "
+                           f"(CUresult {rc - _MAP_ERROR})")
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
 
 
 def _stream(device: torch.device) -> int:
@@ -199,11 +209,7 @@ def flash_attention(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
         1.0 / math.sqrt(D), _stream(q.device),
     )
-    if rc >= _MAP_ERROR:
-        raise RuntimeError("flash_attn_fwd_bf16: a TMA tensor map could not be "
-                           f"encoded (CUresult {rc - _MAP_ERROR})")
-    if rc != 0:
-        raise RuntimeError(f"flash_attn_fwd_bf16 launch failed: CUDA error {rc}")
+    _raise_on(rc, "flash_attn_fwd_bf16")
     launches += 1
     return out, lse
 
@@ -240,8 +246,7 @@ def flash_attention_bwd_dkv(
             B, S, H, D, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *g.stride()[:3], *dk.stride()[:3], *dv.stride()[:3],
             1.0 / math.sqrt(D), _stream(q.device))
-    if rc != 0:
-        raise RuntimeError(f"flash_attn_bwd_dkv_bf16 launch failed: CUDA error {rc}")
+    _raise_on(rc, "flash_attn_bwd_dkv_bf16")
     launches_bwd_dkv += 1
     return dk, dv
 
@@ -264,8 +269,7 @@ def flash_attention_bwd_dq(
             lse.data_ptr(), drow.data_ptr(), dq.data_ptr(), B, S, H, D,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *g.stride()[:3],
             *dq.stride()[:3], 1.0 / math.sqrt(D), _stream(q.device))
-    if rc != 0:
-        raise RuntimeError(f"flash_attn_bwd_dq_bf16 launch failed: CUDA error {rc}")
+    _raise_on(rc, "flash_attn_bwd_dq_bf16")
     launches_bwd_dq += 1
     return dq
 
