@@ -22,7 +22,10 @@ non-zero:
    ptxas report, and the pair's line its time over the library's backward;
    the int8-QK forward B3,
    on q/k quantized by ``quant_rows``, to max|dout| <= min(2e-2, 2 % of
-   max|ref|) against its plain version on the same int8 inputs; and one
+   max|ref|) against its plain version on the same int8 inputs, its line
+   also giving its share of the bound, its time over B1's in the same run,
+   the time of ``quant_rows`` of q and k and of both with B3 (what
+   ``attention(qk8=True)`` launches) over B1's, and its ptxas report; and one
    W8A8 projection ([13312, 3072] @ [3072, 12288], ``torch._int_mm``)
    timed beside the same product in bf16 (context, not a gate);
 4. serving path: ``CustomRGBTextureFullPipeline(random_weights=True)`` at
@@ -140,16 +143,17 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def check_flash_attention(attn, torch, ptxas: str) -> dict:
+def check_flash_attention(attn, torch, ptxas: str):
     """B1 against ``attention_reference`` (f32 on the same bf16 inputs);
     ``ptxas`` is its kernel's register and spill report, printed beside
-    each time."""
+    each time.  Returns B1's record and its ms at each S."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     B, H, D = 1, 24, 128
     record = None
     worst = 0.0
+    ms_at = {}
     for S in ATTN_SHAPES:
         q, k, v = (torch.randn((B, S, H, D), generator=gen, device="cuda")
                    .to(torch.bfloat16) for _ in range(3))
@@ -178,7 +182,7 @@ def check_flash_attention(attn, torch, ptxas: str) -> dict:
                 attn.attention_reference(q[:, :, sl].float(), k[:, :, sl].float(),
                                          v[:, :, sl].float())
 
-        ms = cuda_ms(lambda: attn.flash_attention(q, k, v), iters)
+        ms = ms_at[S] = cuda_ms(lambda: attn.flash_attention(q, k, v), iters)
         plain_ms = cuda_ms(plain, 2)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), iters)
@@ -203,7 +207,7 @@ def check_flash_attention(attn, torch, ptxas: str) -> dict:
             }
         del q, k, v, out, lse
     record["max_abs_err"] = worst
-    return record
+    return record, ms_at
 
 
 def check_flash_backward(attn, torch, ptxas: dict) -> list:
@@ -302,9 +306,13 @@ def check_flash_backward(attn, torch, ptxas: dict) -> list:
     return [records["flash_attn_bwd_dkv"], records["flash_attn_bwd_dq"]]
 
 
-def check_flash_qk8(attn, torch) -> dict:
+def check_flash_qk8(attn, torch, ptxas: str, b1_ms: dict) -> dict:
     """B3 against ``attention_qk8_reference`` (f32, on the same int8 q/k
-    and row scales from ``quant_rows``, and the same bf16 v)."""
+    and row scales from ``quant_rows``, and the same bf16 v); ``ptxas`` is
+    its kernel's register and spill report and ``b1_ms`` B1's ms at each S
+    in this run.  Each line also times ``quant_rows`` of q and k, and the
+    whole of what ``attention(q, k, v, qk8=True)`` launches (both
+    quantizations and B3) against B1."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -338,6 +346,14 @@ def check_flash_qk8(attn, torch) -> dict:
         worst = max(worst, err)
         iters = 20 if S > 5000 else 50
         ms = cuda_ms(lambda: attn.flash_attention_qk8(qq, kq, v, sq, sk), iters)
+        quant_ms = cuda_ms(lambda: (attn.quant_rows(q), attn.quant_rows(k)), iters)
+
+        def quantized():
+            qq1, sq1 = attn.quant_rows(q)
+            kq1, sk1 = attn.quant_rows(k)
+            return attn.flash_attention_qk8(qq1, kq1, v, sq1, sk1)
+
+        whole_ms = cuda_ms(quantized, iters)
         plain_ms = cuda_ms(lambda: [plain_head(h) for h in range(H)], 2)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt),
@@ -348,11 +364,16 @@ def check_flash_qk8(attn, torch) -> dict:
         bound_ms = max(t_ops, nbytes / PEAK_BYTES) * 1e3
         sfu_ms = B * H * S * S / SFU_EXP_RATE * 1e3
         print(f"[kernels] flash_attn_qk8 S={S}: ms={ms:.4f} bound_ms="
-              f"{bound_ms:.4f} (tensor cores; exp2 on the SFUs {sfu_ms:.4f}) "
-              f"plain_ms={plain_ms:.3f} max_abs_err={err:.3e} (tol "
-              f"{out_tol:.3e}, max|ref|={ref_max:.3e}); no library call "
-              f"computes int8-QK attention, bf16 scaled_dot_product_attention "
-              f"(not the same function) {sdpa_ms:.4f} ms", flush=True)
+              f"{bound_ms:.4f} (tensor cores; exp2 on the SFUs {sfu_ms:.4f}; "
+              f"{bound_ms / ms:.1%} of the bound, {ms / b1_ms[S]:.3f}x B1's "
+              f"{b1_ms[S]:.4f} ms) plain_ms={plain_ms:.3f} max_abs_err="
+              f"{err:.3e} (tol {out_tol:.3e}, max|ref|={ref_max:.3e}); "
+              f"quant_rows(q)+quant_rows(k) {quant_ms:.4f} ms, with B3 (what "
+              f"attention(qk8=True) launches) {whole_ms:.4f} ms = "
+              f"{whole_ms / b1_ms[S]:.3f}x B1; no library call computes "
+              f"int8-QK attention, bf16 scaled_dot_product_attention (not "
+              f"the same function) {sdpa_ms:.4f} ms; ptxas: {ptxas}",
+              flush=True)
         if S == ATTN_SHAPES[0]:
             record = {
                 "name": "flash_attn_qk8", "route": "cuda",
@@ -659,13 +680,14 @@ def main() -> int:
             print(f"[build] {source} {fn} ptxas: {use}", flush=True)
             usage[fn] = use
 
-    records = [check_flash_attention(attn, torch, usage["flash_fwd_kernel"])]
+    b1_record, b1_ms = check_flash_attention(attn, torch, usage["flash_fwd_kernel"])
+    records = [b1_record]
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     records += check_flash_backward(attn, torch, usage)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    records.append(check_flash_qk8(attn, torch))
+    records.append(check_flash_qk8(attn, torch, usage["flash_qk8_kernel"], b1_ms))
     time_w8a8(torch)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()

@@ -185,14 +185,53 @@ def _check_qk8_against_plain(qq, kq, v, sq, sk):
     assert (out.float() - ref).abs().max().item() <= out_tol
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("S", [1, 63, 130, 1000])
-def test_flash_qk8_matches_plain(card, S):
-    """Whole and ragged tiles (128 queries and 64 keys a step)."""
-    q, k, v = _qkv(S, 4, 100 + S, card)
+def _qk8_inputs(S, H, seed, device, B=1):
+    q, k, v = _qkv(S, H, seed, device, B)
     qq, sq = attn.quant_rows(q)
     kq, sk = attn.quant_rows(k)
+    return qq, kq, v, sq, sk
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "S", [1, 63, 64, 128, 129, 130, 256, 257, 384, 385, 1000, 4096])
+def test_flash_qk8_matches_plain(card, S):
+    """Whole and ragged tiles on both sides of a tile edge (the kernel takes
+    128 queries and 128 keys a step), and odd (1, 3) and even (2, 4, 8, 32)
+    counts of key tiles, so that its three-stage ring wraps at both
+    parities."""
+    _check_qk8_against_plain(*_qk8_inputs(S, 4, 100 + S, card))
+
+
+@pytest.mark.cuda
+def test_flash_qk8_two_batches(card):
+    """B = 2: the tensor maps' batch coordinate and the scales' batch
+    stride."""
+    _check_qk8_against_plain(*_qk8_inputs(300, 3, 15, card, B=2))
+
+
+@pytest.mark.cuda
+def test_flash_qk8_takes_any_row_scale(card):
+    """The kernel applies the query row's scale inside the exp2 and to the
+    tile's max, so a row with a negative or zero scale (which quant_rows
+    never makes) takes another branch there: held to the plain version all
+    the same, at a ragged S so that masked keys meet every sign."""
+    qq, kq, v, sq, sk = _qk8_inputs(300, 2, 17, card)
+    sq = sq.clone()
+    sq[:, ::3] *= -1.0
+    sq[:, 1::7] = 0.0
     _check_qk8_against_plain(qq, kq, v, sq, sk)
+
+
+@pytest.mark.cuda
+def test_flash_qk8_is_bit_identical_across_calls(card):
+    """Each block sums its rows in a fixed order, so two calls on the same
+    inputs agree bit for bit."""
+    args = _qk8_inputs(1000, 4, 16, card)
+    first = attn.flash_attention_qk8(*args)
+    second = attn.flash_attention_qk8(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 @pytest.mark.cuda

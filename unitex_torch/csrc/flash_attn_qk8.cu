@@ -11,279 +11,420 @@
 // on an H100 SXM) plus 2·B·H·S²·D bf16 FLOPs for P·V (989 TFLOP/s), against
 // about 4·B·S·H·D bytes of q/k/v/out traffic; at S = 13824 that is 1.78 ms
 // of tensor-core time.  The B·H·S² exponentials are a second bound on the
-// SFU (about 1.1 ms there).  The design is B1's (flash_attn_fwd.cu) with
-// the first product on the int8 tensor-core path:
-//   * one block per (batch·head, 128-row query tile), 8 warps of 16 query
-//     rows; the key axis is a loop inside the block;
-//   * int8 Q staged once through shared memory into registers; int8 K
-//     (64 keys), bf16 V and the 64 key scales double-buffered with
-//     cp.async; int8 rows are 128 bytes, so their 8 16-byte chunks are
-//     XOR-swizzled by row (c ^ (r & 7)) for conflict-free ldmatrix;
-//   * Q·Kᵀ on mma.sync m16n8k32 s8·s8 -> s32 (four k-steps over D = 128):
-//     an int8 16x32 A tile and 32x8 B tile have the byte layout of a bf16
-//     16x16 / 16x8 tile, so the same ldmatrix patterns load them;
-//   * the int32 logits become f32 in registers, scaled by the query row's
-//     (sq · scale · log2 e) and the key's sk, then run B1's online softmax
-//     in the exp2 domain and P·V on mma.sync m16n8k16 bf16 -> f32, with P
-//     re-packed from registers;
-//   * any S: keys past S are zero-filled and masked to -inf, query rows
-//     past S are computed and not stored.
-// Wgmma, TMA and warp specialisation are not used yet.
+// SFU (about 1.1 ms there), and with the int8 product at twice the bf16
+// rate the per-logit work beside the products (conversion, scales, max,
+// exp2, sum, P packing) weighs more than in B1.  So the design is B1's
+// (flash_attn_fwd.cu, on hopper.cuh), which runs one warpgroup's softmax
+// under the other's products, with the first product on the int8 path and
+// as few instructions per logit as the function allows:
+//   * one block per (batch·head, 128-query tile) and three warpgroups: a
+//     producer (one thread issues TMA copies, one warp copies the key
+//     scales; its registers given to the others by setmaxnreg) and two
+//     consumers of 64 query rows each;
+//   * TMA loads the int8 Q tile once and streams int8 K (16 KB) and bf16 V
+//     (32 KB) tiles of 128 keys through a ring of kStages stages, 128-byte
+//     swizzled, K and V each guarded by a full and an empty mbarrier; an
+//     int8 row of D = 128 is 128 bytes, so a Q or K tile is one swizzled
+//     box;
+//   * S = Q·Kᵀ is wgmma m64n128k32 s8·s8 -> s32 with both operands K-major
+//     in shared memory (the only layout 8-bit wgmma takes, and the one q
+//     and k rows already have): four k-steps of 32 bytes along one row;
+//   * the s32 logits become f32 in registers (I2FP, exact: |Σ| ≤ 127²·128
+//     < 2^24) times the key's sk.  The key scales are f32 [B, S, H] with
+//     stride H along S, which no TMA box can read (its inner extent must
+//     be 16 bytes), so a producer warp copies the stage's 128 of them with
+//     plain loads under the K full barrier (0 past S); each consumer warp
+//     releases the K stage once it has read them.  The query row's
+//     sq · scale · log2 e goes into the tile's max and the exp2's
+//     multiply-add rather than into a multiply per logit;
+//   * O += P·V with P in registers: each consumer rounds P to bf16 pairs,
+//     which in the accumulator layout of S are already the register
+//     operand of wgmma m64n128k16, and V is read MN-major from shared
+//     memory.  Each issues S_j beside P_{j-1}·V_{j-1} and runs the softmax
+//     of S_j while the second product does, and two named barriers pass
+//     the turn to issue products from one consumer to the other;
+//   * the consumers wait on the ring by spinning without a trap
+//     (hop::mbar_wait_spin; a trap there held the consumers of
+//     flash_attn_bwd.cu to the launch's 168 registers).  The producer
+//     thread waits, with a trap, until both consumers arrive on a `done`
+//     barrier at their end, so a fault in the bookkeeping fails the
+//     launch instead of holding the card;
+//   * any S: TMA reads rows past S as zeros, keys past S are masked to
+//     -inf before the max (in the last tile only), query rows past S are
+//     computed and not stored.
+// Each choice against its alternative on an H100:
+// unitex_torch/scripts/probe_flash_qk8.py, PERF.md §6.
 //
 // Layout: qq/kq int8 and v/out bf16 are [B, S, H, D] read through their
-// strides (innermost D stride 1, rows 16-byte aligned); sq/sk are f32
-// [B, S, H] read through their strides.  D = 128 only.
+// strides (D contiguous, rows 16-byte aligned, as TMA requires); sq/sk are
+// f32 [B, S, H] read through their strides.  D = 128 only.
 
+#include <float.h>
 #include <math.h>
 
-#include "common.cuh"
+#include <type_traits>
+
+#include "hopper.cuh"
 
 namespace {
 
-using namespace fa;
+using namespace hop;
+using fa::kD;
+using fa::kLog2e;
 
-constexpr int kBlockM = 128;
-constexpr int kBlockN = 64;
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kRowBytes8 = kD;               // one int8 row of D values
-constexpr int kChunks8 = kRowBytes8 / 16;    // its 16-byte chunks
-constexpr int kQBytes = kBlockM * kRowBytes8;
-constexpr int kKBytes = kBlockN * kRowBytes8;
-constexpr int kVBytes = kBlockN * kRowBytes;
-constexpr int kSkBytes = kBlockN * 4;
-// Q + 2 x (K, V, key scales)
-constexpr int kSmemBytes = kQBytes + 2 * (kKBytes + kVBytes + kSkBytes);
+constexpr int kBlockM = 128;  // queries per block: two warpgroups of 64
+constexpr int kBlockN = 128;  // keys per stage
+constexpr int kThreads = 3 * 128;
+constexpr uint32_t kQBytes = kBlockM * kD;      // int8 Q tile, one box
+constexpr uint32_t kKBytes = kBlockN * kD;      // int8 K tile, one box
+constexpr uint32_t kVBytes = kBlockN * kD * 2;  // bf16 V tile
+constexpr uint32_t kVBox = kVBytes / 2;         // its [128][64] half
+constexpr uint32_t kSkBytes = kBlockN * 4;      // a stage's key scales
 
-// Byte offset of 16-byte chunk c of row r in a swizzled int8 [rows][kD] tile.
-__device__ __forceinline__ uint32_t swz8(int r, int c) {
-  return static_cast<uint32_t>(r * kRowBytes8 + ((c ^ (r & 7)) << 4));
-}
+constexpr int kStages = 3;  // K/V ring depth
+// Q, the K and V rings, the key scales, the barriers, and slack to align
+// the base to 1024
+constexpr uint32_t kSmemBytes = kQBytes + kStages * (kKBytes + kVBytes) +
+                                kStages * kSkBytes + 8 * (2 + 4 * kStages) +
+                                1024;
 
-// Copy int8 rows [row0, row0 + ROWS) of one head into a swizzled tile;
-// rows at or past S are zero-filled.
-template <int ROWS>
-__device__ __forceinline__ void load_tile_i8(uint32_t dst, const int8_t* src,
-                                             long long row_stride, int row0,
-                                             int S, int tid) {
+// The mbarriers, 8 bytes each from `base`: Q's, then per stage K full
+// (TMA bytes and the 32 arrivals of the scale-copying warp), V full,
+// K empty (one arrival per consumer warp) and V empty (one per consumer
+// warpgroup), then the consumers' done.
+struct Bars {
+  uint32_t base;
+  __device__ uint32_t q() const { return base; }
+  __device__ uint32_t kfull(int s) const { return base + 8u * (1 + s); }
+  __device__ uint32_t vfull(int s) const {
+    return base + 8u * (1 + kStages + s);
+  }
+  __device__ uint32_t kempty(int s) const {
+    return base + 8u * (1 + 2 * kStages + s);
+  }
+  __device__ uint32_t vempty(int s) const {
+    return base + 8u * (1 + 3 * kStages + s);
+  }
+  __device__ uint32_t done() const { return base + 8u * (1 + 4 * kStages); }
+};
+
+// S (64 x 128, s32) = Q rows of this warpgroup · K tileᵀ, from their
+// descriptors: 4 k-steps of 32 bytes (2 descriptor units) along the one
+// 128-byte row of each.
+__device__ __forceinline__ void issue_qk(int (&s)[64], uint64_t dq,
+                                         uint64_t dk) {
+  wgmma_m64n128k32_s8_zero(s, dq, dk);
 #pragma unroll
-  for (int i = 0; i < ROWS * kChunks8 / kThreads; ++i) {
-    const int idx = tid + i * kThreads;
-    const int r = idx / kChunks8;
-    const int c = idx % kChunks8;
-    const int s = row0 + r;
-    const bool ok = s < S;
-    const int8_t* p = src + (ok ? s : 0) * row_stride + c * 16;
-    cp_async16(dst + swz8(r, c), p, ok);
+  for (int kk = 1; kk < kD / 32; ++kk) {
+    wgmma_m64n128k32_s8(s, dq + 2 * kk, dk + 2 * kk);
   }
 }
 
-// The kBlockN key scales from key0 on; keys at or past S read as 0.
-__device__ __forceinline__ void load_scales(uint32_t dst, const float* src,
-                                            long long stride, int key0, int S,
-                                            int tid) {
-  if (tid < kBlockN) {
-    const int s = key0 + tid;
-    const bool ok = s < S;
-    cp_async4(dst + tid * 4, src + (ok ? s : 0) * stride, ok);
+// O (64 x 128) += P (registers, bf16 pairs) · V tile (descriptor dv), 8
+// k-steps of 16 keys (16 rows of 128 bytes, 128 descriptor units).
+__device__ __forceinline__ void issue_pv(float (&o)[64],
+                                         const uint32_t (&p)[32],
+                                         uint64_t dv) {
+#pragma unroll
+  for (int kk = 0; kk < kBlockN / 16; ++kk) {
+    wgmma_m64n128_rs<1>(o, p[4 * kk], p[4 * kk + 1], p[4 * kk + 2],
+                        p[4 * kk + 3], dv + 128 * kk);
   }
 }
 
-// d += a · b for one m16n8k32 int8 tile with int32 accumulation.
-__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
-                                       uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// y = the s32 logits (rows 16·warp + g and + 8, keys 8·nt + 2t and + 1 of
+// the tile) in f32, exactly (|Σ| ≤ 127²·128 < 2^24), times the key's sk
+// from the stage's copy in shared memory: the logit in the exp2 domain is
+// rowf · y, with the row factor rowf = sq · scale · log2 e applied by
+// softmax_tile.  kMask: the tile may reach past S, whose keys get the y
+// that makes rowf · y = -inf (only the last tile does, so the others skip
+// the test).
+template <bool kMask>
+__device__ __forceinline__ void dequant(const int (&acc)[64], float (&s)[64],
+                                        const float (&rowf)[2],
+                                        const float* sk_tile, int key0, int S,
+                                        int t) {
+#pragma unroll
+  for (int nt = 0; nt < 16; ++nt) {
+    const float2 skv =
+        *reinterpret_cast<const float2*>(sk_tile + nt * 8 + 2 * t);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[4 * nt + e] =
+          static_cast<float>(acc[4 * nt + e]) * ((e & 1) ? skv.y : skv.x);
+    }
+  }
+  if (kMask && key0 + kBlockN > S) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      if (key0 + (i / 4) * 8 + 2 * t + (i & 1) >= S) {
+        s[i] = rowf[(i >> 1) & 1] > 0.f ? -INFINITY : INFINITY;
+      }
+    }
+  }
+}
+
+// Online softmax of one tile in the exp2 domain, the logits rowf · y (y in
+// s): updates the running max m and per-thread partial sum l of rows g and
+// g + 8, leaves P in s and the factor for the old O in alpha.  The row
+// factor goes into the tile's max and the exp2's multiply-add instead of
+// a multiply of its own per logit; the largest rowf · y is rowf times the
+// largest y where rowf > 0 and the smallest where rowf < 0 (rowf is never
+// 0: see the consumers' rowf).
+__device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m)[2],
+                                             float (&l)[2], float (&alpha)[2],
+                                             const float (&rowf)[2]) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const float a = rowf[half];
+    float ext = -INFINITY;
+    if (a > 0.f) {
+#pragma unroll
+      for (int nt = 0; nt < 16; ++nt) {
+        ext = fmaxf(ext, fmaxf(s[4 * nt + 2 * half], s[4 * nt + 2 * half + 1]));
+      }
+    } else {
+#pragma unroll
+      for (int nt = 0; nt < 16; ++nt) {
+        ext = fmaxf(ext,
+                    fmaxf(-s[4 * nt + 2 * half], -s[4 * nt + 2 * half + 1]));
+      }
+      ext = -ext;
+    }
+    float mx = a * ext;
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    // every tile holds a key below S, so the new max is finite
+    const float m_new = fmaxf(m[half], mx);
+    alpha[half] = ex2(m[half] - m_new);
+    m[half] = m_new;
+    float sum = 0.f;
+#pragma unroll
+    for (int nt = 0; nt < 16; ++nt) {
+      const int i = 4 * nt + 2 * half;
+      s[i] = ex2(fmaf(s[i], a, -m_new));
+      s[i + 1] = ex2(fmaf(s[i + 1], a, -m_new));
+      sum += s[i] + s[i + 1];
+    }
+    l[half] = l[half] * alpha[half] + sum;
+  }
+}
+
+// P (f32 in the S accumulators) rounded to bf16 pairs: the a operand of
+// P·V (see wgmma_m64n128_rs).
+__device__ __forceinline__ void pack_p(const float (&s)[64],
+                                       uint32_t (&p)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) p[i] = pack_bf16(s[2 * i], s[2 * i + 1]);
+}
+
+__device__ __forceinline__ void rescale(float (&o)[64], const float (&alpha)[2]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) o[i] *= alpha[(i >> 1) & 1];
 }
 
 __global__ void __launch_bounds__(kThreads, 1)
-    flash_qk8_kernel(const int8_t* __restrict__ qq,
-                     const int8_t* __restrict__ kq,
-                     const __nv_bfloat16* __restrict__ v,
+    flash_qk8_kernel(const __grid_constant__ CUtensorMap tq,
+                     const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv,
                      const float* __restrict__ sq,
                      const float* __restrict__ sk,
                      __nv_bfloat16* __restrict__ o, int S, int H,
-                     long long qb, long long qs, long long qh, long long kb,
-                     long long ks, long long kh, long long vb, long long vs,
-                     long long vh, long long ob, long long os, long long oh,
-                     long long sqb, long long sqs, long long sqh,
-                     long long skb, long long sks, long long skh,
-                     float scale_log2) {
-  extern __shared__ __align__(128) unsigned char smem[];
+                     long long ob, long long os, long long oh, long long sqb,
+                     long long sqs, long long sqh, long long skb,
+                     long long sks, long long skh, float scale_log2) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t sQ = (raw + 1023u) & ~1023u;
+  const uint32_t sK = sQ + kQBytes;
+  const uint32_t sV = sK + kStages * kKBytes;
+  const uint32_t sSk = sV + kStages * kVBytes;  // [stage][128 key scales]
+  float* sk_f = reinterpret_cast<float*>(smem_raw + (sSk - raw));
+  const Bars bar{sSk + kStages * kSkBytes};
   const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;  // row within the 8-row group of a fragment
-  const int t = lane & 3;   // thread within the quad
+  // the warpgroup, broadcast from lane 0 so that the compiler sees each
+  // role's branch taken by whole warps (setmaxnreg needs that)
+  const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);
   const int m0 = blockIdx.x * kBlockM;
   const int bh = blockIdx.y;
   const int b = bh / H;
   const int h = bh % H;
-
-  const int8_t* qp = qq + b * qb + h * qh;
-  const int8_t* kp = kq + b * kb + h * kh;
-  const __nv_bfloat16* vp = v + b * vb + h * vh;
-  const float* skp = sk + b * skb + h * skh;
-
-  const uint32_t sQ = smem_u32(smem);
-  // buffer i of K at sK + i * kKBytes, of V at sV + i * kVBytes, of the
-  // key scales at sS + i * kSkBytes
-  const uint32_t sK = sQ + kQBytes;
-  const uint32_t sV = sK + 2 * kKBytes;
-  const uint32_t sS = sV + 2 * kVBytes;
-  const float* sS_ptr = reinterpret_cast<const float*>(
-      smem + kQBytes + 2 * kKBytes + 2 * kVBytes);
-
-  load_tile_i8<kBlockM>(sQ, qp, qs, m0, S, tid);
-  cp_async_commit();
-  load_tile_i8<kBlockN>(sK, kp, ks, 0, S, tid);
-  load_tile<kBlockN, kThreads>(sV, vp, vs, 0, S, tid);
-  load_scales(sS, skp, sks, 0, S, tid);
-  cp_async_commit();
-
-  // This thread's two query rows: (sq · scale · log2 e) of each.
-  float rowf[2];
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int row = m0 + warp * 16 + g + 8 * half;
-    rowf[half] = row < S ? sq[b * sqb + row * sqs + h * sqh] * scale_log2
-                         : 0.f;
-  }
-
-  // Q fragments of this warp's 16 rows: 4 k-steps of 32 along D.
-  cp_async_wait<1>();
-  __syncthreads();
-  uint32_t qf[kD / 32][4];
-#pragma unroll
-  for (int kk = 0; kk < kD / 32; ++kk) {
-    ldsm_x4(sQ + swz8(warp * 16 + (lane & 15), kk * 2 + (lane >> 4)),
-            qf[kk][0], qf[kk][1], qf[kk][2], qf[kk][3]);
-  }
-
-  float oacc[kD / 8][4];
-#pragma unroll
-  for (int i = 0; i < kD / 8; ++i) {
-    oacc[i][0] = oacc[i][1] = oacc[i][2] = oacc[i][3] = 0.f;
-  }
-  float mrow[2] = {-INFINITY, -INFINITY};  // running max, exp2 domain
-  float lrow[2] = {0.f, 0.f};              // per-thread partial row sums
-
   const int n_tiles = (S + kBlockN - 1) / kBlockN;
-  for (int j = 0; j < n_tiles; ++j) {
-    const int buf = j & 1;
-    if (j + 1 < n_tiles) {
-      const int key1 = (j + 1) * kBlockN;
-      load_tile_i8<kBlockN>(sK + (buf ^ 1) * kKBytes, kp, ks, key1, S, tid);
-      load_tile<kBlockN, kThreads>(sV + (buf ^ 1) * kVBytes, vp, vs, key1, S,
-                                   tid);
-      load_scales(sS + (buf ^ 1) * kSkBytes, skp, sks, key1, S, tid);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
 
-    // int32 S = Qq Kqᵀ for 16 rows x 64 keys (8 n-tiles of 8 keys).
-    int iacc[kBlockN / 8][4];
-#pragma unroll
-    for (int i = 0; i < kBlockN / 8; ++i) {
-      iacc[i][0] = iacc[i][1] = iacc[i][2] = iacc[i][3] = 0;
+  if (tid == 0) {
+    tma_prefetch(&tq);
+    tma_prefetch(&tk);
+    tma_prefetch(&tv);
+    mbar_init(bar.q(), 1);
+    mbar_init(bar.done(), 2);  // one arrival per consumer warpgroup
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bar.kfull(s), 1 + 32);  // the TMA thread and the scale warp
+      mbar_init(bar.vfull(s), 1);
+      mbar_init(bar.kempty(s), 8);  // one arrival per consumer warp
+      mbar_init(bar.vempty(s), 2);  // one arrival per consumer warpgroup
     }
-    const uint32_t kt = sK + buf * kKBytes;
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // ---- producer: thread 0 keeps the ring full, warp 1 the scales ----
+    reg_dealloc<24>();
+    const int warp = tid / 32;
+    const int lane = tid % 32;
+    if (tid == 0) {
+      mbar_expect_tx(bar.q(), kQBytes);
+      tma_load_4d(sQ, &tq, bar.q(), 0, h, m0, b);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % kStages;
+        const uint32_t free_parity = ((j / kStages) & 1) ^ 1;
+        const int key0 = j * kBlockN;
+        mbar_wait(bar.kempty(s), free_parity);
+        mbar_expect_tx(bar.kfull(s), kKBytes);
+        tma_load_4d(sK + s * kKBytes, &tk, bar.kfull(s), 0, h, key0, b);
+        mbar_wait(bar.vempty(s), free_parity);
+        mbar_expect_tx(bar.vfull(s), kVBytes);
+        tma_load_4d(sV + s * kVBytes, &tv, bar.vfull(s), 0, h, key0, b);
+        tma_load_4d(sV + s * kVBytes + kVBox, &tv, bar.vfull(s), 64, h, key0,
+                    b);
+      }
+      // the consumers spin without a trap (see mbar_wait_spin): a fault
+      // that hangs them traps here instead
+      mbar_wait(bar.done(), 0);
+    } else if (warp == 1) {
+      // the stage's 128 key scales, 0 past S: plain loads, stores to
+      // shared memory, then a release arrival
+      const float* sk_h = sk + b * skb + h * skh;
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % kStages;
+        mbar_wait(bar.kempty(s), ((j / kStages) & 1) ^ 1);
+        float* slot = sk_f + s * kBlockN;
 #pragma unroll
-    for (int kk = 0; kk < kD / 32; ++kk) {
-#pragma unroll
-      for (int np = 0; np < kBlockN / 16; ++np) {
-        const int row = np * 16 + ((lane >> 4) << 3) + (lane & 7);
-        uint32_t b0, b1, b2, b3;
-        ldsm_x4(kt + swz8(row, kk * 2 + ((lane >> 3) & 1)), b0, b1, b2, b3);
-        mma_s8(iacc[2 * np], qf[kk], b0, b1);
-        mma_s8(iacc[2 * np + 1], qf[kk], b2, b3);
+        for (int r = lane; r < kBlockN; r += 32) {
+          const int key = j * kBlockN + r;
+          slot[r] = key < S ? sk_h[key * sks] : 0.f;
+        }
+        mbar_arrive(bar.kfull(s));
       }
     }
+  } else {
+    // ---- consumers: 64 query rows each ----
+    reg_alloc<240>();
+    const int c = wg - 1;
+    const int ltid = tid % 128;
+    const int warp = ltid / 32;
+    const int lane = ltid % 32;
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    // descriptors of this warpgroup's 64 Q rows (128 bytes a row) and of
+    // the first K and V stages
+    const uint64_t dq = desc_sw128(sQ + c * 64 * 128, 16, 1024);
+    const uint64_t dk = desc_sw128(sK, 16, 1024);
+    const uint64_t dv = desc_sw128(sV, kVBox, 1024);
 
-    // Dequantize into the exp2 domain and mask keys past S.
-    const float* skt = sS_ptr + buf * kBlockN;
-    const int key0 = j * kBlockN;
-    const bool tail = key0 + kBlockN > S;
-    float sacc[kBlockN / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < kBlockN / 8; ++nt) {
-      const float2 skv =
-          *reinterpret_cast<const float2*>(skt + nt * 8 + 2 * t);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = static_cast<float>(iacc[nt][e]) * rowf[e >> 1] *
-                  ((e & 1) ? skv.y : skv.x);
-        if (tail && key0 + nt * 8 + 2 * t + (e & 1) >= S) x = -INFINITY;
-        sacc[nt][e] = x;
-      }
-    }
-
-    // Online softmax for rows g (half 0) and g + 8 (half 1).
+    // sq · scale · log2 e of this thread's two query rows, kept off 0 so
+    // that a masked key's rowf · y is -inf and not NaN: a row whose factor
+    // is 0 gets a uniform softmax either way (rows past S take 1)
+    float rowf[2];
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
-      float mx = mrow[half];
-#pragma unroll
-      for (int nt = 0; nt < kBlockN / 8; ++nt) {
-        mx = fmaxf(mx, fmaxf(sacc[nt][2 * half], sacc[nt][2 * half + 1]));
-      }
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float alpha = exp2f(mrow[half] - mx);
-      mrow[half] = mx;
-      float sum = 0.f;
-#pragma unroll
-      for (int nt = 0; nt < kBlockN / 8; ++nt) {
-        const float p0 = exp2f(sacc[nt][2 * half] - mx);
-        const float p1 = exp2f(sacc[nt][2 * half + 1] - mx);
-        sacc[nt][2 * half] = p0;
-        sacc[nt][2 * half + 1] = p1;
-        sum += p0 + p1;
-      }
-      lrow[half] = lrow[half] * alpha + sum;
-#pragma unroll
-      for (int dt = 0; dt < kD / 8; ++dt) {
-        oacc[dt][2 * half] *= alpha;
-        oacc[dt][2 * half + 1] *= alpha;
-      }
+      const int row = m0 + c * 64 + warp * 16 + g + 8 * half;
+      const float f =
+          row < S ? sq[b * sqb + row * sqs + h * sqh] * scale_log2 : 1.f;
+      rowf[half] = copysignf(fmaxf(fabsf(f), FLT_MIN), f);
     }
 
-    // O += P V: P from the S fragments (bf16), V via transposed ldmatrix.
-    const uint32_t vt = sV + buf * kVBytes;
+    float oacc[64];
 #pragma unroll
-    for (int kk = 0; kk < kBlockN / 16; ++kk) {
-      uint32_t a[4];
-      acc_to_a(sacc[2 * kk], sacc[2 * kk + 1], a);
-#pragma unroll
-      for (int dp = 0; dp < kD / 16; ++dp) {
-        uint32_t b0, b1, b2, b3;
-        ldsm_kd(vt, kk * 16, dp, lane, b0, b1, b2, b3);
-        mma_bf16(oacc[2 * dp], a, b0, b1);
-        mma_bf16(oacc[2 * dp + 1], a, b2, b3);
-      }
-    }
-    // Every warp is done with buffer `buf` before iteration j + 1 refills it.
-    __syncthreads();
-  }
+    for (int i = 0; i < 64; ++i) oacc[i] = 0.f;
+    int iacc[64];
+    float sacc[64];
+    uint32_t pacc[32];  // P of the previous tile, the a operand of P·V
+    float m[2] = {-INFINITY, -INFINITY};  // running max, exp2 domain
+    float l[2] = {0.f, 0.f};              // per-thread partial row sums
+    float alpha[2];
 
-  // Normalise and store O in bf16.
+    // Named barrier 1 + c is this warpgroup's turn to issue its products;
+    // warpgroup 0 starts, and each hands over once it has issued, so that
+    // one's softmax runs under the other's products.  Tile 0 is peeled:
+    // every later turn issues S_j = Q·K_jᵀ beside P_{j-1}·V_{j-1}, and the
+    // softmax of S_j runs while the second product does.  Each warp
+    // releases the K stage once S_j is done and it has read the stage's
+    // key scales; P_j goes into pacc once P_{j-1}·V_{j-1} is done.
+    mbar_wait_spin(bar.q(), 0);
+    if (c == 0) bar_arrive(1, 256);
+    mbar_wait_spin(bar.kfull(0), 0);
+    bar_sync(1 + c, 256);
+    wgmma_fence();
+    issue_qk(iacc, dq, dk);
+    wgmma_commit();
+    if (!(c == 1 && n_tiles == 1)) bar_arrive(2 - c, 256);
+    wgmma_wait<0>();
+    fence_regs(iacc);
+    dequant<true>(iacc, sacc, rowf, sk_f, 0, S, t);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar.kempty(0));
+    softmax_tile(sacc, m, l, alpha, rowf);
+    pack_p(sacc, pacc);
+
+    // one turn for tile j; the last tile may reach past S
+    auto turn = [&](int j, auto last) {
+      const int s = j % kStages;
+      const uint32_t parity = (j / kStages) & 1;
+      const int sp = (j - 1) % kStages;  // tile j - 1
+      const uint32_t parity_p = ((j - 1) / kStages) & 1;
+      mbar_wait_spin(bar.kfull(s), parity);
+      mbar_wait_spin(bar.vfull(sp), parity_p);
+      bar_sync(1 + c, 256);
+      wgmma_fence();
+      issue_qk(iacc, dq, dk + s * (kKBytes >> 4));
+      wgmma_commit();
+      issue_pv(oacc, pacc, dv + sp * (kVBytes >> 4));
+      wgmma_commit();
+      // the other warpgroup takes no turn after its last tile
+      if (!(c == 1 && j == n_tiles - 1)) bar_arrive(2 - c, 256);
+      wgmma_wait<1>();  // S_j is done; P_{j-1}·V_{j-1} may still run
+      fence_regs(iacc);
+      dequant<decltype(last)::value>(iacc, sacc, rowf, sk_f + s * kBlockN,
+                                     j * kBlockN, S, t);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar.kempty(s));
+      softmax_tile(sacc, m, l, alpha, rowf);
+      wgmma_wait<0>();
+      fence_regs(oacc);
+      fence_regs(pacc);
+      if (ltid == 0) mbar_arrive(bar.vempty(sp));
+      rescale(oacc, alpha);
+      pack_p(sacc, pacc);
+    };
+    for (int j = 1; j < n_tiles - 1; ++j) turn(j, std::false_type());
+    if (n_tiles > 1) turn(n_tiles - 1, std::true_type());
+
+    const int s = (n_tiles - 1) % kStages;
+    mbar_wait_spin(bar.vfull(s), ((n_tiles - 1) / kStages) & 1);
+    wgmma_fence();
+    issue_pv(oacc, pacc, dv + s * (kVBytes >> 4));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(oacc);
+    if (ltid == 0) mbar_arrive(bar.done());
+
+    // Normalise and store O in bf16.
 #pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    float l = lrow[half];
-    l += __shfl_xor_sync(0xffffffffu, l, 1);
-    l += __shfl_xor_sync(0xffffffffu, l, 2);
-    const int row = m0 + warp * 16 + g + 8 * half;
-    if (row < S) {
-      const float inv = 1.f / l;
-      __nv_bfloat16* orow = o + b * ob + row * os + h * oh + 2 * t;
+    for (int half = 0; half < 2; ++half) {
+      float sum = l[half];
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      const int row = m0 + c * 64 + warp * 16 + g + 8 * half;
+      if (row < S) {
+        const float inv = 1.f / sum;
+        __nv_bfloat16* orow = o + b * ob + row * os + h * oh + 2 * t;
 #pragma unroll
-      for (int dt = 0; dt < kD / 8; ++dt) {
-        *reinterpret_cast<__nv_bfloat162*>(orow + dt * 8) =
-            __floats2bfloat162_rn(oacc[dt][2 * half] * inv,
-                                  oacc[dt][2 * half + 1] * inv);
+        for (int dt = 0; dt < kD / 8; ++dt) {
+          *reinterpret_cast<__nv_bfloat162*>(orow + dt * 8) =
+              __floats2bfloat162_rn(oacc[4 * dt + 2 * half] * inv,
+                                    oacc[4 * dt + 2 * half + 1] * inv);
+        }
       }
     }
   }
@@ -292,8 +433,10 @@ __global__ void __launch_bounds__(kThreads, 1)
 }  // namespace
 
 // Plain C entry point (bound with ctypes).  Strides are in elements; the
-// innermost D stride of qq/kq/v/o must be 1.  Returns cudaGetLastError()
-// after the launch (0 on success).
+// innermost D stride of qq/kq/v/o must be 1 and the other strides of qq,
+// kq and v multiples of 16 bytes (for TMA).  Returns cudaGetLastError()
+// after the launch (0 on success), or hop::kMapError + the driver's
+// CUresult if a tensor map could not be encoded.
 extern "C" int flash_attn_qk8_fwd(
     const void* qq, const void* kq, const void* v, const float* sq,
     const float* sk, void* o, int B, int S, int H, int D, long long qb,
@@ -302,6 +445,12 @@ extern "C" int flash_attn_qk8_fwd(
     long long oh, long long sqb, long long sqs, long long sqh, long long skb,
     long long sks, long long skh, float scale, void* stream) {
   if (D != kD || B <= 0 || S <= 0 || H <= 0) return cudaErrorInvalidValue;
+  CUtensorMap tq, tk, tv;
+  int rc = make_map_bshd_i8(&tq, qq, B, S, H, qb, qs, qh, kBlockM);
+  if (rc == 0) rc = make_map_bshd_i8(&tk, kq, B, S, H, kb, ks, kh, kBlockN);
+  if (rc == 0) rc = make_map_bshd(&tv, v, B, S, H, vb, vs, vh, kBlockN);
+  if (rc != 0) return rc;
+  // Per device, cheap: set on every call rather than cached per process.
   const cudaError_t err = cudaFuncSetAttribute(
       flash_qk8_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       kSmemBytes);
@@ -309,9 +458,7 @@ extern "C" int flash_attn_qk8_fwd(
   const dim3 grid((S + kBlockM - 1) / kBlockM, B * H);
   flash_qk8_kernel<<<grid, kThreads, kSmemBytes,
                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(qq), static_cast<const int8_t*>(kq),
-      static_cast<const __nv_bfloat16*>(v), sq, sk,
-      static_cast<__nv_bfloat16*>(o), S, H, qb, qs, qh, kb, ks, kh, vb, vs,
-      vh, ob, os, oh, sqb, sqs, sqh, skb, sks, skh, scale * kLog2e);
+      tq, tk, tv, sq, sk, static_cast<__nv_bfloat16*>(o), S, H, ob, os, oh,
+      sqb, sqs, sqh, skb, sks, skh, scale * kLog2e);
   return cudaGetLastError();
 }

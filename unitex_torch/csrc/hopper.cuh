@@ -6,8 +6,9 @@
 // A tile of R rows of D = 128 bf16 is stored as two [R][64] boxes (a
 // 128-byte row each, 16-byte chunks XOR-swizzled by row within 1024-byte
 // groups of 8 rows, as TMA's CU_TENSOR_MAP_SWIZZLE_128B writes them); the
-// box holding columns 64..127 follows the first at R * 128 bytes.  Every
-// box starts on a 1024-byte boundary, which the swizzle requires.
+// box holding columns 64..127 follows the first at R * 128 bytes.  A tile
+// of R rows of D = 128 int8 is a single [R][128] box: one row is 128 bytes.
+// Every box starts on a 1024-byte boundary, which the swizzle requires.
 
 #pragma once
 
@@ -169,6 +170,18 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+template <int N>
+__device__ __forceinline__ void fence_regs(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
 // d (64 x 128, f32) += a·b: a and b from shared memory, a K-major, b
 // K-major (kTransB = 0, d = a·bᵀ for b stored [n][k]) or MN-major
 // (kTransB = 1, b stored [k][n]).  Accumulator layout: warp w of the
@@ -270,6 +283,102 @@ __device__ __forceinline__ void wgmma_m64n64_ss_zero(float (&d)[32],
       : "l"(da), "l"(db), "r"(0));
 }
 
+// d (64 x 128, f32) += a·b over a k-step of 16: a from registers, b from
+// shared memory, K-major (kTransB = 0, b stored [n][k]) or MN-major
+// (kTransB = 1, b stored [k][n]).  a0..a3 are this thread's bf16 pairs of
+// the 64 x 16 a tile: rows 16w + lane/4 (a0, a2) and + 8 (a1, a3) for warp
+// w of the warpgroup, columns 2(lane%4) + {0, 1} (a0, a1) and + 8 (a2,
+// a3).  That is the accumulator layout of wgmma_m64n128_ss, so the f32
+// accumulators 8k .. 8k + 7 of a product, packed in pairs, are the a
+// operand of k-step k of the next one.
+template <int kTransB = 0>
+__device__ __forceinline__ void wgmma_m64n128_rs(float (&d)[64], uint32_t a0,
+                                                 uint32_t a1, uint32_t a2,
+                                                 uint32_t a3, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, "
+      "%63}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1), "n"(kTransB));
+}
+
+// d (64 x 128, s32) += a·bᵀ over a k-step of 32 int8 values: a and b
+// signed 8-bit in shared memory, both K-major (the only layout 8-bit
+// wgmma reads; b stored [n][k]).  Accumulator layout as
+// wgmma_m64n128_ss's.
+__device__ __forceinline__ void wgmma_m64n128k32_s8(int (&d)[64], uint64_t da,
+                                                    uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),
+        "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]),
+        "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
+        "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]),
+        "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// d (64 x 128, s32) = a·bᵀ, the first k-step of a product: the old d is
+// neither read nor kept alive.  Otherwise as wgmma_m64n128k32_s8.
+__device__ __forceinline__ void wgmma_m64n128k32_s8_zero(int (&d)[64],
+                                                         uint64_t da,
+                                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p;\n}\n"
+      : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3]), "=r"(d[4]),
+        "=r"(d[5]), "=r"(d[6]), "=r"(d[7]), "=r"(d[8]), "=r"(d[9]),
+        "=r"(d[10]), "=r"(d[11]), "=r"(d[12]), "=r"(d[13]), "=r"(d[14]),
+        "=r"(d[15]), "=r"(d[16]), "=r"(d[17]), "=r"(d[18]), "=r"(d[19]),
+        "=r"(d[20]), "=r"(d[21]), "=r"(d[22]), "=r"(d[23]), "=r"(d[24]),
+        "=r"(d[25]), "=r"(d[26]), "=r"(d[27]), "=r"(d[28]), "=r"(d[29]),
+        "=r"(d[30]), "=r"(d[31]), "=r"(d[32]), "=r"(d[33]), "=r"(d[34]),
+        "=r"(d[35]), "=r"(d[36]), "=r"(d[37]), "=r"(d[38]), "=r"(d[39]),
+        "=r"(d[40]), "=r"(d[41]), "=r"(d[42]), "=r"(d[43]), "=r"(d[44]),
+        "=r"(d[45]), "=r"(d[46]), "=r"(d[47]), "=r"(d[48]), "=r"(d[49]),
+        "=r"(d[50]), "=r"(d[51]), "=r"(d[52]), "=r"(d[53]), "=r"(d[54]),
+        "=r"(d[55]), "=r"(d[56]), "=r"(d[57]), "=r"(d[58]), "=r"(d[59]),
+        "=r"(d[60]), "=r"(d[61]), "=r"(d[62]), "=r"(d[63])
+      : "l"(da), "l"(db), "r"(0));
+}
+
 __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
@@ -311,29 +420,47 @@ inline EncodeTiledFn encode_tiled() {
 // driver's CUresult (distinct from every cudaError_t).
 constexpr int kMapError = 100000;
 
-// A 4-D map over a bf16 [B, S, H, 128] tensor read through its strides (in
-// elements; D contiguous), whose box is 64 columns of one head over `rows`
-// sequence positions, 128-byte swizzled; positions past S read as zeros.
-inline int make_map_bshd(CUtensorMap* map, const void* base, int B, int S,
-                         int H, long long sb, long long ss, long long sh,
-                         int rows) {
+// A 4-D map over a [B, S, H, 128] tensor of `bytes`-byte elements read
+// through its strides (in elements; D contiguous), whose box is `cols`
+// columns (one 128-byte row) of one head over `rows` sequence positions,
+// 128-byte swizzled; positions past S read as zeros.
+inline int encode_map_bshd(CUtensorMap* map, CUtensorMapDataType type,
+                           int bytes, int cols, const void* base, int B,
+                           int S, int H, long long sb, long long ss,
+                           long long sh, int rows) {
   const EncodeTiledFn enc = encode_tiled();
   if (enc == nullptr) return kMapError;
   const cuuint64_t dims[4] = {128, static_cast<cuuint64_t>(H),
                               static_cast<cuuint64_t>(S),
                               static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh) * 2,
-                                 static_cast<cuuint64_t>(ss) * 2,
-                                 static_cast<cuuint64_t>(sb) * 2};
-  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh) * bytes,
+                                 static_cast<cuuint64_t>(ss) * bytes,
+                                 static_cast<cuuint64_t>(sb) * bytes};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(cols), 1,
+                             static_cast<cuuint32_t>(rows), 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                         const_cast<void*>(base), dims, strides, box, unit,
-                         CU_TENSOR_MAP_INTERLEAVE_NONE,
+  const CUresult r = enc(map, type, 4, const_cast<void*>(base), dims,
+                         strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
                          CU_TENSOR_MAP_SWIZZLE_128B,
                          CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : kMapError + static_cast<int>(r);
+}
+
+// bf16: a box is 64 of the 128 columns, so a tile is two boxes.
+inline int make_map_bshd(CUtensorMap* map, const void* base, int B, int S,
+                         int H, long long sb, long long ss, long long sh,
+                         int rows) {
+  return encode_map_bshd(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, 64, base,
+                         B, S, H, sb, ss, sh, rows);
+}
+
+// int8, copied as bytes: a box is all 128 columns.
+inline int make_map_bshd_i8(CUtensorMap* map, const void* base, int B, int S,
+                            int H, long long sb, long long ss, long long sh,
+                            int rows) {
+  return encode_map_bshd(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, 128, base, B,
+                         S, H, sb, ss, sh, rows);
 }
 
 }  // namespace hop

@@ -18,9 +18,10 @@ and ``_flash_bwd_dq_kernel``.
 ``attention`` on a CUDA tensor is differentiable through the kernels.
 
 ``flash_attention_qk8`` is the serving variant with an int8 Q·Kᵀ
-(``csrc/flash_attn_qk8.cu``, kernel B3), the counterpart of
-``_flash_kernel_qk8``: q and k quantized per row by :func:`quant_rows`
-(int8 [B, S, H, D] and f32 scales [B, S, H]), v bf16, forward only.
+(``csrc/flash_attn_qk8.cu``, kernel B3, on B1's design with Q·Kᵀ as an
+s8 wgmma), the counterpart of ``_flash_kernel_qk8``: q and k quantized per
+row by :func:`quant_rows` (int8 [B, S, H, D] and f32 scales [B, S, H]),
+v bf16, forward only.
 ``attention(q, k, v, qk8=True)`` quantizes and launches it when the JAX
 package would (:func:`qk8_tiles`: S tiles into blocks of at most 1536 that
 are multiples of 128), and otherwise takes the unquantized path, as
@@ -358,7 +359,8 @@ def _check_qk8(qq, kq, v, sq, sk) -> None:
     for name, t in (("qq", qq), ("kq", kq), ("v", v)):
         if t.stride(-1) != 1:
             raise ValueError(f"{name} must be contiguous along D")
-        # cp.async copies 16-byte chunks: every row start must be aligned
+        # TMA copies 16-byte units: the base and every stride must be
+        # 16-byte aligned
         if t.data_ptr() % 16 or any(s * t.element_size() % 16
                                     for s in t.stride()[:3]):
             raise ValueError(f"{name} rows must be 16-byte aligned")
@@ -383,8 +385,7 @@ def flash_attention_qk8(
             *qq.stride()[:3], *kq.stride()[:3], *v.stride()[:3],
             *out.stride()[:3], *sq.stride(), *sk.stride(),
             1.0 / math.sqrt(D), _stream(qq.device))
-    if rc != 0:
-        raise RuntimeError(f"flash_attn_qk8_fwd launch failed: CUDA error {rc}")
+    _raise_on(rc, "flash_attn_qk8_fwd")
     launches_qk8 += 1
     return out
 

@@ -149,7 +149,31 @@ def _use_sources(csrc: str) -> None:
     attn._fns.clear()
 
 
-def _cuda_ms(fn, iters: int) -> float:
+def built_variants(source: str, variants: dict, names):
+    """For each name in ``names``, build the kernel ``source`` (a file of
+    ``csrc/`` without its ``.cu``) from a temporary copy of ``csrc/`` in
+    which that file is edited by ``variants[name]``, and yield the name
+    once the wrappers launch that build.  The checkout's sources are in
+    use again afterwards."""
+    src = open(os.path.join(cuda_build.CSRC, f"{source}.cu")).read()
+    saved = (cuda_build.CSRC, cuda_build.BUILD_DIR)
+    try:
+        with tempfile.TemporaryDirectory(prefix=f"probe_{source}_") as tmp:
+            for name in names:
+                csrc = os.path.join(tmp, name.replace("+", "_").replace(" ", "_"))
+                shutil.copytree(saved[0], csrc)
+                with open(os.path.join(csrc, f"{source}.cu"), "w") as f:
+                    f.write(variants[name](src))
+                _use_sources(csrc)
+                cuda_build.build(source)
+                yield name
+    finally:
+        _use_sources(saved[0])
+        cuda_build.BUILD_DIR = saved[1]
+
+
+def cuda_ms(fn, iters: int) -> float:
+    """Mean device ms of ``fn()`` over ``iters`` launches, after a warm-up."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -160,6 +184,13 @@ def _cuda_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
 
 
 def main(argv=None) -> None:
@@ -173,9 +204,7 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("probe_flash_bwd times the kernels on a CUDA device")
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip(), flush=True)
+    print(card_line(), flush=True)
     S, H, D = args.seq, args.heads, 128
     gen = torch.Generator(device="cuda").manual_seed(0)
     q, k, v, g = (torch.randn((1, S, H, D), generator=gen, device="cuda")
@@ -184,33 +213,19 @@ def main(argv=None) -> None:
     drow = attn._row_dot(g, out)
     bounds = {n: m * H * S * S * D / 989e12 * 1e3 for n, m in (("B2a", 8),
                                                                  ("B2b", 6))}
-    src = open(os.path.join(cuda_build.CSRC, "flash_attn_bwd.cu")).read()
-    saved = (cuda_build.CSRC, cuda_build.BUILD_DIR)
-    try:
-        with tempfile.TemporaryDirectory(prefix="probe_flash_bwd_") as tmp:
-            for name in args.variants:
-                edit = VARIANTS[name]
-                csrc = os.path.join(tmp, name.replace("+", "_").replace(" ", "_"))
-                shutil.copytree(saved[0], csrc)
-                with open(os.path.join(csrc, "flash_attn_bwd.cu"), "w") as f:
-                    f.write(edit(src))
-                _use_sources(csrc)
-                cuda_build.build(attn.KERNEL_BWD)
-                times = {"B2a": [], "B2b": []}
-                for _ in range(args.reps):
-                    times["B2a"].append(_cuda_ms(
-                        lambda: attn.flash_attention_bwd_dkv(q, k, v, g, lse, drow),
-                        args.iters))
-                    times["B2b"].append(_cuda_ms(
-                        lambda: attn.flash_attention_bwd_dq(q, k, v, g, lse, drow),
-                        args.iters))
-                print(f"[probe] S={S} {name}: " + " ".join(
-                    f"{n} " + " / ".join(f"{t:.4f}" for t in ts) + " ms ("
-                    + " / ".join(f"{bounds[n] / t:.1%}" for t in ts)
-                    + " of the bound)" for n, ts in times.items()), flush=True)
-    finally:
-        _use_sources(saved[0])
-        cuda_build.BUILD_DIR = saved[1]
+    for name in built_variants(attn.KERNEL_BWD, VARIANTS, args.variants):
+        times = {"B2a": [], "B2b": []}
+        for _ in range(args.reps):
+            times["B2a"].append(cuda_ms(
+                lambda: attn.flash_attention_bwd_dkv(q, k, v, g, lse, drow),
+                args.iters))
+            times["B2b"].append(cuda_ms(
+                lambda: attn.flash_attention_bwd_dq(q, k, v, g, lse, drow),
+                args.iters))
+        print(f"[probe] S={S} {name}: " + " ".join(
+            f"{n} " + " / ".join(f"{t:.4f}" for t in ts) + " ms ("
+            + " / ".join(f"{bounds[n] / t:.1%}" for t in ts)
+            + " of the bound)" for n, ts in times.items()), flush=True)
 
 
 if __name__ == "__main__":
