@@ -41,12 +41,27 @@ non-zero:
    step must give a finite loss and launch B1 114 times (57 forward + 57
    recomputed) and B2a and B2b 57 times each, the first must move the
    LoRA ``b`` leaves off 0, and the peak must stay under 80 GB;
-6. int8 serving path: the bf16 pipeline is freed, then
-   ``CustomRGBTextureFullPipeline(int8_serving=True, random_weights=True)``
+6. checkpoint: the serving pipeline's base transformer is written under
+   the diffusers names into ``<tmp>/flux/transformer/`` in shards of at
+   most 5 GB, its VAE into ``<tmp>/flux/vae/``, its two adapters with
+   ``save_lora_safetensors`` as ``<tmp>/{texture,delight}_lora
+   .safetensors``; ``load_flux_transformer``, ``load_vae`` and
+   ``load_lora_safetensors`` read them back onto the card, and every leaf
+   must be ``torch.equal`` to the resident one; then the bf16 pipeline and
+   the loaded copy are freed;
+7. CLI: ``unitex_torch.run.main`` in process on the icosphere job with
+   ``--pretrain-models <tmp> --fast-steps 8`` and otherwise the CLI's
+   defaults (``DEFAULT_CONFIG``'s 28 steps, video export on): exactly
+   57 x 20 x 2 = 2280 launches of B1 (8 of the 28 steps reuse the
+   velocity) and none of B3, ``rembg_image.png`` and a GLB whose texture,
+   read back with ``load_mesh``, is a finite 2048² image, a video of 120
+   frames of 1024², the peak under 80 GB;
+8. int8 serving path from the checkpoint:
+   ``CustomRGBTextureFullPipeline(int8_serving=True, pretrain_models=<tmp>)``
    (W8A8 FLUX.1-dev, each bf16 kernel dropped as it is quantized) with
    ``attn_qk8=True`` set on its ``flux_cfg`` answers the icosphere job on
-   the same 4-step config: a GLB and a finite 2048² texture, 456 launches
-   of B3 and none of B1, the peak under 80 GB.
+   the 4-step config: a GLB and a finite 2048² texture, 456 launches of B3
+   and none of B1, the peak under 80 GB.  ``<tmp>`` is then deleted.
 
 The output ends with three lines: the kernels' JSON record
 (``{"kernels": [...]}``), the card's name and power limit as
@@ -60,9 +75,11 @@ from __future__ import annotations
 
 import dataclasses
 import gc
+import glob
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -89,6 +106,7 @@ GRAD_REL = 2e-2
 STEPS = 4
 TRAIN_STEPS = 3
 TRAIN_S = 12800          # 512 text + 6144 noise + 6144 control tokens
+FAST_STEPS = 8           # the CLI job's --fast-steps
 PEAK_LIMIT = 80e9        # bytes: one H100
 
 
@@ -498,6 +516,255 @@ def run_main_path(attn, torch):
     return total, pipe
 
 
+# tree key -> diffusers module name, where they differ
+_HF_NAMES = {
+    "dual_blocks": "transformer_blocks",
+    "single_blocks": "single_transformer_blocks",
+    "time_embed": "time_text_embed.timestep_embedder",
+    "pooled_embed": "time_text_embed.text_embedder",
+    "guidance_embed": "time_text_embed.guidance_embedder",
+    "lin": "linear",
+    "to_out": "to_out.0",
+}
+_HF_EMBED = {"in": "linear_1", "out": "linear_2"}
+_HF_FF = {"in": "net.0.proj", "out": "net.2"}
+
+
+def flux_state_dict(params):
+    """(diffusers name, tensor in torch's layout) of each leaf of a float
+    FLUX tree, the inverse of ``unitex_torch.models.flux.loader``: linear
+    kernels [d_in, d_out] -> ``.weight`` [d_out, d_in], stacked blocks ->
+    one entry a layer.  The tensors are views of the tree's."""
+    def name(path):
+        parts = []
+        for parent, key in zip(("",) + path, path):
+            if parent in ("ff", "ff_context"):
+                key = _HF_FF[key]
+            elif parent.endswith("_embed"):
+                key = _HF_EMBED[key]
+            parts.append(_HF_NAMES.get(key, key))
+        return ".".join(parts)
+
+    for path, leaf in _named_leaves(params):
+        *mod, kind = path.strip("/").split("/")
+        if kind == "kernel":
+            field, leaf = "weight", leaf.transpose(-1, -2)
+        elif kind == "bias":
+            field = "bias"
+        else:  # the q/k RMS-norm scales are the module's weight
+            mod, field = mod + [kind], "weight"
+        if mod[0] in ("dual_blocks", "single_blocks"):
+            for i in range(leaf.shape[0]):
+                yield f"{_HF_NAMES[mod[0]]}.{i}.{name(tuple(mod[1:]))}.{field}", leaf[i]
+        else:
+            yield f"{name(tuple(mod))}.{field}", leaf
+
+
+def vae_state_dict(vae):
+    """(diffusers name, tensor in torch's layout) of each leaf of a VAE
+    tree: conv kernels HWIO -> OIHW, linear kernels transposed."""
+    def conv(name, p):
+        yield f"{name}.weight", p["kernel"].permute(3, 2, 0, 1)
+        yield f"{name}.bias", p["bias"]
+
+    def gn(name, p):
+        yield f"{name}.weight", p["scale"]
+        yield f"{name}.bias", p["bias"]
+
+    def lin(name, p):
+        yield f"{name}.weight", p["kernel"].t()
+        yield f"{name}.bias", p["bias"]
+
+    def resnet(name, p):
+        yield from gn(f"{name}.norm1", p["norm1"])
+        yield from conv(f"{name}.conv1", p["conv1"])
+        yield from gn(f"{name}.norm2", p["norm2"])
+        yield from conv(f"{name}.conv2", p["conv2"])
+        if "shortcut" in p:
+            yield from conv(f"{name}.conv_shortcut", p["shortcut"])
+
+    def mid(name, p):
+        yield from resnet(f"{name}.resnets.0", p["res1"])
+        a = f"{name}.attentions.0"
+        yield from gn(f"{a}.group_norm", p["attn"]["norm"])
+        for key, hf in (("q", "to_q"), ("k", "to_k"), ("v", "to_v"),
+                        ("o", "to_out.0")):
+            yield from lin(f"{a}.{hf}", p["attn"][key])
+        yield from resnet(f"{name}.resnets.1", p["res2"])
+
+    for part, levels, resample in (("encoder", "down", "downsample"),
+                                   ("decoder", "up", "upsample")):
+        p = vae[part]
+        yield from conv(f"{part}.conv_in", p["conv_in"])
+        yield from mid(f"{part}.mid_block", p["mid"])
+        for i, level in enumerate(p[levels]):
+            block = f"{part}.{levels}_blocks.{i}"
+            for j, r in enumerate(level["resnets"]):
+                yield from resnet(f"{block}.resnets.{j}", r)
+            if resample in level:
+                yield from conv(f"{block}.{resample}rs.0.conv", level[resample])
+        yield from gn(f"{part}.conv_norm_out", p["norm_out"])
+        yield from conv(f"{part}.conv_out", p["conv_out"])
+
+
+def write_checkpoint(root: str, params, vae, loras: dict,
+                     shard_bytes: float = 5e9) -> int:
+    """A checkpoint root as the pipeline reads it: ``flux/transformer``
+    in safetensors shards of at most ``shard_bytes`` (a shard is built
+    whole in host memory), ``flux/vae``, and ``<name>_lora.safetensors``
+    for each adapter of ``loras``.  Returns the bytes written."""
+    from safetensors.torch import save_file
+
+    from unitex_torch.models.flux.lora import save_lora_safetensors
+
+    tdir = os.path.join(root, "flux", "transformer")
+    vdir = os.path.join(root, "flux", "vae")
+    os.makedirs(tdir)
+    os.makedirs(vdir)
+    shard, size, n = {}, 0, 0
+    for name, t in flux_state_dict(params):
+        nbytes = t.numel() * t.element_size()
+        if shard and size + nbytes > shard_bytes:
+            save_file(shard, os.path.join(tdir, f"diffusion_pytorch_model-{n:05d}"
+                                          ".safetensors"))
+            shard, size, n = {}, 0, n + 1
+        shard[name] = t.contiguous().cpu()
+        size += nbytes
+    save_file(shard, os.path.join(tdir, f"diffusion_pytorch_model-{n:05d}"
+                                  ".safetensors"))
+    save_file({k: t.contiguous().cpu() for k, t in vae_state_dict(vae)},
+              os.path.join(vdir, "diffusion_pytorch_model.safetensors"))
+    for name, lora in loras.items():
+        save_lora_safetensors(os.path.join(root, f"{name}_lora.safetensors"), lora)
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(root) for f in files)
+
+
+def run_checkpoint(torch, pipe, root: str) -> None:
+    """Write the pipeline's serving trees as a checkpoint under ``root``
+    and read them back onto the card, each leaf equal to the resident
+    one."""
+    from unitex_torch.models.flux.loader import load_flux_transformer, load_vae
+    from unitex_torch.models.flux.lora import load_lora_safetensors
+
+    free = shutil.disk_usage(os.path.dirname(root)).free
+    t0 = time.perf_counter()
+    nbytes = write_checkpoint(root, pipe.transformer_params, pipe.vae_params,
+                              {"texture": pipe.texture_lora,
+                               "delight": pipe.delight_lora})
+    t_write = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg = pipe.flux_cfg
+    loaded = {
+        "transformer": (load_flux_transformer(
+            os.path.join(root, "flux", "transformer"), cfg, device="cuda"),
+            pipe.transformer_params),
+        "vae": (load_vae(os.path.join(root, "flux", "vae"), pipe.vae_cfg,
+                         device="cuda"), pipe.vae_params),
+    }
+    for name in ("texture", "delight"):
+        loaded[name] = (load_lora_safetensors(
+            os.path.join(root, f"{name}_lora.safetensors"), cfg.num_layers,
+            cfg.num_single_layers, device="cuda"), getattr(pipe, f"{name}_lora"))
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[checkpoint] wrote {nbytes / 1e9:.3f} GB ({nbytes} bytes; free "
+          f"disk before {free / 1e9:.1f} GB) in {t_write:.2f}s; loaded onto the "
+          f"card in {t_load:.2f}s ({nbytes / t_load / 1e9:.2f} GB/s), peak "
+          f"{peak / 2**30:.2f} GiB with the resident tree", flush=True)
+    for what, (got, want) in loaded.items():
+        g, w = dict(_named_leaves(got)), dict(_named_leaves(want))
+        bad = sorted(k for k in set(g) | set(w)
+                     if k not in g or k not in w or not torch.equal(g[k], w[k]))
+        if bad:
+            raise AssertionError(f"checkpoint {what}: {len(bad)} leaves differ "
+                                 f"from the written tree, first {bad[:3]}")
+        print(f"[checkpoint] {what}: {len(w)} leaves read back equal", flush=True)
+    if peak >= PEAK_LIMIT:
+        raise AssertionError(f"checkpoint load: peak {peak} bytes")
+
+
+def run_cli(attn, torch, root: str) -> None:
+    """The product CLI in process on the icosphere job, from the
+    checkpoint under ``root``."""
+    import numpy as np
+
+    from unitex_torch import run
+    from unitex_torch.geometry.io.mesh_io import load_mesh
+    from unitex_torch.models.flux.pipeline import make_reuse_mask
+    from unitex_torch.utils.timer import CPUTimer
+
+    steps = run.DEFAULT_CONFIG.diffusion.num_inference_steps
+    evals = steps - int(make_reuse_mask(steps, FAST_STEPS).sum())
+    per_job = 57 * evals * 2
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as d:
+        name, mesh_path, img_path = make_assets(d)[0]
+        out = os.path.join(d, "out")
+        torch.cuda.reset_peak_memory_stats()
+        before = _counts(attn)
+        t0 = time.perf_counter()
+        run.main(["--image", img_path, "--mesh", mesh_path, "--out", out,
+                  "--pretrain-models", root, "--fast-steps", str(FAST_STEPS)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = tuple(a - b for a, b in zip(_counts(attn), before))
+        peak = torch.cuda.max_memory_allocated()
+        rec = CPUTimer.records
+        stages = {
+            "load": rec["load_weights"],
+            "preprocess": rec["preprocess_blank_mesh"]
+            + rec["preprocess_reference_image"],
+            "render_geometry": rec["render_geometry_images"],
+            "infer_mv": rec["infer_mv"],
+            "reproject": rec["reproject_and_query_field"],
+            "export_video": rec["export_video"],
+        }
+        glb = os.path.join(out, "textured_mesh.glb")
+        tex = load_mesh(glb).texture if os.path.exists(glb) else None
+        videos = glob.glob(os.path.join(out, "cache", "textured_mesh.*"))
+        videos = [v for v in videos if v.endswith((".mp4", ".gif"))]
+        frames = video_frames(videos[0]) if videos else None
+        print(f"[cli] job {name} ({steps} steps, {FAST_STEPS} reused, "
+              f"{evals} transformer evaluations a pass): wall {wall:.2f}s stages "
+              + " ".join(f"{k}={v:.3f}s" for k, v in stages.items())
+              + f" peak {peak / 2**30:.2f} GiB launches B1 {n[0]} B3 {n[3]}",
+              flush=True)
+        writer = ("PIL (GIF: imageio-ffmpeg does not import)"
+                  if videos and videos[0].endswith(".gif") else "imageio-ffmpeg")
+        print(f"[video] {videos}: (frames, height, width) {frames}, written by "
+              f"{writer}; rendering {rec['orbit_render']:.3f}s, writing "
+              f"{rec['orbit_write']:.3f}s", flush=True)
+        if not os.path.exists(os.path.join(out, "rembg_image.png")):
+            raise AssertionError("cli: no rembg_image.png")
+        if tex is None or tex.shape[:2] != (2048, 2048) or not np.isfinite(
+                tex.astype(np.float32)).all():
+            raise AssertionError(f"cli: GLB texture "
+                                 f"{None if tex is None else tex.shape}")
+        if frames != (120, 1024, 1024):
+            raise AssertionError(f"cli: video {videos} {frames}, expected 120 "
+                                 f"frames of 1024²")
+        if n != (per_job, 0, 0, 0):
+            raise AssertionError(f"cli: launches B1/B2a/B2b/B3 {n}, expected "
+                                 f"({per_job}, 0, 0, 0)")
+        if peak >= PEAK_LIMIT:
+            raise AssertionError(f"cli: peak {peak} bytes")
+
+
+def video_frames(path: str):
+    """(frames, height, width) of a GIF (PIL) or an mp4 (imageio)."""
+    if path.endswith(".gif"):
+        from PIL import Image
+
+        with Image.open(path) as im:
+            return (im.n_frames, im.height, im.width)
+    import imageio.v2 as imageio
+
+    frames = imageio.mimread(path, memtest=False)
+    return (len(frames),) + frames[0].shape[:2]
+
+
 def _counts(attn) -> tuple:
     """Launches of B1, B2a, B2b and B3."""
     return (attn.launches, attn.launches_bwd_dkv, attn.launches_bwd_dq,
@@ -514,8 +781,9 @@ def _tree_bytes(tree) -> int:
                for _, leaf in _named_leaves(tree))
 
 
-def run_int8_path(attn, torch) -> None:
-    """One full-width int8 serving job (W8A8, int8-QK attention)."""
+def run_int8_path(attn, torch, root: str) -> None:
+    """One full-width int8 serving job (W8A8, int8-QK attention) from the
+    checkpoint under ``root``."""
     from unitex_torch.config import DEFAULT_CONFIG
     from unitex_torch.ops.quant import count_quantized
     from unitex_torch.pipeline import CustomRGBTextureFullPipeline
@@ -528,12 +796,13 @@ def run_int8_path(attn, torch) -> None:
     per_job = 57 * STEPS * 2
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    pipe = CustomRGBTextureFullPipeline(int8_serving=True, random_weights=True,
-                                        config=config, device="cuda")
+    pipe = CustomRGBTextureFullPipeline(int8_serving=True, pretrain_models=root,
+                                        require_weights=True, config=config,
+                                        device="cuda")
     pipe.flux_cfg = dataclasses.replace(pipe.flux_cfg, attn_qk8=True)
     torch.cuda.synchronize()
     n_q, n_f = count_quantized(pipe.transformer_params)
-    print(f"[int8] init (bf16 random init + W8A8 quantization) "
+    print(f"[int8] init (checkpoint streamed in bf16 + W8A8 quantization) "
           f"{time.perf_counter() - t0:.2f}s, peak "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; serving tree "
           f"{_tree_bytes(pipe.transformer_params) / 2**30:.2f} GiB ({n_q / 1e9:.3f} "
@@ -640,8 +909,10 @@ def run_training(attn, torch, pipe) -> None:
 
 
 def _named_leaves(tree, prefix=""):
-    if isinstance(tree, dict):
-        for k, v in tree.items():
+    """("/a/0/b", leaf) of a tree of dicts and lists."""
+    if isinstance(tree, (dict, list)):
+        items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+        for k, v in items:
             yield from _named_leaves(v, f"{prefix}/{k}")
     else:
         yield prefix, tree
@@ -709,21 +980,39 @@ def main() -> int:
     print(f"[train] launches B1/B2a/B2b {train[0]}/{train[1]}/{train[2]} in "
           f"{TRAIN_STEPS} steps", flush=True)
 
-    # the int8 job needs the card to itself: drop the bf16 tree first
-    del pipe
-    gc.collect()
-    torch.cuda.empty_cache()
-    _reset(attn)
-    run_int8_path(attn, torch)
-    torch.cuda.synchronize()
-    int8 = _counts(attn)
-    if int8[3] == 0 or int8[:3] != (0, 0, 0):
-        return fail(f"launches B1/B2a/B2b/B3 {int8} on the int8 serving path")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    models = os.path.join(tmp, "models")
+    try:
+        _reset(attn)
+        run_checkpoint(torch, pipe, models)
+        # the CLI and the int8 job need the card to themselves
+        del pipe
+        gc.collect()
+        torch.cuda.empty_cache()
+        if _counts(attn) != (0, 0, 0, 0):
+            return fail(f"launches {_counts(attn)} while writing the checkpoint")
 
-    for rec, n_serve, n_train, n_int8 in zip(records, serve, train, int8):
-        rec["launches"] = n_serve + n_train + n_int8
-        rec["launches_by_path"] = {"serve": n_serve, "train": n_train,
-                                   "int8_serve": n_int8}
+        _reset(attn)
+        run_cli(attn, torch, models)
+        torch.cuda.synchronize()
+        cli = _counts(attn)
+        if cli[0] == 0 or cli[1:] != (0, 0, 0):
+            return fail(f"launches B1/B2a/B2b/B3 {cli} on the CLI path")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        _reset(attn)
+        run_int8_path(attn, torch, models)
+        torch.cuda.synchronize()
+        int8 = _counts(attn)
+        if int8[3] == 0 or int8[:3] != (0, 0, 0):
+            return fail(f"launches B1/B2a/B2b/B3 {int8} on the int8 serving path")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    for rec, *n in zip(records, serve, train, cli, int8):
+        rec["launches"] = sum(n)
+        rec["launches_by_path"] = dict(zip(("serve", "train", "cli", "int8_serve"), n))
     keys = ("ms", "plain_ms", "bound_ms", "max_abs_err", "library_ms")
     bad = [r for r in records if not all(
         (k == "library_ms" and r[k] is None)

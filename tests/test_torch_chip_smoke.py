@@ -1,7 +1,9 @@
-"""``chip_smoke.py``'s ptxas report parser, on the CPU: each kernel's line in
-the script's output carries its own registers and spill text.
-``chip_smoke.py`` imports only the standard library at its top, so this
-runs without a card, PyTorch or JAX."""
+"""``chip_smoke.py``'s helpers on the CPU: the ptxas report parser (each
+kernel's line in the script's output carries its own registers and spill
+text), and the tree -> diffusers names of the checkpoint it writes, read
+back through the port's loader at tiny size.  ``chip_smoke.py`` imports
+only the standard library at its top; the parser's tests need neither a
+card, PyTorch nor JAX."""
 
 import importlib.util
 import os
@@ -79,3 +81,37 @@ def test_ptxas_usage_keeps_each_kernels_own_report(usage, kernel):
     assert report.startswith(f"Used {regs} registers")
     assert f"{st} bytes spill stores, {ld} bytes spill loads" in report
     assert ("wgmma serialized" in report) == serialized
+
+
+@pytest.mark.parametrize("which", ["flux", "vae"])
+def test_state_dict_names_round_trip_through_the_loader(which):
+    """``flux_state_dict`` / ``vae_state_dict`` give every leaf of a tiny
+    tree its diffusers name and torch layout: the port's loader maps them
+    back to the same tree, every leaf equal, and reads no name twice."""
+    import torch
+
+    from unitex_torch.models.flux import loader
+    from unitex_torch.models.flux.config import FluxConfig
+    from unitex_torch.models.flux.model import init_flux_params
+    from unitex_torch.models.flux.vae import VAEConfig, init_vae_params
+
+    cs = _chip_smoke()
+    gen = torch.Generator().manual_seed(0)
+    if which == "flux":
+        cfg = FluxConfig.tiny()
+        tree = init_flux_params(gen, cfg, device="cpu")
+        pairs = list(cs.flux_state_dict(tree))
+        back = loader.flux_params_from_state_dict(dict(pairs), cfg, device="cpu")
+    else:
+        cfg = VAEConfig.tiny()
+        tree = init_vae_params(gen, cfg, device="cpu")
+        pairs = list(cs.vae_state_dict(tree))
+        back = loader.vae_params_from_state_dict(dict(pairs), cfg, device="cpu")
+    assert len(pairs) == len({name for name, _ in pairs})
+    want, got = dict(cs._named_leaves(tree)), dict(cs._named_leaves(back))
+    assert sorted(got) == sorted(want)
+    n_leaves = sum(x.shape[0] if k.startswith(("/dual", "/single")) else 1
+                   for k, x in want.items())
+    assert len(pairs) == n_leaves
+    for k in want:
+        assert torch.equal(got[k], want[k]), k

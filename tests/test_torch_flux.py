@@ -330,8 +330,3 @@ def test_deferred_branches_raise():
             tmodel.flux_forward({}, dataclasses.replace(TFluxConfig.tiny(),
                                                         **parallel),
                                 *[None] * 6)
-    with pytest.raises(NotImplementedError):
-        tpipe.run_flux_pipeline(None, TFluxConfig.tiny(), None,
-                                tvae.VAEConfig.tiny(), None,
-                                tpipe.FluxPipelineConfig(velocity_reuse=2),
-                                device="cpu")

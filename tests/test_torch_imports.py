@@ -79,6 +79,7 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
     from unitex_torch.pipeline import CustomRGBTextureFullPipeline, RGBTextureFullPipelineBase
     from unitex_torch.utils.precision import resolve_device
 
+    from unitex_torch import run
     from unitex_torch.scripts.train_flux_lora import parse_args
     from unitex_torch.training.data import SyntheticTextureDataset
     from unitex_torch.training.flux_lora import create_train_state
@@ -89,6 +90,7 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
     assert inspect.signature(create_train_state).parameters["device"].default == "cuda"
     assert SyntheticTextureDataset().device == "cuda"
     assert parse_args([]).device == "cuda"
+    assert run.parse_args(["--image", "i.png", "--mesh", "m.obj"]).device == "cuda"
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: nothing to refuse")
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -8,7 +8,8 @@ made by the port's seeded init and carried into the port by
 ``torch_rng_parity=True``, so both draw identical noise.  Every image
 artifact of the two caches is scored by scripts/compare_golden.py;
 the worst PSNR must be at least 35 dB (the production floor the JAX
-package's own self-parity tests use).
+package's own self-parity tests use).  The weightless pipelines (no FLUX
+weights under ``pretrain_models``) are held to the same bar.
 """
 
 import dataclasses
@@ -132,6 +133,30 @@ def test_pipeline_artifacts_match_jax(assets, tmp_path):
                             os.path.join(jdir, "cache"))
     scored = [v for v in report["artifacts"].values() if v]
     assert len(scored) >= 10, report
+    assert report["worst_psnr"] >= 35.0, report
+
+
+def test_weightless_pipeline_matches_jax(assets, tmp_path):
+    """Both pipelines on a root without weights: the control strip stands
+    in for the FLUX passes; every image artifact scored by
+    scripts/compare_golden.py, worst PSNR at least 35 dB (the bar of
+    :func:`test_pipeline_artifacts_match_jax`)."""
+    mesh_path, img_path = assets
+    empty = str(tmp_path / "no_weights")
+    os.makedirs(empty)
+    jdir, tdir = str(tmp_path / "jax"), str(tmp_path / "torch")
+    jcfg = dataclasses.replace(_small(), diffusion=DiffusionConfig(**DIFFUSION))
+    JPipeline(pretrain_models=empty, seed=63, config=jcfg)(
+        jdir, img_path, mesh_path)
+    tpipe = TPipeline(pretrain_models=empty, seed=63, config=_port_config(),
+                      device="cpu")
+    _, glb = tpipe(tdir, img_path, mesh_path)
+    assert not tpipe._flux_loaded and os.path.exists(glb)
+    report = compare_caches(os.path.join(tdir, "cache"),
+                            os.path.join(jdir, "cache"))
+    scored = [v for v in report["artifacts"].values() if v]
+    assert len(scored) >= 10, report
+    assert report["artifacts"]["mv_rgb_w_light.png"], report
     assert report["worst_psnr"] >= 35.0, report
 
 
@@ -261,14 +286,6 @@ def _flat(tree, prefix=""):
 def test_int8_serving_mode_is_checked():
     with pytest.raises(ValueError):
         TPipeline(config=_port_config(), int8_serving="int4", device="cpu")
-
-
-def test_weightless_stand_in_is_not_ported():
-    """Without random or caller-set FLUX weights the JAX package substitutes
-    the control strip; the port refuses instead."""
-    with pytest.raises(NotImplementedError):
-        TPipeline(config=_port_config(), device="cpu").infer_mv_stage(
-            "unused", None, {})
 
 
 @pytest.mark.parametrize("src,dst", [((512, 512), (16, 16)), ((100, 60), (37, 90)),

@@ -65,6 +65,37 @@ def lookat_to_matrix(lookat: torch.Tensor) -> torch.Tensor:
     return c2w[..., (1, 2, 0, 3), :]
 
 
+def generate_orbit_views_c2ws(
+    num_views: int,
+    radius: float = 1.0,
+    height: float = 0.0,
+    theta_0: float = 0.0,
+    degree: bool = False,
+    device="cuda",
+) -> torch.Tensor:
+    """Turntable ring of cameras [num_views, 4, 4] looking at the origin.
+    The endpoint is included (the last view duplicates the first), as
+    with ``linspace``.  The angles are ``jnp.linspace``'s start·(1 − t) +
+    stop·t in f32, with the product by 1/(n − 1) that XLA's CPU backend
+    makes of its division, so a ring from 0 has the JAX package's angles
+    bit for bit."""
+    if degree:
+        theta_0 = math.radians(theta_0)
+    projected = math.sqrt(radius**2 - height**2)
+    f32 = dict(dtype=torch.float32, device=device)
+    start = torch.tensor(theta_0, **f32)
+    stop = torch.tensor(2.0 * math.pi + theta_0, **f32)
+    inv = 1.0 / torch.tensor(num_views - 1, **f32)
+    i = torch.arange(num_views - 1, **f32)
+    theta = torch.cat([start * (1 - i * inv) + (stop * inv) * i, stop[None]])
+    xyz = torch.stack([
+        projected * torch.cos(theta),
+        projected * torch.sin(theta),
+        torch.full((num_views,), height, **f32),
+    ], dim=-1)
+    return lookat_to_matrix(xyz)
+
+
 def generate_box_views_c2ws(radius: float = 2.8, device="cuda") -> torch.Tensor:
     """The six axis-aligned ortho views in frbltd order [6, 4, 4]."""
     r = float(radius)

@@ -65,8 +65,7 @@ class DiffusionConfig:
     max_shift: float = 1.15
     # steps served by velocity extrapolation instead of a transformer
     # evaluation (training-free acceleration, models/flux/pipeline.py
-    # make_reuse_mask; 0 = the reference's exact 28-evaluation schedule).
-    # Only 0 is ported: denoise raises NotImplementedError otherwise.
+    # make_reuse_mask; 0 = the reference's exact 28-evaluation schedule)
     velocity_reuse: int = 0
     # replay the CUDA reference's torch.Generator stream for the initial
     # noise and the condition-encode posterior draws, threaded across the

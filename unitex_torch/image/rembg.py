@@ -3,14 +3,15 @@ reference pipeline.py:34-78).
 
 Only the dependency-free heuristic backend is ported: ``SaliencyRemover``
 (border-statistics chroma keying + largest connected component), the
-backend the JAX package uses when no weights are given.  The learned
-backends (ISNet, BiRefNet, ONNX, transformers) are not ported yet:
-:func:`build_background_remover` raises ``NotImplementedError`` when a
-weights root is passed.
+backend the JAX package uses when no learned weights are found.  The
+learned backends (ISNet, BiRefNet, ONNX, transformers) are not ported yet:
+:func:`build_background_remover` raises ``NotImplementedError`` where the
+JAX package would find their weights, since it would give another mask.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import numpy as np
@@ -66,12 +67,32 @@ class SaliencyRemover(BackgroundRemover):
         return labels == keep
 
 
+# the files under ``pretrain_root`` from which the JAX package's builder
+# makes a learned backend (RMBG-1.4: ISNet; RMBG-2.0: BiRefNet, ONNX, or
+# transformers from the directory itself)
+LEARNED_WEIGHTS = (
+    os.path.join("briaai", "RMBG-1.4", "model.safetensors"),
+    os.path.join("briaai", "RMBG-1.4", "model.pth"),
+    os.path.join("briaai", "RMBG-1.4", "isnet.pth"),
+    os.path.join("briaai", "RMBG-2.0", "model.safetensors"),
+    os.path.join("briaai", "RMBG-2.0", "pytorch_model.bin"),
+    os.path.join("briaai", "RMBG-2.0", "model.pth"),
+    os.path.join("briaai", "RMBG-2.0", "onnx", "model.onnx"),
+    os.path.join("briaai", "RMBG-2.0"),
+)
+
+
 def build_background_remover(
     pretrain_root: Optional[str] = None,
 ) -> BackgroundRemover:
-    """The heuristic backend.  Learned matting from ``pretrain_root``
-    weights is not ported yet and raises."""
+    """The heuristic backend, where the JAX package's builder finds no
+    learned-matting weights under ``pretrain_root`` (or no root is given).
+    Where it would find them, raise: their backends are not ported."""
     if pretrain_root:
-        raise NotImplementedError(
-            "learned background removal (ISNet/BiRefNet/ONNX) is not ported")
+        found = [p for p in LEARNED_WEIGHTS
+                 if os.path.exists(os.path.join(pretrain_root, p))]
+        if found:
+            raise NotImplementedError(
+                f"learned background removal is not ported ({found[0]} under "
+                f"{pretrain_root})")
     return SaliencyRemover()

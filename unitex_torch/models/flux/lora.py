@@ -9,13 +9,14 @@ is the differentiable merge of one layer that training uses.
 ``attach_lora`` is the unmerged form that int8 serving uses: the adapters
 ride beside the (quantized) kernels as ``lora_a``/``lora_b`` and
 ``layers.linear`` adds their delta at call time.
-
-Deferred: the PEFT safetensors I/O.
+``save_lora_safetensors`` / ``load_lora_safetensors`` write and read the
+PEFT/diffusers safetensors file that serving loads; the file of either
+package reads in the other to the same tree.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Iterable, Tuple
+from typing import Any, Dict, Iterable, Optional, Tuple
 
 import math
 
@@ -177,3 +178,105 @@ def _walk(base, delta, scale, merged_kernel):
         else:
             out[k] = v
     return out
+
+
+# ----------------------------------------------------- PEFT safetensors IO
+
+# tree path -> diffusers module name inside a block
+_HF_DUAL = {
+    ("attn", "to_q"): "attn.to_q",
+    ("attn", "to_k"): "attn.to_k",
+    ("attn", "to_v"): "attn.to_v",
+    ("attn", "to_out"): "attn.to_out.0",
+    ("attn", "add_q_proj"): "attn.add_q_proj",
+    ("attn", "add_k_proj"): "attn.add_k_proj",
+    ("attn", "add_v_proj"): "attn.add_v_proj",
+    ("attn", "to_add_out"): "attn.to_add_out",
+    ("ff", "in"): "ff.net.0.proj",
+    ("ff", "out"): "ff.net.2",
+    ("ff_context", "in"): "ff_context.net.0.proj",
+    ("ff_context", "out"): "ff_context.net.2",
+}
+_HF_SINGLE = {
+    ("attn", "to_q"): "attn.to_q",
+    ("attn", "to_k"): "attn.to_k",
+    ("attn", "to_v"): "attn.to_v",
+    ("proj_mlp",): "proj_mlp",
+    ("proj_out",): "proj_out",
+}
+_BLOCKS = (("dual_blocks", "transformer_blocks", _HF_DUAL),
+           ("single_blocks", "single_transformer_blocks", _HF_SINGLE))
+_PEFT_PREFIX = "base_model.model."
+
+
+def save_lora_safetensors(path: str, lora: Dict[str, Any]) -> None:
+    """Write the stacked LoRA tree as a PEFT/diffusers-keyed safetensors
+    file (``transformer.<block>.<i>.<module>.lora_{A,B}.weight``) in
+    torch's layout: lora_A [r, d_in], lora_B [d_out, r]."""
+    from safetensors.torch import save_file
+
+    tensors: Dict[str, torch.Tensor] = {}
+    for tree_key, hf_block, hf_map in _BLOCKS:
+        tree = lora.get(tree_key, {})
+        for path_t, hf in hf_map.items():
+            node = tree
+            for k in path_t:
+                node = node.get(k) if isinstance(node, dict) else None
+            if not node or "a" not in node:
+                continue
+            a = node["a"].detach().cpu()  # [L, d_in, r]
+            b = node["b"].detach().cpu()  # [L, r, d_out]
+            for i in range(a.shape[0]):
+                prefix = f"transformer.{hf_block}.{i}.{hf}"
+                tensors[f"{prefix}.lora_A.weight"] = a[i].t().contiguous()
+                tensors[f"{prefix}.lora_B.weight"] = b[i].t().contiguous()
+    save_file(tensors, path)
+
+
+def load_lora_safetensors(
+    path: str, n_dual: int = 19, n_single: int = 38, device="cuda",
+) -> Dict[str, Any]:
+    """Read a PEFT/diffusers LoRA safetensors file (keys under
+    ``transformer.`` or PEFT's ``base_model.model.``) into the stacked
+    tree, f32 on ``device``: lora_A [r, d_in] and lora_B [d_out, r]
+    transposed and stacked over the layers; a layer missing from the file
+    gets zeros (no effect), a target missing from every layer is left
+    out."""
+    from safetensors import safe_open
+
+    dev = resolve_device(device)
+    with safe_open(path, framework="pt") as f:
+        names = {_strip_peft(k): k for k in f.keys()}
+
+        def get(name) -> Optional[torch.Tensor]:
+            return f.get_tensor(names[name]) if name in names else None
+
+        out: Dict[str, Any] = {}
+        for (tree_key, hf_block, hf_map), n_layers in zip(_BLOCKS,
+                                                          (n_dual, n_single)):
+            block: Dict[str, Any] = {}
+            for path_t, hf in hf_map.items():
+                prefix = f"transformer.{hf_block}.{{}}.{hf}.lora_{{}}.weight"
+                a = [get(prefix.format(i, "A")) for i in range(n_layers)]
+                b = [get(prefix.format(i, "B")) for i in range(n_layers)]
+                a0 = next((x for x in a if x is not None), None)
+                if a0 is None:
+                    continue
+                b0 = next(x for x in b if x is not None)
+                r, d_in = a0.shape
+                a_st = torch.zeros((n_layers, d_in, r), device=dev)
+                b_st = torch.zeros((n_layers, r, b0.shape[0]), device=dev)
+                for i in range(n_layers):
+                    if a[i] is not None:
+                        a_st[i].copy_(a[i].to(dev).t())
+                    if b[i] is not None:
+                        b_st[i].copy_(b[i].to(dev).t())
+                _ensure_set(block, path_t, {"a": a_st, "b": b_st})
+            out[tree_key] = block
+    return out
+
+
+def _strip_peft(key: str) -> str:
+    if key.startswith(_PEFT_PREFIX):
+        return "transformer." + key[len(_PEFT_PREFIX):]
+    return key

@@ -7,10 +7,12 @@ extra token streams with offset RoPE position ids (control at y+HL/2; dual
 at x+WL/2, y+HL/2), concatenates [noise ‖ control ‖ dual] into one
 sequence, and runs the flow-match Euler loop, re-pinning the condition
 tokens every step.  Inference uses null text conditioning (zero T5 and
-CLIP-pooled embeddings).
+CLIP-pooled embeddings).  ``velocity_reuse`` > 0 serves that many steps by
+extrapolating the velocity instead of calling the transformer
+(:func:`make_reuse_mask`).
 
-Deferred: velocity reuse (``velocity_reuse`` > 0) raises
-``NotImplementedError``; the inpaint / img2img entry point is not ported.
+Deferred: ``denoise``'s ``t_start``, inpainting and ``forward_fn``, and the
+inpaint / img2img entry point.
 """
 
 from __future__ import annotations
@@ -84,29 +86,65 @@ def denoise(
     scheduler: FlowMatchEulerScheduler,
     guidance_scale: float,
     condition_latents: Optional[torch.Tensor] = None,
-    reuse_mask=None,
+    reuse_mask: Optional[np.ndarray] = None,
 ) -> torch.Tensor:
     """Flow-match Euler denoise loop over the packed sequence.
     noise [B, S_noise, C]; condition_latents [B, S_cond, C] appended and
-    re-pinned every step.  Returns the denoised noise tokens."""
-    if reuse_mask is not None:
-        raise NotImplementedError("velocity reuse is not ported")
+    re-pinned every step.  Returns the denoised noise tokens.
+
+    ``reuse_mask`` [num_steps] (host bool, :func:`make_reuse_mask`): on a
+    masked step the transformer is not called; the velocity is
+    extrapolated linearly in sigma from the last two steps' velocities,
+    v = v₁ + (σᵢ − σᵢ₋₁)/(σᵢ₋₁ − σᵢ₋₂)·(v₁ − v₂), in the latents' dtype.
+    The JAX package's ``lax.cond`` is a host ``if`` here, so a masked
+    step launches nothing but that sum."""
     B, S_noise, C = noise.shape
     guidance = (
         torch.full((B,), guidance_scale, dtype=torch.float32, device=noise.device)
         if flux_cfg.guidance_embeds else None
     )
+    sig = scheduler.sigmas
     latents = noise
+    v1 = v2 = None  # the velocities of the last two steps
     for i in range(scheduler.num_steps):
         if condition_latents is not None:
             latents = torch.cat([latents[:, :S_noise], condition_latents], dim=1)
-        timestep = (scheduler.timesteps[i] / 1000.0).expand(B)
-        v = flux_forward(
-            transformer_params, flux_cfg, latents, prompt_embeds, timestep,
-            pooled_embeds, img_ids, txt_ids, guidance=guidance,
-        )
+        if reuse_mask is not None and reuse_mask[i]:
+            r = (sig[i] - sig[i - 1]) / (sig[i - 1] - sig[i - 2])
+            v = (v1 + r * (v1 - v2)).to(latents.dtype)
+        else:
+            timestep = (scheduler.timesteps[i] / 1000.0).expand(B)
+            v = flux_forward(
+                transformer_params, flux_cfg, latents, prompt_embeds, timestep,
+                pooled_embeds, img_ids, txt_ids, guidance=guidance,
+            )
         latents = scheduler.step(v, i, latents)
+        v1, v2 = v, v1
     return latents[:, :S_noise]
+
+
+def make_reuse_mask(
+    num_steps: int, num_reuse: int, start_frac: float = 0.35
+) -> Optional[np.ndarray]:
+    """[num_steps] host bool mask with ``num_reuse`` skipped (velocity-
+    reuse) steps spread evenly over [start_frac·T, T-1): never the first
+    two steps (the extrapolation needs two velocities), never the last
+    (it sets the final image), never two in a row.  None for no reuse."""
+    if num_reuse <= 0:
+        return None
+    mask = np.zeros(num_steps, bool)
+    lo = max(2, int(round(start_frac * num_steps)))
+    candidates = list(range(lo, num_steps - 1))
+    num_reuse = min(num_reuse, (len(candidates) + 1) // 2)
+    # an even spread, each pushed on past a neighbour already taken
+    idx = np.linspace(0, len(candidates) - 1, num_reuse)
+    for j in np.round(idx).astype(int):
+        k = candidates[j]
+        while k < num_steps - 1 and (mask[k] or mask[k - 1] or mask[k + 1]):
+            k += 1
+        if k < num_steps - 1:
+            mask[k] = True
+    return mask
 
 
 def _as_nhwc4(x, device) -> torch.Tensor:
@@ -140,8 +178,6 @@ def run_flux_pipeline(
     supply the VAE posterior draws of the condition encodes (without them
     the encode is the deterministic mode).  Returns [H, W, 3] in [0, 1]."""
     dev = resolve_device(device)
-    if pipe_cfg.velocity_reuse:
-        raise NotImplementedError("velocity reuse is not ported")
     H, W = pipe_cfg.height, pipe_cfg.width
     vs = vae_cfg.downscale
     HL, WL = 2 * (H // (vs * 2)), 2 * (W // (vs * 2))
@@ -194,6 +230,8 @@ def run_flux_pipeline(
         transformer_params, flux_cfg, noise_tokens, img_ids, txt_ids,
         prompt_embeds, pooled_embeds, scheduler, pipe_cfg.guidance_scale,
         condition_latents,
+        reuse_mask=make_reuse_mask(pipe_cfg.num_inference_steps,
+                                   pipe_cfg.velocity_reuse),
     )
     latents = unpack_latents(out_tokens, HL, WL)
     image = vae_decode(vae_params, vae_cfg, latents)[0]

@@ -13,21 +13,27 @@ scripts/compare_golden.py) reads both: ``processed_mesh.obj``,
 ``rembg_image.png``, ``processed_image.png``, ``mv_alpha/ccm/normal.png``,
 ``camera_info.npz``, ``mv_rgb_w_light.png``, ``mv_rgb.png``,
 ``textured_mesh.glb``, ``visable_uv_mask.png``, ``valid_uv_mask.png``,
-``completed_uv.png``.
+``completed_uv.png``, and with ``export_video=True`` the orbit video
+``textured_mesh.mp4`` (``.gif`` without an mp4 writer).
 
 Every device stage runs on ``device`` (default ``"cuda"``; asking for CUDA
-without a card raises).  Ported: ``random_weights=True`` (a full-size
-random FLUX tree made on the device), or parameter trees set by the
-caller (for example carried from the JAX package by ``params_from_jax``);
-int8 serving (``int8_serving=True``: W8A8 projections; ``"max_memory"``:
-plus weight-only int8 for the other block kernels), with the LoRA
-adapters attached at run time instead of merged; ``attn_qk8`` set on
+without a card raises).  Weights: ``pretrain_models`` names a root with
+``flux/transformer`` and ``flux/vae`` (diffusers safetensors) and the two
+adapters ``texture_lora.safetensors`` / ``delight_lora.safetensors``,
+streamed straight onto the device; without them (and with
+``require_weights=False``) the control strip stands in for both FLUX
+passes, so the geometry and bake stages still run.  Or
+``random_weights=True`` (a full-size random FLUX tree made on the
+device), or parameter trees set by the caller (for example carried from
+the JAX package by ``params_from_jax``).  int8 serving
+(``int8_serving=True``: W8A8 projections; ``"max_memory"``: plus
+weight-only int8 for the other block kernels), with the LoRA adapters
+attached at run time instead of merged; ``attn_qk8`` set on
 ``pipe.flux_cfg`` (the int8-QK attention kernel B3); and the serving-tree
 cache (``params_cache``, optionally int4-packed with
 ``params_cache_int4``), whose files either package reads.
-Deferred (``NotImplementedError``): loading checkpoints
-(``pretrain_models``), the weightless stand-in, TSD-SR super-resolution,
-``async_io``, the LTM pipeline, video export and multi-GPU placement.
+Deferred (``NotImplementedError``): TSD-SR super-resolution, ``async_io``,
+the LTM pipeline and multi-GPU placement.
 """
 
 from __future__ import annotations
@@ -47,7 +53,13 @@ from .geometry.uv_atlas import preprocess_blank_mesh
 from .image.process_image import preprocess_reference_image
 from .image.rembg import build_background_remover
 from .models.flux.config import FluxConfig
-from .models.flux.lora import attach_lora, init_lora_params, merge_lora
+from .models.flux.loader import load_flux_transformer, load_vae
+from .models.flux.lora import (
+    attach_lora,
+    init_lora_params,
+    load_lora_safetensors,
+    merge_lora,
+)
 from .models.flux.model import flux_param_spec, init_flux_params
 from .models.flux.quantize import quantize_flux_params
 from .models.flux.pipeline import (
@@ -64,6 +76,7 @@ from .render.conditioning import (
     strip_to_grid,
 )
 from .render.renderer_inverse import bake_texture
+from .render.video import export_orbit_video
 from .utils.image_io import save_image, to_uint8_device
 from .utils.param_cache import load_meta, load_params, save_params
 from .utils.precision import exact_f32, resolve_device
@@ -148,8 +161,6 @@ class RGBTextureFullPipelineBase:
         params_cache_int4: bool = False,
         device="cuda",
     ):
-        if pretrain_models is not None or require_weights:
-            raise NotImplementedError("loading checkpoints is not ported")
         if super_resolutions or config.super_resolution:
             raise NotImplementedError("TSD-SR super-resolution is not ported")
         if async_io:
@@ -160,6 +171,7 @@ class RGBTextureFullPipelineBase:
         self.device = resolve_device(device)
         self.config = config
         self.seed = seed
+        self.pretrain_models = pretrain_models
         self.save_artifacts = save_artifacts
         # int8_serving: False (bf16) | True (W8A8) | "max_memory" (W8A8 +
         # weight-only int8 for the rest of the block kernels); the LoRA
@@ -173,7 +185,7 @@ class RGBTextureFullPipelineBase:
         self.params_cache_int4 = params_cache_int4 and bool(int8_serving)
         # kinds whose cache failed validation: the rebuilt tree overwrites
         self._stale_caches: set = set()
-        self.rembg = build_background_remover(None)
+        self.rembg = build_background_remover(pretrain_models)
         self.flux_cfg = FluxConfig.flux1_dev()
         self.vae_cfg = VAEConfig.flux()
         self._flux_loaded = False
@@ -181,8 +193,12 @@ class RGBTextureFullPipelineBase:
         self.vae_params = None
         self.texture_lora = None
         self.delight_lora = None
-        if random_weights:
+        if pretrain_models is not None:
+            self._try_load_weights(require_weights)
+        elif random_weights:
             self._init_random_weights()
+        elif require_weights:
+            raise FileNotFoundError("pretrain_models is required")
 
     # bump when the serving tree's layout or the file encoding changes
     _PARAMS_CACHE_VERSION = 1
@@ -220,6 +236,53 @@ class RGBTextureFullPipelineBase:
                                           device=self.device)
         self._flux_loaded = True
 
+    @CPUTimer("load_weights")
+    def _try_load_weights(self, require: bool) -> None:
+        """The serving tree, VAE and adapters of ``pretrain_models``
+        (``flux/transformer``, ``flux/vae`` and the adapter files
+        ``texture_lora.safetensors`` / ``delight_lora.safetensors``, either
+        of which may be missing), or the serving tree from
+        ``params_cache``.  Everything is read straight onto the
+        device: the transformer in bf16, then quantized for int8 serving
+        with each bf16 kernel dropped as it is quantized; the VAE and the
+        adapters in f32, as random init makes them.  A missing file raises
+        ``FileNotFoundError`` under ``require``; otherwise the pipeline
+        runs weightless."""
+        root = self.pretrain_models
+        try:
+            cached = self._load_cached_tree("flux")
+            if cached is not None:
+                params = self._place_flux_params(*cached)
+            else:
+                params = load_flux_transformer(
+                    os.path.join(root, "flux", "transformer"), self.flux_cfg,
+                    device=self.device, dtype=torch.bfloat16)
+                if self.int8_serving:
+                    params = quantize_flux_params(
+                        params,
+                        weight_only_rest=self.int8_serving == "max_memory",
+                        consume=True)
+            vae = load_vae(os.path.join(root, "flux", "vae"), self.vae_cfg,
+                           device=self.device, dtype=torch.float32)
+            loras = {}
+            for name in ("texture", "delight"):
+                path = os.path.join(root, f"{name}_lora.safetensors")
+                if os.path.exists(path):
+                    loras[name] = load_lora_safetensors(
+                        path, self.flux_cfg.num_layers,
+                        self.flux_cfg.num_single_layers, device=self.device)
+            if cached is None:
+                self._store_cached_tree("flux", params)
+        except OSError as e:  # FileNotFoundError among them
+            if require:
+                raise
+            print(f"[pipeline] FLUX weights not found ({e}); running weightless")
+            return
+        self.transformer_params, self.vae_params = params, vae
+        self.texture_lora = loras.get("texture")
+        self.delight_lora = loras.get("delight")
+        self._flux_loaded = True
+
     # ------------------------------------------------------- params cache
 
     def _cache_path(self, kind: str) -> Optional[str]:
@@ -232,8 +295,17 @@ class RGBTextureFullPipelineBase:
 
     def _cache_meta(self, kind: str) -> Dict[str, object]:
         """The cache's fingerprint: the format version and the tree's
-        source (a random tree's kind names its generator and seed)."""
-        return {"version": self._PARAMS_CACHE_VERSION, "source": kind}
+        source, the JAX package's: a checkpoint's transformer directory
+        and its mtime, or a random tree's kind (which names its generator
+        and seed)."""
+        src = kind
+        if self.pretrain_models:
+            src = os.path.join(self.pretrain_models, "flux", "transformer")
+            try:
+                src = f"{src}:{os.path.getmtime(src):.0f}"
+            except OSError:
+                pass
+        return {"version": self._PARAMS_CACHE_VERSION, "source": src}
 
     def _expected_serving_tree(self):
         """The serving tree of ``flux_cfg`` and the int8 mode, as tensors on
@@ -409,23 +481,36 @@ class RGBTextureFullPipelineBase:
         condition: Dict[str, torch.Tensor],
     ) -> torch.Tensor:
         """Texture + delight FLUX passes over the 1x6 strip.  Returns the
-        delighted 2x3 grid in [0, 1]."""
-        if not self._flux_loaded:
-            raise NotImplementedError(
-                "the weightless stand-in is not ported: pass random_weights=True "
-                "or set the parameter trees")
-        dcfg = self.config.diffusion
-        if dcfg.velocity_reuse:
-            raise NotImplementedError("velocity reuse is not ported")
+        delighted 2x3 grid in [0, 1].  Without FLUX weights the control
+        strip (geometry-shaded) stands in for both passes."""
         control_grid = 0.5 * condition["normal"] + 0.5 * condition["ccm"]
         control_strip = grid_to_strip(control_grid)
+        if self._flux_loaded:
+            strip_delight = self._flux_passes(save_dir, reference_image,
+                                              control_strip)
+        else:
+            if self.save_artifacts:
+                save_image(os.path.join(save_dir, "mv_rgb_w_light.png"),
+                           _host(control_strip))
+            strip_delight = control_strip
+        mv_rgb = strip_to_grid(strip_delight)
+        if self.save_artifacts:
+            save_image(os.path.join(save_dir, "mv_rgb.png"), _host(mv_rgb))
+        return mv_rgb
 
+    def _flux_passes(self, save_dir: str, reference_image: np.ndarray,
+                     control_strip: torch.Tensor) -> torch.Tensor:
+        """The texture pass (dual image, adapters [1, 0]) and the delight
+        pass on its output (adapters [0, 1]); returns the delighted
+        strip."""
+        dcfg = self.config.diffusion
         pipe_cfg = FluxPipelineConfig(
             height=dcfg.height,
             width=dcfg.width,
             num_inference_steps=dcfg.num_inference_steps,
             guidance_scale=dcfg.guidance_scale,
             max_sequence_length=dcfg.max_sequence_length,
+            velocity_reuse=dcfg.velocity_reuse,
         )
         plan_tex = plan_del = {}
         if dcfg.torch_rng_parity:
@@ -476,11 +561,7 @@ class RGBTextureFullPipelineBase:
             device=self.device, **plan_del,
         )
         del params
-
-        mv_rgb = strip_to_grid(strip_delight)
-        if self.save_artifacts:
-            save_image(os.path.join(save_dir, "mv_rgb.png"), _host(mv_rgb))
-        return mv_rgb
+        return strip_delight
 
     @CPUTimer("reproject_and_query_field")
     def reproject_stage(
@@ -520,6 +601,20 @@ class RGBTextureFullPipelineBase:
         ))
         return glb_path
 
+    @CPUTimer("export_video")
+    def export_video_stage(self, save_dir: str, glb_path: str, name: str) -> str:
+        """The orbit video of the written GLB (``config.orbit_*``) as
+        ``<save_dir>/<name>`` with an ``.mp4`` suffix (``.gif`` without an
+        mp4 writer); returns the path written."""
+        return export_orbit_video(
+            glb_path,
+            os.path.join(save_dir, os.path.splitext(name)[0] + ".mp4"),
+            n_frames=self.config.orbit_frames,
+            size=self.config.orbit_size,
+            fps=self.config.orbit_fps,
+            device=self.device,
+        )
+
 
 class CustomRGBTextureFullPipeline(RGBTextureFullPipelineBase):
     """The shipped entry point: step_1_1 + step_2_ablition (no-LTM bake)."""
@@ -533,8 +628,6 @@ class CustomRGBTextureFullPipeline(RGBTextureFullPipelineBase):
         export_video: bool = False,
         preprocessed=None,
     ) -> Tuple[str, str]:
-        if export_video:
-            raise NotImplementedError("video export is not ported")
         cache = os.path.join(save_dir, "cache")
         os.makedirs(cache, exist_ok=True)
         if preprocessed is None:
@@ -544,6 +637,8 @@ class CustomRGBTextureFullPipeline(RGBTextureFullPipelineBase):
         mv_rgb = self.infer_mv_stage(cache, ref_image, condition)
         glb_path = self.reproject_stage(
             cache, condition["mesh"], mv_rgb, condition, processed_mesh)
+        if export_video:
+            self.export_video_stage(cache, glb_path, "textured_mesh.mp4")
         rembg_out = os.path.join(save_dir, "rembg_image.png")
         glb_out = os.path.join(save_dir, "textured_mesh.glb")
         shutil.copy(os.path.join(cache, "rembg_image.png"), rembg_out)
