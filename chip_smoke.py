@@ -61,7 +61,30 @@ non-zero:
    (W8A8 FLUX.1-dev, each bf16 kernel dropped as it is quantized) with
    ``attn_qk8=True`` set on its ``flux_cfg`` answers the icosphere job on
    the 4-step config: a GLB and a finite 2048² texture, 456 launches of B3
-   and none of B1, the peak under 80 GB.  ``<tmp>`` is then deleted.
+   and none of B1, the peak under 80 GB.  ``<tmp>`` is then deleted;
+9. LTM path (run between phases 5 and 6, on the serving phase's resident
+   FLUX trees, so FLUX.1-dev is initialized once):
+   ``RGBTextureFullPipeline(ltm_params=<repo>/ltm_params.npz)`` (the
+   trained ``LTMConfig.large()``) answers two jobs on the 4-step config:
+   the cup (``make_cup()``, 18,816 faces), whose chart is under 0.93
+   visible, so the LTM field fills it; and the icosphere, at or above 0.93
+   visible the k=8 fill with 50 relaxation passes, else (the gradient
+   filter trims every silhouette) run again with ``ltm_auto=0.0``, which
+   forces that branch, said on its line.  Each job must write its GLB and
+   ``completed_uv.png``, bake a finite 2048² texture and launch B1 exactly
+   456 times; its line gives the branch, the visible fraction, the
+   ``reproject_and_query_field`` seconds split into the LTM encode, the
+   decode and the rest, and the peak;
+10. texture round trip (no FLUX): ``unitex_torch/scripts/oracle_campaign``
+   at 512² views and a 2048² atlas on the cup and the trefoil
+   (``make_trefoil(n_major=384, n_minor=40)``) with ``ORACLE_r05.json``'s
+   three option sets (priority paste and k=1; cosine paste, k=8 and 50
+   relaxation passes; cosine paste and the LTM of ``ltm_params.npz``),
+   each score printed beside the JAX package's recorded one; the LTM set
+   must beat the k=8 set in ``texture_psnr_all`` on both meshes.  On the
+   cup also the priority k=1 bake with ``low_hbm=True`` (its texture
+   within 1e-6 of the plain bake's) and one ``reproject_blending`` and one
+   ``kdtree`` bake (a finite texture, their seconds).
 
 The output ends with three lines: the kernels' JSON record
 (``{"kernels": [...]}``), the card's name and power limit as
@@ -908,6 +931,199 @@ def run_training(attn, torch, pipe) -> None:
             raise AssertionError(f"train step {step}: the LoRA b leaves are still 0")
 
 
+LTM_NPZ = os.path.join(REPO, "ltm_params.npz")
+ORACLE_RECORD = os.path.join(REPO, "ORACLE_r05.json")
+ORACLE_PRIMITIVES = ("cup", "trefoil")
+ORACLE_KEYS = ("visible_texel_fraction", "texture_psnr_visible",
+               "texture_psnr_all", "rerender_psnr")
+LOW_HBM_TOL = 1e-6       # max|texture| of the low-memory bake vs the plain one
+
+
+def oracle_record(primitive: str, setting: str, path: str = ORACLE_RECORD) -> dict:
+    """The JAX package's recorded case of ``ORACLE_r05.json`` for one of
+    ``oracle_campaign.SETTINGS``: "priority_k1", "cosine_k8_relax" or
+    "cosine_ltm"."""
+    with open(path) as f:
+        cases = json.load(f)["cases"]
+    for case in cases:
+        if case["primitive"] != primitive:
+            continue
+        if setting == "cosine_ltm" and case.get("fill") == "ltm":
+            return case
+        if case.get("fill") is None and (case["paste_mode"], case["fill_k"]) == {
+                "priority_k1": ("priority", 1),
+                "cosine_k8_relax": ("cosine", 8)}.get(setting):
+            return case
+    raise KeyError(f"{primitive} {setting} not in {path}")
+
+
+def oracle_line(primitive: str, setting: str, case: dict, ref: dict) -> str:
+    """One ``[oracle]`` line: each score beside the JAX package's recorded
+    value and the difference, then the bake's seconds."""
+    parts = [f"{k} {case[k]} (JAX {ref[k]}, {case[k] - ref[k]:+.2f})"
+             for k in ORACLE_KEYS]
+    return (f"[oracle] {primitive} {setting}: " + ", ".join(parts)
+            + f"; bake {case['bake_s']:.3f}s")
+
+
+def check_oracle_order(primitive: str, results: dict) -> None:
+    """The LTM field must beat the k=8 fill with relaxation over all chart
+    texels, as ``ORACLE_r05.json`` records for the JAX package."""
+    ltm = results["cosine_ltm"]["texture_psnr_all"]
+    idw = results["cosine_k8_relax"]["texture_psnr_all"]
+    if not ltm > idw:
+        raise AssertionError(f"oracle {primitive}: LTM texture_psnr_all {ltm} "
+                             f"does not beat k=8 + relaxation's {idw}")
+
+
+def result_lines(records: list, card: str, kind: str, count: int) -> list:
+    """The last three lines of the output: the kernels' record, the card's
+    name and power limit, the result."""
+    return [json.dumps({"kernels": records}), card,
+            json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                               "count": count}})]
+
+
+def run_ltm_path(attn, torch, pipe, config=None, device: str = "cuda") -> None:
+    """Phase 9: ``RGBTextureFullPipeline`` with the repo's trained LTM on
+    the 4-step config, the FLUX trees of ``pipe`` reused: the cup (the
+    field fill) and the icosphere (the k=8 fill with relaxation; forced by
+    ``ltm_auto=0.0`` where its chart is under 0.93 visible).  ``config``
+    defaults to ``DEFAULT_CONFIG`` with ``STEPS`` steps."""
+    from PIL import Image
+
+    from unitex_torch.config import DEFAULT_CONFIG
+    from unitex_torch.geometry.io.mesh_io import save_mesh
+    from unitex_torch.geometry.primitives import make_cup
+    from unitex_torch.pipeline import RGBTextureFullPipeline
+    from unitex_torch.utils.timer import CPUTimer
+
+    config = config or dataclasses.replace(
+        DEFAULT_CONFIG,
+        diffusion=dataclasses.replace(DEFAULT_CONFIG.diffusion,
+                                      num_inference_steps=STEPS))
+    n_blocks = pipe.flux_cfg.num_layers + pipe.flux_cfg.num_single_layers
+    per_job = n_blocks * config.diffusion.num_inference_steps * 2
+    uv = config.bake.uv_size
+    ltm = RGBTextureFullPipeline(config=config, ltm_params=LTM_NPZ, device=device)
+    for attr in ("transformer_params", "vae_params", "texture_lora",
+                 "delight_lora", "flux_cfg", "vae_cfg"):
+        setattr(ltm, attr, getattr(pipe, attr))
+    ltm._flux_loaded = True
+    print(f"[ltm] {LTM_NPZ}: {ltm.ltm_cfg}; FLUX trees of the serving phase",
+          flush=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ltm_") as d:
+        ico = make_assets(d)[0]
+        cup_mesh = os.path.join(d, "cup.obj")
+        save_mesh(cup_mesh, make_cup())
+        jobs = [("cup", cup_mesh, ico[2], "field"), (ico[0], ico[1], ico[2], "knn")]
+        for name, mesh_path, img_path, want in jobs:
+            ltm.ltm_auto = 0.93
+            for attempt in range(2):
+                out_dir = os.path.join(d, f"out_{name}_{attempt}")
+                torch.cuda.reset_peak_memory_stats()
+                before = _counts(attn)
+                CPUTimer.records.pop("ltm_encode", None)
+                CPUTimer.records.pop("ltm_decode", None)
+                t0 = time.perf_counter()
+                _, glb = ltm(out_dir, img_path, mesh_path)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                n = tuple(a - b for a, b in zip(_counts(attn), before))
+                peak = torch.cuda.max_memory_allocated()
+                rec = CPUTimer.records
+                fill = ltm.last_fill
+                enc, dec = rec.get("ltm_encode"), rec.get("ltm_decode")
+                split = (f" (ltm_encode {enc:.3f}s ltm_decode {dec:.3f}s rest "
+                         f"{rec['reproject_and_query_field'] - enc - dec:.3f}s)"
+                         if enc is not None else "")
+                print(f"[ltm] job {name} ltm_auto={ltm.ltm_auto}: branch "
+                      f"{fill['branch']} visible fraction "
+                      f"{fill['visible_fraction']:.4f}; wall {wall:.2f}s infer_mv "
+                      f"{rec['infer_mv']:.3f}s reproject_and_query_field "
+                      f"{rec['reproject_and_query_field']:.3f}s{split} peak "
+                      f"{peak / 2**30:.2f} GiB launches B1 {n[0]}", flush=True)
+                tex = ltm.last_texture
+                uv_png = os.path.join(out_dir, "cache", "completed_uv.png")
+                if not (os.path.exists(glb) and os.path.exists(uv_png)):
+                    raise AssertionError(f"ltm job {name}: no GLB or completed_uv.png")
+                with Image.open(uv_png) as im:
+                    uv_size = im.size
+                if tuple(tex.shape) != (uv, uv, 3) or uv_size != (uv, uv) \
+                        or not bool(torch.isfinite(tex).all()):
+                    raise AssertionError(f"ltm job {name}: texture {tuple(tex.shape)}"
+                                         f" ({uv_size} png) not a finite {uv}²")
+                if n != (per_job, 0, 0, 0):
+                    raise AssertionError(f"ltm job {name}: launches B1/B2a/B2b/B3 "
+                                         f"{n}, expected ({per_job}, 0, 0, 0)")
+                if peak >= PEAK_LIMIT:
+                    raise AssertionError(f"ltm job {name}: peak {peak} bytes")
+                if fill["branch"] == want:
+                    break
+                if want == "field" or attempt:
+                    raise AssertionError(f"ltm job {name}: branch {fill}, expected "
+                                         f"{want}")
+                print(f"[ltm] job {name}: visible fraction "
+                      f"{fill['visible_fraction']:.4f} under 0.93 with the gradient "
+                      f"filter; run again with ltm_auto=0.0 to force the k=8 fill "
+                      f"with relaxation", flush=True)
+                ltm.ltm_auto = 0.0
+
+
+def run_oracle(torch, view_size: int = 512, uv_size: int = 2048,
+               device: str = "cuda") -> None:
+    """Phase 10: the texture round trip of ``oracle_campaign`` (512² views,
+    2048² atlas) on the cup and the trefoil with the three option sets of
+    ``ORACLE_r05.json``, each score beside the JAX package's; on the cup
+    also the low-memory bake (its texture that of the plain bake) and one
+    bake each of the blending and kdtree methods."""
+    from unitex_torch.render.renderer_inverse import bake_texture
+    from unitex_torch.scripts.oracle_campaign import SETTINGS, prepare_case, run_case
+
+    for prim in ORACLE_PRIMITIVES:
+        t0 = time.perf_counter()
+        scene = prepare_case(prim, view_size, uv_size, device=device)
+        torch.cuda.synchronize()
+        print(f"[oracle] {prim}: {int(scene['mesh'].faces.shape[0])} faces, "
+              f"unwrap and views {time.perf_counter() - t0:.3f}s", flush=True)
+        results = {}
+        for name, setting in SETTINGS.items():
+            setting = dict(setting)
+            if setting.pop("ltm", False):
+                setting["ltm_path"] = LTM_NPZ
+            torch.cuda.reset_peak_memory_stats()
+            case = run_case(prim, view_size, uv_size, device=device, scene=scene,
+                            **setting)
+            results[name] = case
+            print(oracle_line(prim, name, case, oracle_record(prim, name))
+                  + f", peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+                  flush=True)
+        check_oracle_order(prim, results)
+        if prim != "cup":
+            continue
+        low = run_case(prim, view_size, uv_size, device=device, scene=scene,
+                       low_hbm=True, **SETTINGS["priority_k1"])
+        diff = float((low["texture"] - results["priority_k1"]["texture"]).abs().max())
+        print(f"[oracle] cup low_hbm: max|texture - plain bake's| {diff:.3e} "
+              f"(tol {LOW_HBM_TOL}); bake {low['bake_s']:.3f}s against "
+              f"{results['priority_k1']['bake_s']:.3f}s", flush=True)
+        if not diff <= LOW_HBM_TOL:
+            raise AssertionError(f"oracle cup: low_hbm texture differs by {diff}")
+        for method in ("reproject_blending", "kdtree"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = bake_texture(scene["mesh"], scene["views"], scene["c2ws"],
+                               scene["intr"], uv_size=uv_size, method=method)
+            tex = out["texture"]
+            finite = bool(torch.isfinite(tex).all())
+            torch.cuda.synchronize()
+            print(f"[oracle] cup method={method}: {time.perf_counter() - t0:.3f}s, "
+                  f"texture {tuple(tex.shape)} finite {finite}", flush=True)
+            if tuple(tex.shape) != (uv_size, uv_size, 3) or not finite:
+                raise AssertionError(f"oracle cup {method}: texture not a finite "
+                                     f"{uv_size}²")
+
+
 def _named_leaves(tree, prefix=""):
     """("/a/0/b", leaf) of a tree of dicts and lists."""
     if isinstance(tree, (dict, list)):
@@ -979,6 +1195,16 @@ def main() -> int:
         return fail(f"launches B1/B2a/B2b/B3 {train} on the training path")
     print(f"[train] launches B1/B2a/B2b {train[0]}/{train[1]}/{train[2]} in "
           f"{TRAIN_STEPS} steps", flush=True)
+    torch.cuda.empty_cache()
+
+    # phase 9 runs here, while the serving phase's FLUX trees are resident
+    _reset(attn)
+    run_ltm_path(attn, torch, pipe)
+    torch.cuda.synchronize()
+    ltm = _counts(attn)
+    if ltm[0] == 0 or ltm[1:] != (0, 0, 0):
+        return fail(f"launches B1/B2a/B2b/B3 {ltm} on the LTM path")
+    torch.cuda.empty_cache()
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     models = os.path.join(tmp, "models")
@@ -1009,10 +1235,20 @@ def main() -> int:
             return fail(f"launches B1/B2a/B2b/B3 {int8} on the int8 serving path")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    for rec, *n in zip(records, serve, train, cli, int8):
+    _reset(attn)
+    run_oracle(torch)
+    torch.cuda.synchronize()
+    oracle = _counts(attn)
+    if oracle != (0, 0, 0, 0):
+        return fail(f"launches B1/B2a/B2b/B3 {oracle} on the oracle bakes")
+
+    paths = ("serve", "train", "ltm", "cli", "int8_serve", "oracle")
+    for rec, *n in zip(records, serve, train, ltm, cli, int8, oracle):
         rec["launches"] = sum(n)
-        rec["launches_by_path"] = dict(zip(("serve", "train", "cli", "int8_serve"), n))
+        rec["launches_by_path"] = dict(zip(paths, n))
     keys = ("ms", "plain_ms", "bound_ms", "max_abs_err", "library_ms")
     bad = [r for r in records if not all(
         (k == "library_ms" and r[k] is None)
@@ -1021,11 +1257,9 @@ def main() -> int:
     if bad:
         return fail(f"bad kernel records {bad}")
     print(f"[done] {time.perf_counter() - t_start:.1f}s", flush=True)
-    print(json.dumps({"kernels": records}))
-    print(card)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+    for line in result_lines(records, card, torch.cuda.get_device_name(0),
+                             torch.cuda.device_count()):
+        print(line)
     return 0
 
 

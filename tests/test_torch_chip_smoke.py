@@ -1,7 +1,8 @@
 """``chip_smoke.py``'s helpers on the CPU: the ptxas report parser (each
 kernel's line in the script's output carries its own registers and spill
-text), and the tree -> diffusers names of the checkpoint it writes, read
-back through the port's loader at tiny size.  ``chip_smoke.py`` imports
+text), the tree -> diffusers names of the checkpoint it writes, read
+back through the port's loader at tiny size, phase 10's comparison with
+ORACLE_r05.json and the result lines.  ``chip_smoke.py`` imports
 only the standard library at its top; the parser's tests need neither a
 card, PyTorch nor JAX."""
 
@@ -115,3 +116,55 @@ def test_state_dict_names_round_trip_through_the_loader(which):
     assert len(pairs) == n_leaves
     for k in want:
         assert torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.parametrize("primitive", ["cup", "trefoil"])
+@pytest.mark.parametrize("setting", ["priority_k1", "cosine_k8_relax", "cosine_ltm"])
+def test_oracle_record_finds_each_recorded_case(primitive, setting):
+    """Phase 10 compares each of ``oracle_campaign.SETTINGS`` with its
+    case in ORACLE_r05.json (the LTM case carries ``fill: ltm`` and no
+    ``fill_k``)."""
+    from unitex_torch.scripts.oracle_campaign import SETTINGS
+
+    cs = _chip_smoke()
+    assert setting in SETTINGS and primitive in cs.ORACLE_PRIMITIVES
+    ref = cs.oracle_record(primitive, setting)
+    assert ref["primitive"] == primitive
+    assert ref["paste_mode"] == SETTINGS[setting]["paste_mode"]
+    assert (ref.get("fill") == "ltm") == (setting == "cosine_ltm")
+    if setting != "cosine_ltm":
+        assert ref["fill_k"] == SETTINGS[setting]["fill_k"]
+        assert ref["fill_relax_iters"] == SETTINGS[setting]["fill_relax_iters"]
+
+
+def test_oracle_line_and_order_check():
+    cs = _chip_smoke()
+    ref = cs.oracle_record("cup", "cosine_ltm")
+    case = {k: ref[k] for k in cs.ORACLE_KEYS}
+    case["texture_psnr_all"] = ref["texture_psnr_all"] - 0.5
+    case["bake_s"] = 1.25
+    line = cs.oracle_line("cup", "cosine_ltm", case, ref)
+    assert line.startswith("[oracle] cup cosine_ltm: visible_texel_fraction ")
+    assert f"texture_psnr_all {case['texture_psnr_all']} (JAX 33.51, -0.50)" in line
+    assert line.endswith("; bake 1.250s")
+    idw = {"texture_psnr_all": 30.73}
+    cs.check_oracle_order("cup", {"cosine_ltm": case, "cosine_k8_relax": idw})
+    with pytest.raises(AssertionError, match="does not beat"):
+        cs.check_oracle_order("cup", {"cosine_ltm": idw, "cosine_k8_relax": case})
+
+
+def test_the_last_line_is_the_result():
+    """The output's last three lines: the kernels' record, the card, and
+    ``{"ok": true, "device": {...}}`` with exactly the keys the result
+    carries."""
+    import json
+
+    cs = _chip_smoke()
+    lines = cs.result_lines([{"name": "B1"}], "NVIDIA H100 80GB HBM3, 700.00 W",
+                            "NVIDIA H100 80GB HBM3", 1)
+    assert json.loads(lines[0]) == {"kernels": [{"name": "B1"}]}
+    assert lines[1] == "NVIDIA H100 80GB HBM3, 700.00 W"
+    assert json.loads(lines[2]) == {"ok": True, "device": {
+        "platform": "gpu", "kind": "NVIDIA H100 80GB HBM3", "count": 1}}
+    assert lines[2] == ('{"ok": true, "device": {"platform": "gpu", "kind": '
+                        '"NVIDIA H100 80GB HBM3", "count": 1}}')

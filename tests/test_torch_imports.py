@@ -72,6 +72,29 @@ def test_every_module_imports_without_a_card():
         importlib.import_module(name)
 
 
+def test_native_build_is_not_walked_as_a_module():
+    """The g++ build of ``native/meshproc.cpp`` lands in the git-ignored
+    ``unitex_torch/_build/``, which is no package: once a mesh has been
+    decimated, the walk of :func:`test_every_module_imports_without_a_card`
+    still meets only importable modules (a ``_meshproc.so`` beside its
+    source had been walked as the extension module
+    ``unitex_torch.native._meshproc`` and failed to import)."""
+    from unitex_torch.native import meshproc
+
+    build_dir = os.path.join(REPO, "unitex_torch", "_build")
+    assert os.path.dirname(meshproc._SO) == build_dir
+    assert not os.path.exists(os.path.join(build_dir, "__init__.py"))
+    if meshproc.available():
+        assert os.path.exists(meshproc._SO)
+    assert not os.path.exists(os.path.join(REPO, "unitex_torch", "native",
+                                           "_meshproc.so"))
+    names = [m.name for m in pkgutil.walk_packages(unitex_torch.__path__,
+                                                   "unitex_torch.")]
+    assert not [n for n in names if "._build" in n or "_meshproc" in n]
+    for name in names:
+        importlib.import_module(name)
+
+
 def test_entry_points_default_to_cuda_and_raise_without_a_card():
     import inspect
 

@@ -51,7 +51,7 @@ DIFFUSION = dict(height=32, width=192, dual_size=16, num_inference_steps=2,
 
 
 def _numpy_tree(tree):
-    return jax.tree.map(lambda t: t.numpy(), tree)
+    return jax.tree.map(np.asarray, tree)
 
 
 def _small():
@@ -65,14 +65,27 @@ def _small():
         bake=dataclasses.replace(jc.bake, uv_size=128))
 
 
-def _port_config(diffusion=DIFFUSION):
-    jc = _small()
+def _port_config(jc=None):
+    """The port's copy of a JAX pipeline config (default: ``_small()``
+    with ``DIFFUSION``)."""
+    jc = jc or dataclasses.replace(_small(), diffusion=DiffusionConfig(**DIFFUSION))
     return tconfig.PipelineConfig(
         camera=tconfig.CameraConfig(**dataclasses.asdict(jc.camera)),
         mesh=tconfig.MeshConfig(**dataclasses.asdict(jc.mesh)),
         bake=tconfig.BakeConfig(**dataclasses.asdict(jc.bake)),
-        diffusion=tconfig.DiffusionConfig(**diffusion),
+        diffusion=tconfig.DiffusionConfig(**dataclasses.asdict(jc.diffusion)),
     )
+
+
+def _ltm_config():
+    """``_small()`` with 64² views (the gradient filter's 31² erosion
+    leaves nothing of a 32² view) and no shape bucket (the padded faces
+    only slow the rasterizers on the CPU)."""
+    jc = _small()
+    return dataclasses.replace(
+        jc, camera=dataclasses.replace(jc.camera, view_size=64),
+        mesh=dataclasses.replace(jc.mesh, shape_bucket=0),
+        diffusion=DiffusionConfig(**DIFFUSION))
 
 
 @pytest.fixture(scope="module")
@@ -158,6 +171,104 @@ def test_weightless_pipeline_matches_jax(assets, tmp_path):
     assert len(scored) >= 10, report
     assert report["artifacts"]["mv_rgb_w_light.png"], report
     assert report["worst_psnr"] >= 35.0, report
+
+
+@pytest.mark.parametrize("ltm_auto", [None, 0.0], ids=["field", "knn"])
+def test_ltm_pipeline_matches_jax(assets, tmp_path, monkeypatch, ltm_auto):
+    """``RGBTextureFullPipeline`` (the LTM fill, step_2_2) in both packages,
+    weightless, with one tiny LTM tree from the JAX init (the counterpart
+    of tests/test_pipeline.py's ``TestLTMPipeline``): every image artifact
+    scored as in :func:`test_pipeline_artifacts_match_jax`, in both fill
+    branches: ``None`` always takes the field, 0.0 always the k=8 fill
+    with 50 relaxation passes.  (The default 0.93 takes the field here:
+    at 64² views the gradient filter leaves the sphere's chart about 13 %
+    visible.)"""
+    from unitex_tpu.models.ltm import LTMConfig as JLTMConfig
+    from unitex_tpu.models.ltm import init_ltm_params as j_init_ltm
+    from unitex_tpu.pipeline import RGBTextureFullPipeline as JLTMPipeline
+
+    from unitex_torch.models.ltm import LTMConfig as TLTMConfig
+    from unitex_torch.pipeline import RGBTextureFullPipeline as TLTMPipeline
+
+    import unitex_tpu.models.ltm as jltm_mod
+
+    # the JAX hook under jax.jit: one compile instead of one for each op
+    make = jltm_mod.make_query_field
+    monkeypatch.setattr(jltm_mod, "make_query_field",
+                        lambda *a, **kw: jax.jit(make(*a, **kw)))
+    mesh_path, img_path = assets
+    empty = str(tmp_path / "no_weights")
+    os.makedirs(empty)
+    jtree = jax.jit(j_init_ltm, static_argnums=1)(jax.random.key(0),
+                                                 JLTMConfig.tiny())
+    jdir, tdir = str(tmp_path / "jax"), str(tmp_path / "torch")
+    jcfg = _ltm_config()
+    JLTMPipeline(pretrain_models=empty, seed=63, config=jcfg, ltm_params=jtree,
+                 ltm_cfg=JLTMConfig.tiny(), ltm_auto=ltm_auto)(
+        jdir, img_path, mesh_path)
+    tpipe = TLTMPipeline(pretrain_models=empty, seed=63,
+                         config=_port_config(jcfg),
+                         ltm_params=params_from_jax(_numpy_tree(jtree), "cpu"),
+                         ltm_cfg=TLTMConfig.tiny(), ltm_auto=ltm_auto,
+                         device="cpu")
+    _, glb = tpipe(tdir, img_path, mesh_path)
+    assert os.path.exists(glb) and torch.isfinite(tpipe.last_texture).all()
+    assert tpipe.last_fill["branch"] == ("knn" if ltm_auto == 0.0 else "field"), \
+        tpipe.last_fill
+    report = compare_caches(os.path.join(tdir, "cache"),
+                            os.path.join(jdir, "cache"))
+    scored = [v for v in report["artifacts"].values() if v]
+    assert len(scored) >= 8 and report["artifacts"]["completed_uv.png"], report
+    assert report["worst_psnr"] >= 35.0, report
+
+
+@pytest.mark.parametrize("stage", ["reproject_stage", "reproject_with_field"])
+@pytest.mark.parametrize("view", [32, 64], ids=["camera_size", "larger"])
+def test_max_memory_bake_options_match_jax(monkeypatch, stage, view):
+    """With ``int8_serving="max_memory"`` and weights held, both packages'
+    bake stages ask ``bake_texture`` for the same options: the low-memory
+    bake, ``knn_chunk=1024``, and in ``reproject_stage`` for views larger
+    than the camera's 32² also the geometry at 32² and 64-row slabs."""
+    import unitex_tpu.pipeline as jpipe_mod
+    import unitex_tpu.render.renderer_inverse as jinv_mod
+
+    import unitex_torch.pipeline as tpipe_mod
+    from unitex_tpu.models.ltm import LTMConfig as JLTMConfig
+    from unitex_torch.models.ltm import LTMConfig as TLTMConfig
+
+    class Stop(Exception):
+        pass
+
+    seen = {}
+
+    def capture(name):
+        def bake(*args, **kwargs):
+            seen[name] = kwargs
+            raise Stop
+        return bake
+
+    monkeypatch.setattr(jpipe_mod, "bake_texture", capture("jax"))
+    monkeypatch.setattr(jinv_mod, "bake_texture", capture("jax"))
+    monkeypatch.setattr(tpipe_mod, "bake_texture", capture("torch"))
+    grid = np.zeros((2 * view, 3 * view, 3), np.float32)
+    cond = {"c2ws": np.eye(4, dtype=np.float32)[None].repeat(6, 0),
+            "intrinsics": np.eye(3, dtype=np.float32)}
+    jpipe = jpipe_mod.RGBTextureFullPipeline(
+        pretrain_models=None, config=_small(), int8_serving="max_memory",
+        ltm_params={}, ltm_cfg=JLTMConfig.tiny())
+    tpipe = tpipe_mod.RGBTextureFullPipeline(
+        config=_port_config(), int8_serving="max_memory", ltm_params={},
+        ltm_cfg=TLTMConfig.tiny(), device="cpu")
+    for pipe, arr in ((jpipe, jax.numpy.asarray), (tpipe, torch.from_numpy)):
+        pipe._flux_loaded = True
+        with pytest.raises(Stop):
+            getattr(pipe, stage)("unused", None, arr(grid),
+                                 {k: arr(v) for k, v in cond.items()}, None)
+    want, got = seen["jax"], seen["torch"]
+    assert callable(want.pop("query_field", None)) == callable(got.pop("query_field", None))
+    assert got == want
+    assert got["low_hbm"] and got["knn_chunk"] == 1024
+    assert ("geometry_size" in got) == (stage == "reproject_stage" and view > 32)
 
 
 @pytest.fixture(scope="module")

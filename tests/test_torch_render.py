@@ -258,17 +258,53 @@ def test_grid_strip_permutations_match_jax():
         np.asarray(jcond.grid_to_views(jnp.asarray(grid))))
 
 
-@pytest.mark.parametrize("kwargs", [
-    {"render_z_depth": True}, {"supersample": 2}, {"v_attr": torch.zeros(3, 2)},
-])
-def test_unported_render_options_raise(kwargs):
-    mesh = tmesh.Mesh(torch.rand(3, 3), torch.tensor([[0, 1, 2]]))
-    c2ws, intr = tcond.condition_cameras(device="cpu")
-    with pytest.raises(NotImplementedError):
-        tcond.render_views(mesh, c2ws, intr, (8, 8), **kwargs)
-    # the options' off values and the memory knob are accepted
-    tcond.render_views(mesh, c2ws, intr, (8, 8), supersample=1, pixel_tile=64,
-                       render_uv=False)
+RENDER_FLAGS = ("world_normal", "camera_normal", "world_position", "z_depth",
+                "camera_position", "distance", "ray_direction",
+                "cos_ray_normal", "v_attr", "uv")
+
+
+@pytest.fixture(scope="module")
+def all_buffers(sphere):
+    """Every ``render_views`` buffer of the sphere in both packages, plain
+    (ortho) and 2x2 supersampled (perspective), with a per-vertex
+    attribute."""
+    from unitex_tpu.render.renderer import render_views as jrender
+
+    v, host = sphere
+    jm = jmesh.Mesh(jnp.asarray(v), jnp.asarray(host.faces),
+                    uv=jnp.asarray(host.uv), faces_uv=jnp.asarray(host.faces_uv))
+    tm = tmesh.Mesh(_t(v), _t(host.faces, torch.int64), uv=_t(host.uv),
+                    faces_uv=_t(host.faces_uv, torch.int64))
+    attr = np.random.default_rng(9).uniform(size=(v.shape[0], 2)).astype(np.float32)
+    c2ws, intr = jcond.condition_cameras()
+    kw = {f"render_{k}": True for k in RENDER_FLAGS}
+    out = {}
+    for name, extra in (("plain", {}),
+                        ("supersample", {"supersample": 2, "perspective": True})):
+        want = jrender(jm, c2ws, intr, (24, 32), v_attr=jnp.asarray(attr),
+                       **kw, **extra)
+        got = tcond.render_views(tm, _t(c2ws), _t(intr), (24, 32),
+                                 v_attr=_t(attr), **kw, **extra)
+        out[name] = (got, want)
+    return out
+
+
+@pytest.mark.parametrize("mode", ["plain", "supersample"])
+@pytest.mark.parametrize("key", RENDER_FLAGS + ("alpha",))
+def test_render_views_buffers_match_jax(all_buffers, mode, key):
+    """Each buffer where the pixel's triangle agrees (every sample of it,
+    supersampled: the top-left triangle is kept, so a pixel is compared
+    where the alpha, the samples' mean coverage, agrees too)."""
+    got, want = all_buffers[mode]
+    agree = got.tri.numpy() == np.asarray(want.tri)
+    agree &= (got.alpha.numpy() == np.asarray(want.alpha))[..., 0]
+    assert agree.mean() >= TRI_AGREE and got.mask.numpy().mean() > 0.2
+    g, w = getattr(got, key).numpy(), np.asarray(getattr(want, key))
+    assert g.shape == w.shape and g.shape[:3] == (6, 24, 32)
+    np.testing.assert_allclose(g[agree], w[agree], atol=2e-5)
+    if mode == "supersample":
+        # a 2x2 box mean: coverage takes the values 0, 1/4, ... 1
+        assert set(np.unique(got.alpha.numpy()) * 4) <= {0.0, 1.0, 2.0, 3.0, 4.0}
 
 
 @pytest.mark.parametrize("row_chunk", [16, 48])

@@ -1,4 +1,7 @@
-"""ctypes wrapper around meshproc.cpp (lazy g++ build, cached .so)."""
+"""ctypes wrapper around meshproc.cpp (lazy g++ build, cached .so).
+
+The library is built into the git-ignored ``unitex_torch/_build/``, which
+is not a package, so walking the package's modules never meets it."""
 
 from __future__ import annotations
 
@@ -12,7 +15,7 @@ import numpy as np
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_HERE, "meshproc.cpp")
-_SO = os.path.join(_HERE, "_meshproc.so")
+_SO = os.path.join(os.path.dirname(_HERE), "_build", "_meshproc.so")
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -27,6 +30,7 @@ def _build() -> Optional[ctypes.CDLL]:
     # that build at once never load a half-written library
     tmp = f"{_SO}.{os.getpid()}.tmp"
     try:
+        os.makedirs(os.path.dirname(_SO), exist_ok=True)
         subprocess.run(
             ["g++", "-O3", "-march=native", "-shared", "-fPIC", "-std=c++17",
              _SRC, "-o", tmp],

@@ -32,8 +32,10 @@ attached at run time instead of merged; ``attn_qk8`` set on
 ``pipe.flux_cfg`` (the int8-QK attention kernel B3); and the serving-tree
 cache (``params_cache``, optionally int4-packed with
 ``params_cache_int4``), whose files either package reads.
-Deferred (``NotImplementedError``): TSD-SR super-resolution, ``async_io``,
-the LTM pipeline and multi-GPU placement.
+``RGBTextureFullPipeline`` bakes with the learned LTM fill
+(``ltm_params``, such as the repo's trained ``ltm_params.npz``; step_2_2).
+Deferred (``NotImplementedError``): TSD-SR super-resolution, ``async_io``
+and multi-GPU placement.
 """
 
 from __future__ import annotations
@@ -79,6 +81,7 @@ from .render.renderer_inverse import bake_texture
 from .render.video import export_orbit_video
 from .utils.image_io import save_image, to_uint8_device
 from .utils.param_cache import load_meta, load_params, save_params
+from .utils.params import tree_to
 from .utils.precision import exact_f32, resolve_device
 from .utils.timer import CPUTimer
 
@@ -563,6 +566,50 @@ class RGBTextureFullPipelineBase:
         del params
         return strip_delight
 
+    def _bake(self, mesh: Mesh, views: torch.Tensor,
+              condition: Dict[str, torch.Tensor], **bake_kwargs):
+        """``bake_texture(method="reproject")`` of the views with the
+        config's bake settings; with ``int8_serving="max_memory"`` and FLUX
+        weights held, the JAX package's low-memory bake (views pasted one
+        at a time in row slabs, a smaller KNN chunk)."""
+        bcfg = self.config.bake
+        if self._max_memory_bake():
+            bake_kwargs.update(low_hbm=True, knn_chunk=1024)
+        return bake_texture(
+            mesh, views, condition["c2ws"], condition["intrinsics"],
+            uv_size=bcfg.uv_size,
+            perspective=self.config.camera.perspective,
+            method="reproject",
+            grad_norm_threshold=bcfg.grad_norm_threshold,
+            ray_normal_angle_threshold=bcfg.ray_normal_angle_threshold,
+            depth_eps=bcfg.depth_eps,
+            **bake_kwargs,
+        )
+
+    def _max_memory_bake(self) -> bool:
+        return self.int8_serving == "max_memory" and self._flux_loaded
+
+    def _views(self, mv_rgb_grid: torch.Tensor) -> torch.Tensor:
+        cam = self.config.camera
+        return grid_to_views(mv_rgb_grid.float(), cam.rows, cam.cols)
+
+    def _write_textured(self, save_dir: str, texture: torch.Tensor,
+                        processed_mesh: HostMesh, save_uv: bool) -> str:
+        """The GLB of the baked texture, and ``completed_uv.png`` with
+        ``save_uv``; keeps the f32 texture as ``last_texture`` for callers
+        that check it."""
+        self.last_texture = texture
+        tex_u8 = _host(to_uint8_device(texture))
+        if save_uv:
+            save_image(os.path.join(save_dir, "completed_uv.png"), tex_u8)
+        glb_path = os.path.join(save_dir, "textured_mesh.glb")
+        save_mesh(glb_path, HostMesh(
+            processed_mesh.vertices, processed_mesh.faces,
+            uv=processed_mesh.uv, faces_uv=processed_mesh.faces_uv,
+            texture=tex_u8,
+        ))
+        return glb_path
+
     @CPUTimer("reproject_and_query_field")
     def reproject_stage(
         self,
@@ -572,34 +619,45 @@ class RGBTextureFullPipelineBase:
         condition: Dict[str, torch.Tensor],
         processed_mesh: HostMesh,
     ) -> str:
-        bcfg = self.config.bake
-        cam = self.config.camera
-        views = grid_to_views(mv_rgb_grid.float(), cam.rows, cam.cols)
-        out = bake_texture(
-            mesh, views, condition["c2ws"], condition["intrinsics"],
-            uv_size=bcfg.uv_size,
-            perspective=cam.perspective,
-            method="reproject",
-            grad_norm_threshold=bcfg.grad_norm_threshold,
-            ray_normal_angle_threshold=bcfg.ray_normal_angle_threshold,
-            depth_eps=bcfg.depth_eps,
-        )
-        # the f32 texture of the last bake, for callers that check it
-        self.last_texture = out["texture"]
-        tex_u8 = _host(to_uint8_device(out["texture"]))
+        views = self._views(mv_rgb_grid)
+        size = self.config.camera.view_size
+        extra = {}
+        if self._max_memory_bake() and views.shape[1] > size:
+            # views larger than the camera's (super-resolved): the geometry
+            # at the camera's size, the colour sampled at the views'
+            extra = dict(low_hbm_row_chunk=64, geometry_size=(size, size))
+        out = self._bake(mesh, views, condition, **extra)
         if self.save_artifacts:
             save_image(os.path.join(save_dir, "visable_uv_mask.png"),
                        _host(to_uint8_device(out["mask_visible_any"].float())))
             save_image(os.path.join(save_dir, "valid_uv_mask.png"),
                        _host(to_uint8_device(out["mask_2d"].float())))
-            save_image(os.path.join(save_dir, "completed_uv.png"), tex_u8)
-        glb_path = os.path.join(save_dir, "textured_mesh.glb")
-        save_mesh(glb_path, HostMesh(
-            processed_mesh.vertices, processed_mesh.faces,
-            uv=processed_mesh.uv, faces_uv=processed_mesh.faces_uv,
-            texture=tex_u8,
-        ))
-        return glb_path
+        return self._write_textured(save_dir, out["texture"], processed_mesh,
+                                    save_uv=self.save_artifacts)
+
+    def _run(self, save_dir: str, image_path: str, mesh_path: str, bake_stage,
+             clear_cache: bool = False, export_video: bool = False,
+             preprocessed=None) -> Tuple[str, str]:
+        """One job through step_1_1 and ``bake_stage``; returns the matted
+        reference image's and the GLB's paths under ``save_dir``."""
+        cache = os.path.join(save_dir, "cache")
+        os.makedirs(cache, exist_ok=True)
+        if preprocessed is None:
+            preprocessed = self.preprocess_job(save_dir, image_path, mesh_path)
+        processed_mesh, ref_image = preprocessed
+        condition = self.render_geometry_images_stage(cache, processed_mesh)
+        mv_rgb = self.infer_mv_stage(cache, ref_image, condition)
+        glb_path = bake_stage(cache, condition["mesh"], mv_rgb, condition,
+                              processed_mesh)
+        if export_video:
+            self.export_video_stage(cache, glb_path, "textured_mesh.mp4")
+        rembg_out = os.path.join(save_dir, "rembg_image.png")
+        glb_out = os.path.join(save_dir, "textured_mesh.glb")
+        shutil.copy(os.path.join(cache, "rembg_image.png"), rembg_out)
+        shutil.copy(glb_path, glb_out)
+        if clear_cache:
+            shutil.rmtree(cache)
+        return rembg_out, glb_out
 
     @CPUTimer("export_video")
     def export_video_stage(self, save_dir: str, glb_path: str, name: str) -> str:
@@ -616,6 +674,74 @@ class RGBTextureFullPipelineBase:
         )
 
 
+class RGBTextureFullPipeline(RGBTextureFullPipelineBase):
+    """The LTM-enabled pipeline: step_1_1, then the bake whose invisible
+    texels the texture-function VAE (``models/ltm.py``) fills instead of
+    the KNN (step_2_2); without ``ltm_params`` the plain bake."""
+
+    def __init__(self, *args, ltm_params=None, ltm_cfg=None,
+                 ltm_auto: Optional[float] = 0.93, **kwargs):
+        """``ltm_params``: a tree, or the path of a trained checkpoint (such
+        as the repo's ``ltm_params.npz``, whose meta holds its
+        ``LTMConfig``), placed on the pipeline's device.  ``ltm_auto``: the
+        per-asset fill policy: a chart at least this fraction visible takes
+        the k=8 inverse-distance fill and 50 relaxation passes instead of
+        the field; ``None`` always takes the field."""
+        super().__init__(*args, **kwargs)
+        self.ltm_auto = ltm_auto
+        if isinstance(ltm_params, str):
+            from .models.ltm import LTMConfig
+
+            meta = load_meta(ltm_params) or {}
+            if ltm_cfg is None:
+                ltm_cfg = LTMConfig(**meta.get("config", {}))
+            ltm_params = load_params(ltm_params)
+        if ltm_params is not None:
+            ltm_params = tree_to(ltm_params, self.device)
+        self.ltm_params = ltm_params
+        self.ltm_cfg = ltm_cfg
+
+    @CPUTimer("reproject_and_query_field")
+    def reproject_with_field(
+        self, save_dir: str, mesh: Mesh, mv_rgb_grid: torch.Tensor,
+        condition: Dict[str, torch.Tensor], processed_mesh: HostMesh,
+    ) -> str:
+        """step_2_2: the bake with the LTM ``query_field`` as the fill of the
+        invisible texels, the gradient filter on, and the k=8 + relaxation
+        fill for charts at least ``ltm_auto`` visible."""
+        from .models.ltm import make_query_field
+
+        if self.ltm_params is None:
+            raise ValueError("step_2_2 needs LTM weights (ltm_params)")
+        out = self._bake(
+            mesh, self._views(mv_rgb_grid), condition,
+            filt_gradient_points=True,
+            query_field=make_query_field(self.ltm_params, self.ltm_cfg),
+            query_field_auto=self.ltm_auto,
+            fill_k=8, fill_relax_iters=50,
+        )
+        # the fill the bake took and the chart's visible fraction, for
+        # callers that report them
+        mask_2d = out["mask_2d"]
+        self.last_fill = {"branch": out["fill"], "visible_fraction": float(
+            (out["mask_visible_any"] & mask_2d).sum()) / max(1, int(mask_2d.sum()))}
+        return self._write_textured(save_dir, out["texture"], processed_mesh,
+                                    save_uv=True)
+
+    def __call__(
+        self,
+        save_dir: str,
+        image_path: str,
+        mesh_path: str,
+        clear_cache: bool = False,
+        preprocessed=None,
+    ) -> Tuple[str, str]:
+        stage = (self.reproject_with_field if self.ltm_params is not None
+                 else self.reproject_stage)
+        return self._run(save_dir, image_path, mesh_path, stage, clear_cache,
+                         preprocessed=preprocessed)
+
+
 class CustomRGBTextureFullPipeline(RGBTextureFullPipelineBase):
     """The shipped entry point: step_1_1 + step_2_ablition (no-LTM bake)."""
 
@@ -628,21 +754,5 @@ class CustomRGBTextureFullPipeline(RGBTextureFullPipelineBase):
         export_video: bool = False,
         preprocessed=None,
     ) -> Tuple[str, str]:
-        cache = os.path.join(save_dir, "cache")
-        os.makedirs(cache, exist_ok=True)
-        if preprocessed is None:
-            preprocessed = self.preprocess_job(save_dir, image_path, mesh_path)
-        processed_mesh, ref_image = preprocessed
-        condition = self.render_geometry_images_stage(cache, processed_mesh)
-        mv_rgb = self.infer_mv_stage(cache, ref_image, condition)
-        glb_path = self.reproject_stage(
-            cache, condition["mesh"], mv_rgb, condition, processed_mesh)
-        if export_video:
-            self.export_video_stage(cache, glb_path, "textured_mesh.mp4")
-        rembg_out = os.path.join(save_dir, "rembg_image.png")
-        glb_out = os.path.join(save_dir, "textured_mesh.glb")
-        shutil.copy(os.path.join(cache, "rembg_image.png"), rembg_out)
-        shutil.copy(glb_path, glb_out)
-        if clear_cache:
-            shutil.rmtree(cache)
-        return rembg_out, glb_out
+        return self._run(save_dir, image_path, mesh_path, self.reproject_stage,
+                         clear_cache, export_video, preprocessed)

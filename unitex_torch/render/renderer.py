@@ -1,15 +1,13 @@
-"""Forward multi-view renderer (port of the parts of
-unitex_tpu/render/renderer.py on the texturing path).
+"""Forward multi-view renderer (port of the ``render_views`` of
+unitex_tpu/render/renderer.py).
 
 Views are rendered one after another (a Python loop over cameras, the
 JAX package's ``lax.map``).  Output conventions match the JAX package:
-normals/positions lerped to -1 background, alpha in [0, 1], no
-antialiasing.  Ported: the buffers the geometry conditioning reads (mask,
-alpha, tri, bary, world normal, world position), the UV buffers the
-training data renders (uv, and a texture sampled through it as
-``map_attr``), and ``row_chunk`` (the per-pixel tail in row slabs, which
-bounds its temporaries); the other render flags and supersampling raise
-``NotImplementedError``.
+normals/positions/directions lerped to -1 background, depths and distances
+zero there, alpha in [0, 1], no antialiasing unless ``supersample`` > 1
+(N×N samples a pixel, float buffers box-filtered back down, integer and
+bool buffers taking the top-left sample).  ``row_chunk`` computes the
+per-pixel tail in row slabs (a memory bound; the same buffers).
 """
 
 from __future__ import annotations
@@ -19,7 +17,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..camera.conversion import get_mvp, transform_points_mat4
+from ..camera.conversion import c2w_to_w2c, get_mvp, transform_points_mat4
 from ..geometry.mesh import Mesh, compute_vertex_normals
 from ..ops.grid_sample import grid_sample
 from ..ops.rasterize import Rast, interpolate, rasterize
@@ -33,27 +31,37 @@ class RenderOutputs:
     mask: torch.Tensor
     alpha: torch.Tensor
     tri: torch.Tensor
-    bary: Optional[torch.Tensor] = None
     world_normal: Optional[torch.Tensor] = None
+    camera_normal: Optional[torch.Tensor] = None
     world_position: Optional[torch.Tensor] = None
+    z_depth: Optional[torch.Tensor] = None
+    camera_position: Optional[torch.Tensor] = None
+    distance: Optional[torch.Tensor] = None
+    ray_direction: Optional[torch.Tensor] = None
+    cos_ray_normal: Optional[torch.Tensor] = None
+    v_attr: Optional[torch.Tensor] = None
     uv: Optional[torch.Tensor] = None
     map_attr: Optional[torch.Tensor] = None
-
-
-# render_views options of the JAX package that the port does not take,
-# with the value that leaves them off; ``pixel_tile`` only bounds memory
-# there and is accepted and ignored
-_UNPORTED = {
-    "v_attr": None, "render_camera_normal": False,
-    "render_z_depth": False, "render_camera_position": False,
-    "render_distance": False, "render_ray_direction": False,
-    "render_cos_ray_normal": False, "render_v_attr": False,
-    "supersample": 1,
-}
+    bary: Optional[torch.Tensor] = None
 
 
 def _lerp_bg(value, alpha, bg):
     return value * alpha + bg * (1.0 - alpha)
+
+
+def _unit(x):
+    return x / torch.clamp(torch.linalg.norm(x, dim=-1, keepdim=True), min=1e-12)
+
+
+def _downsample(x: Optional[torch.Tensor], s: int) -> Optional[torch.Tensor]:
+    """[M, H·s, W·s, ...] -> [M, H, W, ...]: the s×s box mean of a float
+    buffer, the top-left sample of any other."""
+    if x is None:
+        return None
+    if not x.is_floating_point():
+        return x[:, ::s, ::s]
+    M, Hs, Ws = x.shape[:3]
+    return x.reshape(M, Hs // s, s, Ws // s, s, *x.shape[3:]).mean(dim=(2, 4))
 
 
 @exact_f32()
@@ -63,54 +71,101 @@ def render_views(
     intrinsics: torch.Tensor,
     render_size: Tuple[int, int],
     perspective: bool = False,
+    v_attr: Optional[torch.Tensor] = None,
     map_attr: Optional[torch.Tensor] = None,
     render_world_normal: bool = False,
+    render_camera_normal: bool = False,
     render_world_position: bool = False,
+    render_z_depth: bool = False,
+    render_camera_position: bool = False,
+    render_distance: bool = False,
+    render_ray_direction: bool = False,
+    render_cos_ray_normal: bool = False,
+    render_v_attr: bool = False,
     render_uv: bool = False,
     render_map_attr: bool = False,
     face_chunk: int = 512,
     pixel_tile: int = 0,
-    tile_batch: int = 64,
+    supersample: int = 1,
     row_chunk: Optional[int] = None,
-    **unported,
+    tile_batch: int = 64,
 ) -> RenderOutputs:
     """Render a mesh from M cameras.
 
     mesh: Mesh; c2ws [M, 4, 4]; intrinsics [3, 3] or [M, 3, 3]
-    (normalized); render_size (H, W).  ``map_attr`` [Ht, Wt, C] is a
-    texture stored image-style (row 0 = v = 1), sampled at each pixel's
-    interpolated UV with border padding when ``render_map_attr`` is set.
-    ``row_chunk``: compute the per-pixel buffers in slabs of that many rows
-    when it divides H (a memory bound; the same result)."""
-    unknown = sorted(set(unported) - set(_UNPORTED))
-    if unknown:
-        raise TypeError(f"render_views got unexpected options {unknown}")
-    on = sorted(k for k, v in unported.items()
-                if ((v is not None) if _UNPORTED[k] is None
-                    else v != _UNPORTED[k]))
-    if on:
-        raise NotImplementedError(f"render_views options not ported: {on}")
+    (normalized); render_size (H, W).  ``v_attr`` [V, C] is a per-vertex
+    attribute, interpolated when ``render_v_attr`` is set.  ``map_attr``
+    [Ht, Wt, C] is a texture stored image-style (row 0 = v = 1), sampled
+    at each pixel's interpolated UV with border padding when
+    ``render_map_attr`` is set.  ``pixel_tile`` only bounds memory in the
+    JAX package and is accepted and ignored."""
+    del pixel_tile
+    flags = dict(
+        perspective=perspective, v_attr=v_attr, map_attr=map_attr,
+        render_world_normal=render_world_normal,
+        render_camera_normal=render_camera_normal,
+        render_world_position=render_world_position,
+        render_z_depth=render_z_depth,
+        render_camera_position=render_camera_position,
+        render_distance=render_distance,
+        render_ray_direction=render_ray_direction,
+        render_cos_ray_normal=render_cos_ray_normal,
+        render_v_attr=render_v_attr, render_uv=render_uv,
+        render_map_attr=render_map_attr, face_chunk=face_chunk,
+        row_chunk=row_chunk, tile_batch=tile_batch)
+    if supersample > 1:
+        s = supersample
+        hi = render_views(mesh, c2ws, intrinsics,
+                          (render_size[0] * s, render_size[1] * s), **flags)
+        return RenderOutputs(**{f.name: _downsample(getattr(hi, f.name), s)
+                                for f in dataclasses.fields(hi)})
     H, W = render_size
     M = c2ws.shape[0]
     if intrinsics.dim() == 2:
         intrinsics = intrinsics.expand(M, 3, 3)
     mvp = get_mvp(c2ws, intrinsics, perspective=perspective)
+    w2cs = c2w_to_w2c(c2ws)
     v = mesh.vertices
     faces = mesh.faces.long()
-    v_nrm = compute_vertex_normals(v, faces) if render_world_normal else None
+    v_nrm = None
+    if render_world_normal or render_camera_normal or render_cos_ray_normal:
+        v_nrm = compute_vertex_normals(v, faces)
+    need_cam = (render_camera_position or render_distance
+                or render_ray_direction or render_cos_ray_normal)
 
-    def pixel_tail(rast):
+    def pixel_tail(rast, clip, c2w_i, w2c_i):
         mask = rast.mask[..., None]
         alpha = mask.float()
         out = {"mask": mask, "alpha": alpha, "tri": rast.tri, "bary": rast.bary}
+
+        def interp(attr):
+            return interpolate(attr, rast, faces)
+
         if render_world_normal:
-            wn = interpolate(v_nrm, rast, faces)
-            wn = wn / torch.clamp(torch.linalg.norm(wn, dim=-1, keepdim=True),
-                                  min=1e-12)
-            out["world_normal"] = _lerp_bg(wn, alpha, -1.0)
+            out["world_normal"] = _lerp_bg(_unit(interp(v_nrm)), alpha, -1.0)
+        if render_camera_normal or render_cos_ray_normal:
+            cn = _unit(interp(_unit(v_nrm @ c2w_i[:3, :3])))
+            if render_camera_normal:
+                out["camera_normal"] = _lerp_bg(cn, alpha, -1.0)
         if render_world_position:
-            out["world_position"] = _lerp_bg(interpolate(v, rast, faces),
-                                             alpha, -1.0)
+            out["world_position"] = _lerp_bg(interp(v), alpha, -1.0)
+        if render_z_depth:
+            out["z_depth"] = interp(clip[:, 3:4] if perspective
+                                    else clip[:, 2:3]) * alpha
+        if need_cam:
+            cp = interp(transform_points_mat4(v, w2c_i)[:, :3])
+            if render_camera_position:
+                out["camera_position"] = cp * alpha
+            if render_distance:
+                out["distance"] = torch.linalg.norm(cp, dim=-1, keepdim=True) * alpha
+            rd = _unit(cp)
+            if render_ray_direction:
+                out["ray_direction"] = _lerp_bg(rd, alpha, -1.0)
+            if render_cos_ray_normal:
+                out["cos_ray_normal"] = _lerp_bg(
+                    torch.sum(cn * rd, dim=-1, keepdim=True), alpha, -1.0)
+        if render_v_attr and v_attr is not None:
+            out["v_attr"] = interp(v_attr) * alpha
         if (render_uv or render_map_attr) and mesh.uv is not None:
             uv_ndc = mesh.uv * 2.0 - 1.0
             corners = uv_ndc[mesh.faces_uv.long()[torch.clamp(rast.tri, min=0)]]
@@ -132,10 +187,11 @@ def render_views(
         rast = rasterize(clip, faces, (H, W), face_chunk=face_chunk,
                          tile_batch=tile_batch)
         if not slabs:
-            outs.append(pixel_tail(rast))
+            outs.append(pixel_tail(rast, clip, c2ws[i], w2cs[i]))
             continue
         parts = [pixel_tail(Rast(*(x[r:r + row_chunk] for x in
-                                   (rast.bary, rast.z, rast.tri))))
+                                   (rast.bary, rast.z, rast.tri))),
+                            clip, c2ws[i], w2cs[i])
                  for r in range(0, H, row_chunk)]
         outs.append({k: torch.cat([p[k] for p in parts]) for k in parts[0]})
     return RenderOutputs(**{

@@ -37,6 +37,15 @@ def params_from_jax(tree: Any, device="cuda", dtype: torch.dtype | None = None):
     return t.to(device)
 
 
+def tree_to(tree: Any, device):
+    """A nested dict/list of tensors, each moved to ``device``."""
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_to(v, device) for v in tree)
+    return tree.to(device)
+
+
 def linear_spec(d_in: int, d_out: int, bias: bool = True, lead=()) -> Spec:
     """``linear_init`` of the JAX package: uniform(±1/sqrt(d_in)) kernel,
     zero bias; ``lead`` prepends stacked-layer axes."""
