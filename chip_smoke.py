@@ -25,7 +25,11 @@ non-zero:
    max|ref|) against its plain version on the same int8 inputs, its line
    also giving its share of the bound, its time over B1's in the same run,
    the time of ``quant_rows`` of q and k and of both with B3 (what
-   ``attention(qk8=True)`` launches) over B1's, and its ptxas report; and one
+   ``attention(qk8=True)`` launches) over B1's, and its ptxas report; B1
+   at D = 64 (its second instantiation, the SD3 transformer's heads) at
+   [8, 1178, 24, 64] and [6, 1178, 24, 64] (the TSD-SR grid's tile
+   calls), held to the same tolerances, its bound the larger of the
+   tensor-core, SFU (exp) and memory times; and one
    W8A8 projection ([13312, 3072] @ [3072, 12288], ``torch._int_mm``)
    timed beside the same product in bf16 (context, not a gate);
 4. serving path: ``CustomRGBTextureFullPipeline(random_weights=True)`` at
@@ -48,20 +52,34 @@ non-zero:
    .safetensors``; ``load_flux_transformer``, ``load_vae`` and
    ``load_lora_safetensors`` read them back onto the card, and every leaf
    must be ``torch.equal`` to the resident one; then the bf16 pipeline and
-   the loaded copy are freed;
+   the loaded copy are freed, and a random SD3-medium transformer (bf16)
+   and SD3 VAE (f32), seeded, are written under the diffusers names into
+   ``<tmp>/sd3/{transformer,vae}`` and read back leaf for leaf;
 7. CLI: ``unitex_torch.run.main`` in process on the icosphere job with
-   ``--pretrain-models <tmp> --fast-steps 8`` and otherwise the CLI's
-   defaults (``DEFAULT_CONFIG``'s 28 steps, video export on): exactly
-   57 x 20 x 2 = 2280 launches of B1 (8 of the 28 steps reuse the
-   velocity) and none of B3, ``rembg_image.png`` and a GLB whose texture,
-   read back with ``load_mesh``, is a finite 2048² image, a video of 120
-   frames of 1024², the peak under 80 GB;
+   ``--pretrain-models <tmp> --fast-steps 8 --super-resolution`` and
+   otherwise the CLI's defaults (``DEFAULT_CONFIG``'s 28 steps, video
+   export on): exactly 57 x 20 x 2 = 2280 launches of B1 (8 of the 28
+   steps reuse the velocity), 16 x 24 = 384 of B1 at D = 64 (TSD-SR: 126
+   latent tiles of the 2x3 grid in 16 transformer calls of SD3-medium's
+   24 layers) and none of B3, ``mv_rgb_lr.png`` (1024 x 1536) and
+   ``mv_rgb.png`` (4096 x 6144), ``rembg_image.png`` and a GLB whose
+   texture, read back with ``load_mesh``, is a finite 2048² image, a
+   video of 120 frames of 1024², the peak under 80 GB; its ``[sr]`` line
+   splits the SR stage into upscale, encode, transformer, decode and
+   colour fix and gives the bake's seconds on the 2048² views;
 8. int8 serving path from the checkpoint:
    ``CustomRGBTextureFullPipeline(int8_serving=True, pretrain_models=<tmp>)``
    (W8A8 FLUX.1-dev, each bf16 kernel dropped as it is quantized) with
    ``attn_qk8=True`` set on its ``flux_cfg`` answers the icosphere job on
    the 4-step config: a GLB and a finite 2048² texture, 456 launches of B3
-   and none of B1, the peak under 80 GB.  ``<tmp>`` is then deleted;
+   and none of B1, the peak under 80 GB;
+11. SR options (after phase 8, from ``<tmp>/sd3``): one 512² view
+   through ``TSDSRPipeline`` in bf16 and with ``TSDSRConfig(
+   int8_serving=True, host_params=True, stage_pack_int4=True)``, each a
+   finite 2048² image with 4 x 24 = 96 launches of B1 at D = 64, the
+   staging seconds and the staged tree's bytes printed, and the PSNR
+   between the two (random weights: printed, not gated).  ``<tmp>`` is
+   then deleted;
 9. LTM path (run between phases 5 and 6, on the serving phase's resident
    FLUX trees, so FLUX.1-dev is initialized once):
    ``RGBTextureFullPipeline(ltm_params=<repo>/ltm_params.npz)`` (the
@@ -102,6 +120,7 @@ import glob
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -135,6 +154,11 @@ PEAK_LIMIT = 80e9        # bytes: one H100
 
 KERNEL_FUNCTIONS = ("flash_fwd_kernel", "flash_bwd_dkv_kernel",
                     "flash_bwd_dq_kernel", "flash_qk8_kernel")
+# B1 at the SD3 transformer's head width: 24 heads of 64, S = 32² latent
+# patches + 154 prompt tokens; batches of 8 latent tiles and the 2x3 grid's
+# last chunk of 6
+SD3_H, SD3_D, SD3_S = 24, 64, 32 * 32 + 154
+SD3_BATCHES = (8, 6)
 
 
 def ptxas_usage(log_path: str):
@@ -142,12 +166,16 @@ def ptxas_usage(log_path: str):
     loads") for each kernel that ptxas reports in ``log_path`` (nvcc's
     ``-Xptxas -v`` output), with "; wgmma serialized (C7512)" appended
     where ptxas serialized the kernel's wgmma products.  A kernel of
-    ``KERNEL_FUNCTIONS`` is named by that name, any other by its line."""
+    ``KERNEL_FUNCTIONS`` is named by that name, an instantiation of a
+    template on an int by the name and the int (``flash_fwd_kernel<64>``),
+    any other kernel by its line."""
     with open(log_path) as f:
         lines = f.read().splitlines()
 
     def kernel(ln):
-        return next((n for n in KERNEL_FUNCTIONS if n in ln), None)
+        name = next((n for n in KERNEL_FUNCTIONS if n in ln), None)
+        inst = name and re.search(rf"{name}ILi(\d+)E", ln)
+        return f"{name}<{inst.group(1)}>" if inst else name
 
     serialized = {kernel(ln) for ln in lines if "C7512" in ln}
     out, fn, spill = [], None, ""
@@ -249,6 +277,72 @@ def check_flash_attention(attn, torch, ptxas: str):
         del q, k, v, out, lse
     record["max_abs_err"] = worst
     return record, ms_at
+
+
+def check_flash_attention_d64(attn, torch, ptxas: str) -> dict:
+    """B1 at D = 64 (the SD3 transformer's attention in the TSD-SR stage)
+    against ``attention_reference`` (f32 on the same bf16 inputs) at
+    [B, 1178, 24, 64] for each batch of ``SD3_BATCHES``, with the same
+    tolerances as at D = 128.  Its bound is the larger of the tensor-core
+    time of 4·B·H·S²·D operations, the SFU time of B·H·S² exponentials and
+    the memory time.  Returns its record (the first batch's times)."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    H, D, S = SD3_H, SD3_D, SD3_S
+    record = None
+    worst = 0.0
+    for B in SD3_BATCHES:
+        q, k, v = (torch.randn((B, S, H, D), generator=gen, device="cuda")
+                   .to(torch.bfloat16) for _ in range(3))
+        before = (attn.launches, attn.launches_d64)
+        out, lse = attn.flash_attention(q, k, v)
+        torch.cuda.synchronize()
+        if (attn.launches, attn.launches_d64) != (before[0], before[1] + 1):
+            raise AssertionError("flash_attention at D = 64 did not count one "
+                                 "launch of its D = 64 instantiation")
+        ro, rl = attn.attention_reference(q.float(), k.float(), v.float())
+        err_o = (out.float() - ro).abs().max().item()
+        err_l = (lse - rl).abs().max().item()
+        ref_max = ro.abs().max().item()
+        out_tol = min(OUT_TOL, OUT_REL * ref_max)
+        if not (err_o <= out_tol and err_l <= LSE_TOL):
+            raise AssertionError(
+                f"flash_attention D=64 B={B}: max|dout|={err_o} (tol "
+                f"{out_tol}), max|dlse|={err_l} (tol {LSE_TOL})")
+        worst = max(worst, err_o)
+        ms = cuda_ms(lambda: attn.flash_attention(q, k, v), 100)
+        plain_ms = cuda_ms(
+            lambda: attn.attention_reference(q.float(), k.float(), v.float()), 5)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), 100)
+        flops = 4 * B * H * S * S * D
+        t_ops = max(flops / PEAK_BF16_FLOPS, B * H * S * S / SFU_EXP_RATE)
+        nbytes = 4 * B * S * H * D * 2 + B * H * S * 4
+        bound_ms = max(t_ops, nbytes / PEAK_BYTES) * 1e3
+        print(f"[kernels] flash_attn_fwd D=64 [{B}, {S}, {H}, {D}]: ms={ms:.4f} "
+              f"plain_ms={plain_ms:.3f} library_ms={lib_ms:.4f} bound_ms="
+              f"{bound_ms:.4f} (tensor cores {flops / PEAK_BF16_FLOPS * 1e3:.4f},"
+              f" exp on the SFUs {B * H * S * S / SFU_EXP_RATE * 1e3:.4f}, "
+              f"memory {nbytes / PEAK_BYTES * 1e3:.4f}; {flops / ms / 1e9:.1f} "
+              f"TFLOP/s, {bound_ms / ms:.1%} of the bound, {ms / lib_ms:.3f}x "
+              f"the library's time) max|dout|={err_o:.3e} (tol {out_tol:.3e}, "
+              f"max|ref|={ref_max:.3e}) max|dlse|={err_l:.3e}; ptxas: {ptxas}",
+              flush=True)
+        if record is None:
+            record = {
+                "name": "flash_attn_fwd_d64", "route": "cuda",
+                "source": "unitex_torch/csrc/flash_attn_fwd.cu",
+                "replaces": "unitex_tpu/ops/attention.py:49",
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": "operations" if t_ops >= nbytes / PEAK_BYTES
+                else "bytes",
+                "library_ms": lib_ms,
+            }
+        del q, k, v, out, lse, ro, rl, qt, kt, vt
+        torch.cuda.empty_cache()
+    record["max_abs_err"] = worst
+    return record
 
 
 def check_flash_backward(attn, torch, ptxas: dict) -> list:
@@ -553,21 +647,25 @@ _HF_EMBED = {"in": "linear_1", "out": "linear_2"}
 _HF_FF = {"in": "net.0.proj", "out": "net.2"}
 
 
+def _hf_name(path) -> str:
+    """The diffusers module name of a tree path inside a block or at the
+    top of a transformer tree."""
+    parts = []
+    for parent, key in zip(("",) + tuple(path), path):
+        if parent in ("ff", "ff_context"):
+            key = _HF_FF[key]
+        elif parent.endswith("_embed"):
+            key = _HF_EMBED[key]
+        parts.append(_HF_NAMES.get(key, key))
+    return ".".join(parts)
+
+
 def flux_state_dict(params):
     """(diffusers name, tensor in torch's layout) of each leaf of a float
     FLUX tree, the inverse of ``unitex_torch.models.flux.loader``: linear
     kernels [d_in, d_out] -> ``.weight`` [d_out, d_in], stacked blocks ->
     one entry a layer.  The tensors are views of the tree's."""
-    def name(path):
-        parts = []
-        for parent, key in zip(("",) + path, path):
-            if parent in ("ff", "ff_context"):
-                key = _HF_FF[key]
-            elif parent.endswith("_embed"):
-                key = _HF_EMBED[key]
-            parts.append(_HF_NAMES.get(key, key))
-        return ".".join(parts)
-
+    name = _hf_name
     for path, leaf in _named_leaves(params):
         *mod, kind = path.strip("/").split("/")
         if kind == "kernel":
@@ -581,6 +679,37 @@ def flux_state_dict(params):
                 yield f"{_HF_NAMES[mod[0]]}.{i}.{name(tuple(mod[1:]))}.{field}", leaf[i]
         else:
             yield f"{name(tuple(mod))}.{field}", leaf
+
+
+def sd3_state_dict(params, cfg):
+    """(diffusers name, tensor in torch's layout) of each leaf of an SD3
+    tree, the inverse of ``unitex_torch.models.sd3.loader``: the patchify
+    linear [C·ps·ps, d] -> the ``PatchEmbed`` conv [d, C, ps, ps], the
+    position table [pmax, pmax, d] -> [1, pmax², d], the stacked blocks and
+    the final block -> ``transformer_blocks.<i>``."""
+    ps = cfg.patch_size
+    for path, leaf in _named_leaves(params):
+        *mod, kind = path.strip("/").split("/")
+        if mod[0] == "pos_embed":
+            if kind == "pos":
+                yield "pos_embed.pos_embed", leaf.reshape(1, -1, leaf.shape[-1])
+            elif kind == "kernel":
+                yield "pos_embed.proj.weight", leaf.t().reshape(
+                    leaf.shape[-1], cfg.in_channels, ps, ps)
+            else:
+                yield "pos_embed.proj.bias", leaf
+            continue
+        field = "weight" if kind == "kernel" else "bias"
+        if kind == "kernel":
+            leaf = leaf.transpose(-1, -2)
+        if mod[0] == "blocks":
+            for i in range(leaf.shape[0]):
+                yield f"transformer_blocks.{i}.{_hf_name(mod[1:])}.{field}", leaf[i]
+        elif mod[0] == "final_block":
+            yield (f"transformer_blocks.{cfg.num_layers - 1}."
+                   f"{_hf_name(mod[1:])}.{field}"), leaf
+        else:
+            yield f"{_hf_name(mod)}.{field}", leaf
 
 
 def vae_state_dict(vae):
@@ -636,16 +765,42 @@ def write_checkpoint(root: str, params, vae, loras: dict,
     in safetensors shards of at most ``shard_bytes`` (a shard is built
     whole in host memory), ``flux/vae``, and ``<name>_lora.safetensors``
     for each adapter of ``loras``.  Returns the bytes written."""
-    from safetensors.torch import save_file
-
     from unitex_torch.models.flux.lora import save_lora_safetensors
 
-    tdir = os.path.join(root, "flux", "transformer")
-    vdir = os.path.join(root, "flux", "vae")
+    _write_model(os.path.join(root, "flux"), flux_state_dict(params), vae,
+                 shard_bytes)
+    for name, lora in loras.items():
+        save_lora_safetensors(os.path.join(root, f"{name}_lora.safetensors"), lora)
+    return _dir_bytes(root)
+
+
+def write_sd3_checkpoint(root: str, params, vae, cfg,
+                         shard_bytes: float = 5e9) -> int:
+    """The SR stage's part of a checkpoint root: ``sd3/transformer`` in
+    shards of at most ``shard_bytes`` and ``sd3/vae``.  Returns the bytes
+    written under ``root/sd3``."""
+    _write_model(os.path.join(root, "sd3"), sd3_state_dict(params, cfg), vae,
+                 shard_bytes)
+    return _dir_bytes(os.path.join(root, "sd3"))
+
+
+def _dir_bytes(root: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(root) for f in files)
+
+
+def _write_model(root: str, transformer_items, vae, shard_bytes: float) -> None:
+    """``root/transformer`` from (name, tensor) items in safetensors shards
+    of at most ``shard_bytes`` (a shard is built whole in host memory), and
+    ``root/vae`` from a VAE tree."""
+    from safetensors.torch import save_file
+
+    tdir = os.path.join(root, "transformer")
+    vdir = os.path.join(root, "vae")
     os.makedirs(tdir)
     os.makedirs(vdir)
     shard, size, n = {}, 0, 0
-    for name, t in flux_state_dict(params):
+    for name, t in transformer_items:
         nbytes = t.numel() * t.element_size()
         if shard and size + nbytes > shard_bytes:
             save_file(shard, os.path.join(tdir, f"diffusion_pytorch_model-{n:05d}"
@@ -657,10 +812,6 @@ def write_checkpoint(root: str, params, vae, loras: dict,
                                   ".safetensors"))
     save_file({k: t.contiguous().cpu() for k, t in vae_state_dict(vae)},
               os.path.join(vdir, "diffusion_pytorch_model.safetensors"))
-    for name, lora in loras.items():
-        save_lora_safetensors(os.path.join(root, f"{name}_lora.safetensors"), lora)
-    return sum(os.path.getsize(os.path.join(d, f))
-               for d, _, files in os.walk(root) for f in files)
 
 
 def run_checkpoint(torch, pipe, root: str) -> None:
@@ -709,6 +860,70 @@ def run_checkpoint(torch, pipe, root: str) -> None:
         raise AssertionError(f"checkpoint load: peak {peak} bytes")
 
 
+def run_sd3_checkpoint(torch, root: str) -> None:
+    """Random SD3-medium and SD3 VAE trees (seeded, made on the card in
+    bf16 / f32 as the SR stage serves them) written under the diffusers
+    names into ``root/sd3/{transformer,vae}`` and read back with the port's
+    loaders, each leaf equal to the written one."""
+    from unitex_torch.models.flux.loader import load_vae
+    from unitex_torch.models.flux.vae import VAEConfig, init_vae_params
+    from unitex_torch.models.sd3.config import SD3Config
+    from unitex_torch.models.sd3.loader import load_sd3_transformer
+    from unitex_torch.models.sd3.model import init_sd3_params
+
+    cfg, vcfg = SD3Config.sd3_medium(), VAEConfig.sd3()
+    gen = torch.Generator(device="cuda")
+    params = init_sd3_params(gen.manual_seed(10), cfg, device="cuda",
+                             dtype=torch.bfloat16)
+    vae = init_vae_params(gen.manual_seed(11), vcfg, device="cuda")
+    t0 = time.perf_counter()
+    nbytes = write_sd3_checkpoint(root, params, vae, cfg)
+    t_write = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = {
+        "sd3 transformer": (load_sd3_transformer(
+            os.path.join(root, "sd3", "transformer"), cfg, device="cuda",
+            dtype=torch.bfloat16), params),
+        "sd3 vae": (load_vae(os.path.join(root, "sd3", "vae"), vcfg,
+                             device="cuda", dtype=torch.float32), vae),
+    }
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    print(f"[checkpoint] sd3: wrote {nbytes / 1e9:.3f} GB ({nbytes} bytes; "
+          f"transformer {_tree_bytes(params)} bytes in bf16, VAE "
+          f"{_tree_bytes(vae)} bytes in f32) in {t_write:.2f}s; loaded onto "
+          f"the card in {t_load:.2f}s ({nbytes / t_load / 1e9:.2f} GB/s)",
+          flush=True)
+    for what, (got, want) in loaded.items():
+        g, w = dict(_named_leaves(got)), dict(_named_leaves(want))
+        bad = sorted(k for k in set(g) | set(w)
+                     if k not in g or k not in w or not torch.equal(g[k], w[k]))
+        if bad:
+            raise AssertionError(f"checkpoint {what}: {len(bad)} leaves differ "
+                                 f"from the written tree, first {bad[:3]}")
+        print(f"[checkpoint] {what}: {len(w)} leaves read back equal", flush=True)
+
+
+def sr_launches(view_size: int, rows: int, cols: int) -> int:
+    """B1 (D = 64) launches of one TSD-SR pass over a ``rows`` x ``cols``
+    grid of ``view_size``² views at ``TSDSRConfig()``: one a transformer
+    layer for each call on ``tile_batch`` latent tiles."""
+    from unitex_torch.models.flux.vae import VAEConfig
+    from unitex_torch.models.sd3.config import SD3Config
+    from unitex_torch.models.sd3.sr_pipeline import TSDSRConfig, _tile_offsets
+
+    c = TSDSRConfig()
+    ds = VAEConfig.sd3().downscale
+    h, w = (n * view_size * c.upscale // ds for n in (rows, cols))
+    tiles = (len(_tile_offsets(h, c.latent_tile, c.latent_overlap))
+             * len(_tile_offsets(w, c.latent_tile, c.latent_overlap)))
+    return -(-tiles // c.tile_batch) * SD3Config.sd3_medium().num_layers
+
+
+SR_TIMERS = ("sr_upscale", "sr_encode", "sr_transformer", "sr_decode",
+             "sr_color_fix")
+
+
 def run_cli(attn, torch, root: str) -> None:
     """The product CLI in process on the icosphere job, from the
     checkpoint under ``root``."""
@@ -722,6 +937,8 @@ def run_cli(attn, torch, root: str) -> None:
     steps = run.DEFAULT_CONFIG.diffusion.num_inference_steps
     evals = steps - int(make_reuse_mask(steps, FAST_STEPS).sum())
     per_job = 57 * evals * 2
+    cam = run.DEFAULT_CONFIG.camera
+    per_sr = sr_launches(cam.view_size, cam.rows, cam.cols)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as d:
         name, mesh_path, img_path = make_assets(d)[0]
         out = os.path.join(d, "out")
@@ -729,7 +946,8 @@ def run_cli(attn, torch, root: str) -> None:
         before = _counts(attn)
         t0 = time.perf_counter()
         run.main(["--image", img_path, "--mesh", mesh_path, "--out", out,
-                  "--pretrain-models", root, "--fast-steps", str(FAST_STEPS)])
+                  "--pretrain-models", root, "--fast-steps", str(FAST_STEPS),
+                  "--super-resolution"])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         n = tuple(a - b for a, b in zip(_counts(attn), before))
@@ -750,10 +968,27 @@ def run_cli(attn, torch, root: str) -> None:
         videos = [v for v in videos if v.endswith((".mp4", ".gif"))]
         frames = video_frames(videos[0]) if videos else None
         print(f"[cli] job {name} ({steps} steps, {FAST_STEPS} reused, "
-              f"{evals} transformer evaluations a pass): wall {wall:.2f}s stages "
+              f"{evals} transformer evaluations a pass, TSD-SR): wall "
+              f"{wall:.2f}s stages "
               + " ".join(f"{k}={v:.3f}s" for k, v in stages.items())
-              + f" peak {peak / 2**30:.2f} GiB launches B1 {n[0]} B3 {n[3]}",
-              flush=True)
+              + f" peak {peak / 2**30:.2f} GiB launches B1 {n[0]} B1(D=64) "
+              f"{n[4]} B3 {n[3]}", flush=True)
+        grids = {}
+        for art in ("mv_rgb_lr.png", "mv_rgb.png"):
+            path = os.path.join(out, "cache", art)
+            if os.path.exists(path):
+                from PIL import Image
+
+                with Image.open(path) as im:
+                    grids[art] = im.size[::-1]
+        print(f"[sr] whole grid {grids.get('mv_rgb_lr.png')} -> "
+              f"{grids.get('mv_rgb.png')}: super_resolution "
+              f"{rec['super_resolution']:.3f}s = "
+              + " ".join(f"{k[3:]}={rec[k]:.3f}s" for k in SR_TIMERS)
+              + f"; mv_rgb.png written in {rec['save_mv_rgb']:.3f}s"
+              f"; the bake on the {4 * cam.view_size}² views "
+              f"{rec['reproject_and_query_field']:.3f}s; job peak "
+              f"{peak / 2**30:.2f} GiB", flush=True)
         writer = ("PIL (GIF: imageio-ffmpeg does not import)"
                   if videos and videos[0].endswith(".gif") else "imageio-ffmpeg")
         print(f"[video] {videos}: (frames, height, width) {frames}, written by "
@@ -768,9 +1003,13 @@ def run_cli(attn, torch, root: str) -> None:
         if frames != (120, 1024, 1024):
             raise AssertionError(f"cli: video {videos} {frames}, expected 120 "
                                  f"frames of 1024²")
-        if n != (per_job, 0, 0, 0):
-            raise AssertionError(f"cli: launches B1/B2a/B2b/B3 {n}, expected "
-                                 f"({per_job}, 0, 0, 0)")
+        lr = (cam.rows * cam.view_size, cam.cols * cam.view_size)
+        if grids != {"mv_rgb_lr.png": lr,
+                     "mv_rgb.png": (4 * lr[0], 4 * lr[1])}:
+            raise AssertionError(f"cli: SR grids {grids}")
+        if n != (per_job, 0, 0, 0, per_sr):
+            raise AssertionError(f"cli: launches B1/B2a/B2b/B3/B1(D=64) {n}, "
+                                 f"expected ({per_job}, 0, 0, 0, {per_sr})")
         if peak >= PEAK_LIMIT:
             raise AssertionError(f"cli: peak {peak} bytes")
 
@@ -789,14 +1028,14 @@ def video_frames(path: str):
 
 
 def _counts(attn) -> tuple:
-    """Launches of B1, B2a, B2b and B3."""
+    """Launches of B1 (D = 128), B2a, B2b, B3 and B1 at D = 64."""
     return (attn.launches, attn.launches_bwd_dkv, attn.launches_bwd_dq,
-            attn.launches_qk8)
+            attn.launches_qk8, attn.launches_d64)
 
 
 def _reset(attn) -> None:
     attn.launches = attn.launches_bwd_dkv = attn.launches_bwd_dq = 0
-    attn.launches_qk8 = 0
+    attn.launches_qk8 = attn.launches_d64 = 0
 
 
 def _tree_bytes(tree) -> int:
@@ -860,12 +1099,80 @@ def run_int8_path(attn, torch, root: str) -> None:
                 torch.isfinite(tex).all()):
             raise AssertionError(
                 f"int8 job {name}: texture {tuple(tex.shape)} not a finite 2048²")
-        if n != (0, 0, 0, per_job):
+        if n != (0, 0, 0, per_job, 0):
             raise AssertionError(
-                f"int8 job {name}: launches B1/B2a/B2b/B3 {n}, expected "
-                f"(0, 0, 0, {per_job})")
+                f"int8 job {name}: launches B1/B2a/B2b/B3/B1(D=64) {n}, "
+                f"expected (0, 0, 0, {per_job}, 0)")
         if peak >= PEAK_LIMIT:
             raise AssertionError(f"int8 job {name}: peak {peak} bytes")
+
+
+def run_sr_options(attn, torch, root: str) -> None:
+    """TSD-SR's serving options on one 512² view from the SD3 checkpoint
+    under ``root``: int8 serving with the trees kept on the host and the
+    transformer staged int4-packed (``TSDSRConfig(int8_serving=True,
+    host_params=True, stage_pack_int4=True)``) against the bf16 SR of the
+    same view.  Each must give a finite 2048² image and launch B1 at
+    D = 64 as derived; the PSNR between them is printed, not gated (random
+    weights)."""
+    import numpy as np
+
+    from unitex_torch.models.sd3.sr_pipeline import TSDSRConfig, TSDSRPipeline
+    from unitex_torch.utils.timer import CPUTimer
+
+    per_view = sr_launches(512, 1, 1)
+    yy, xx = np.mgrid[:512, :512] / 511.0
+    view = np.stack([xx, yy, 0.5 + 0.4 * np.sin(12 * xx) * np.cos(9 * yy)],
+                    axis=-1).astype(np.float32)
+    outs = {}
+    for name, cfg in (("bf16", TSDSRConfig()),
+                      ("int8 + host_params + stage_pack_int4",
+                       TSDSRConfig(int8_serving=True, host_params=True,
+                                   stage_pack_int4=True))):
+        torch.cuda.reset_peak_memory_stats()
+        before = _counts(attn)
+        t0 = time.perf_counter()
+        pipe = TSDSRPipeline(root, cfg=cfg, device="cuda")
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t0
+        if pipe.transformer_params is None:
+            raise AssertionError(f"sr {name}: no SD3 weights under {root}")
+        t0 = time.perf_counter()
+        out = pipe(view)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = tuple(a - b for a, b in zip(_counts(attn), before))
+        peak = torch.cuda.max_memory_allocated()
+        rec = CPUTimer.records
+        staging = ""
+        if cfg.host_params:
+            staging = (f" staging (int4 pack on the card, host -> device, "
+                       f"unpack) {rec['sr_stage_weights']:.3f}s, staged tree "
+                       f"{_tree_bytes(pipe._packed[1])} bytes (host tree "
+                       f"{_tree_bytes(pipe.transformer_params)} bytes);")
+        print(f"[sr_options] {name}: init {t_init:.2f}s, one 512² view -> "
+              f"{tuple(out.shape)} in {wall:.3f}s ("
+              + " ".join(f"{k[3:]}={rec[k]:.3f}s" for k in SR_TIMERS)
+              + f");{staging} peak {peak / 2**30:.2f} GiB launches B1(D=64) "
+              f"{n[4]}", flush=True)
+        if tuple(out.shape) != (2048, 2048, 3) or not bool(
+                torch.isfinite(out).all()):
+            raise AssertionError(f"sr {name}: output {tuple(out.shape)} not a "
+                                 f"finite 2048² image")
+        if n != (0, 0, 0, 0, per_view):
+            raise AssertionError(f"sr {name}: launches B1/B2a/B2b/B3/B1(D=64) "
+                                 f"{n}, expected (0, 0, 0, 0, {per_view})")
+        if peak >= PEAK_LIMIT:
+            raise AssertionError(f"sr {name}: peak {peak} bytes")
+        outs[name] = out
+        del pipe
+        gc.collect()
+        torch.cuda.empty_cache()
+    a, b = outs.values()
+    mse = float(((a - b) ** 2).mean())
+    print(f"[sr_options] PSNR of the int8 + int4-staged SR against the bf16 SR "
+          f"of the same view: {10 * math.log10(1.0 / max(mse, 1e-20)):.2f} dB "
+          f"(random weights; not gated)", flush=True)
 
 
 def run_training(attn, torch, pipe) -> None:
@@ -882,7 +1189,7 @@ def run_training(attn, torch, pipe) -> None:
     tcfg = FluxLoraTrainConfig(rank=16, learning_rate=1e-4,
                                lr_scheduler="constant")
     n_blocks = cfg.num_layers + cfg.num_single_layers
-    want = (2 * n_blocks, n_blocks, n_blocks, 0)
+    want = (2 * n_blocks, n_blocks, n_blocks, 0, 0)
     t0 = time.perf_counter()
     state, tx = create_train_state(torch.Generator(device="cuda").manual_seed(5),
                                    pipe.transformer_params, tcfg, device="cuda")
@@ -1053,9 +1360,10 @@ def run_ltm_path(attn, torch, pipe, config=None, device: str = "cuda") -> None:
                         or not bool(torch.isfinite(tex).all()):
                     raise AssertionError(f"ltm job {name}: texture {tuple(tex.shape)}"
                                          f" ({uv_size} png) not a finite {uv}²")
-                if n != (per_job, 0, 0, 0):
-                    raise AssertionError(f"ltm job {name}: launches B1/B2a/B2b/B3 "
-                                         f"{n}, expected ({per_job}, 0, 0, 0)")
+                if n != (per_job, 0, 0, 0, 0):
+                    raise AssertionError(f"ltm job {name}: launches B1/B2a/B2b/B3/"
+                                         f"B1(D=64) {n}, expected ({per_job}, 0, "
+                                         f"0, 0, 0)")
                 if peak >= PEAK_LIMIT:
                     raise AssertionError(f"ltm job {name}: peak {peak} bytes")
                 if fill["branch"] == want:
@@ -1167,7 +1475,8 @@ def main() -> int:
             print(f"[build] {source} {fn} ptxas: {use}", flush=True)
             usage[fn] = use
 
-    b1_record, b1_ms = check_flash_attention(attn, torch, usage["flash_fwd_kernel"])
+    b1_record, b1_ms = check_flash_attention(attn, torch,
+                                             usage["flash_fwd_kernel<128>"])
     records = [b1_record]
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -1175,6 +1484,10 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     records.append(check_flash_qk8(attn, torch, usage["flash_qk8_kernel"], b1_ms))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    records.append(check_flash_attention_d64(attn, torch,
+                                             usage["flash_fwd_kernel<64>"]))
     time_w8a8(torch)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -1183,16 +1496,18 @@ def main() -> int:
     launches, pipe = run_main_path(attn, torch)
     torch.cuda.synchronize()
     serve = _counts(attn)
-    if launches != serve[0] or launches == 0 or serve[1:] != (0, 0, 0):
-        return fail(f"launches B1/B2a/B2b/B3 {serve} on the serving path")
+    if launches != serve[0] or launches == 0 or serve[1:] != (0, 0, 0, 0):
+        return fail(f"launches B1/B2a/B2b/B3/B1(D=64) {serve} on the serving "
+                    f"path")
     torch.cuda.empty_cache()
 
     _reset(attn)
     run_training(attn, torch, pipe)
     torch.cuda.synchronize()
     train = _counts(attn)
-    if 0 in train[:3] or train[3] != 0:
-        return fail(f"launches B1/B2a/B2b/B3 {train} on the training path")
+    if 0 in train[:3] or train[3:] != (0, 0):
+        return fail(f"launches B1/B2a/B2b/B3/B1(D=64) {train} on the training "
+                    f"path")
     print(f"[train] launches B1/B2a/B2b {train[0]}/{train[1]}/{train[2]} in "
           f"{TRAIN_STEPS} steps", flush=True)
     torch.cuda.empty_cache()
@@ -1202,8 +1517,8 @@ def main() -> int:
     run_ltm_path(attn, torch, pipe)
     torch.cuda.synchronize()
     ltm = _counts(attn)
-    if ltm[0] == 0 or ltm[1:] != (0, 0, 0):
-        return fail(f"launches B1/B2a/B2b/B3 {ltm} on the LTM path")
+    if ltm[0] == 0 or ltm[1:] != (0, 0, 0, 0):
+        return fail(f"launches B1/B2a/B2b/B3/B1(D=64) {ltm} on the LTM path")
     torch.cuda.empty_cache()
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
@@ -1215,15 +1530,18 @@ def main() -> int:
         del pipe
         gc.collect()
         torch.cuda.empty_cache()
-        if _counts(attn) != (0, 0, 0, 0):
+        run_sd3_checkpoint(torch, models)
+        gc.collect()
+        torch.cuda.empty_cache()
+        if _counts(attn) != (0, 0, 0, 0, 0):
             return fail(f"launches {_counts(attn)} while writing the checkpoint")
 
         _reset(attn)
         run_cli(attn, torch, models)
         torch.cuda.synchronize()
         cli = _counts(attn)
-        if cli[0] == 0 or cli[1:] != (0, 0, 0):
-            return fail(f"launches B1/B2a/B2b/B3 {cli} on the CLI path")
+        if cli[0] == 0 or cli[4] == 0 or cli[1:4] != (0, 0, 0):
+            return fail(f"launches B1/B2a/B2b/B3/B1(D=64) {cli} on the CLI path")
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -1231,8 +1549,19 @@ def main() -> int:
         run_int8_path(attn, torch, models)
         torch.cuda.synchronize()
         int8 = _counts(attn)
-        if int8[3] == 0 or int8[:3] != (0, 0, 0):
-            return fail(f"launches B1/B2a/B2b/B3 {int8} on the int8 serving path")
+        if int8[3] == 0 or int8[:3] != (0, 0, 0) or int8[4]:
+            return fail(f"launches B1/B2a/B2b/B3/B1(D=64) {int8} on the int8 "
+                        f"serving path")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        _reset(attn)
+        run_sr_options(attn, torch, models)
+        torch.cuda.synchronize()
+        sr_options = _counts(attn)
+        if sr_options[4] == 0 or sr_options[:4] != (0, 0, 0, 0):
+            return fail(f"launches B1/B2a/B2b/B3/B1(D=64) {sr_options} on the "
+                        f"SR options")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     gc.collect()
@@ -1242,11 +1571,14 @@ def main() -> int:
     run_oracle(torch)
     torch.cuda.synchronize()
     oracle = _counts(attn)
-    if oracle != (0, 0, 0, 0):
-        return fail(f"launches B1/B2a/B2b/B3 {oracle} on the oracle bakes")
+    if oracle != (0, 0, 0, 0, 0):
+        return fail(f"launches B1/B2a/B2b/B3/B1(D=64) {oracle} on the oracle "
+                    f"bakes")
 
-    paths = ("serve", "train", "ltm", "cli", "int8_serve", "oracle")
-    for rec, *n in zip(records, serve, train, ltm, cli, int8, oracle):
+    paths = ("serve", "train", "ltm", "cli", "int8_serve", "sr_options",
+             "oracle")
+    for rec, *n in zip(records, serve, train, ltm, cli, int8, sr_options,
+                       oracle):
         rec["launches"] = sum(n)
         rec["launches_by_path"] = dict(zip(paths, n))
     keys = ("ms", "plain_ms", "bound_ms", "max_abs_err", "library_ms")

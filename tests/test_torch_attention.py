@@ -1,7 +1,8 @@
 """Attention in the port (unitex_torch/ops/attention.py) against the JAX
 package's: the plain ``attention_reference`` (out and lse) against JAX
 ``attention_reference`` and against the Pallas ``_flash_forward`` run in
-interpret mode, at S = 512 and at a ragged S = 200; the plain backward
+interpret mode, at S = 512 and at a ragged S = 200 (and at D = 64, the SD3
+transformer's head width, at S = 256 and 200); the plain backward
 against JAX's chunked ``_flash_core_bwd_xla`` on the same residuals; the
 CPU autograd of ``attention`` against ``jax.vjp``; the int8-QK path
 (``quant_rows`` and B3's plain version) against ``flash_attention_qk8`` in
@@ -49,7 +50,19 @@ def test_reference_matches_jax_reference(S):
 @pytest.mark.parametrize("S,block", [(512, 256), (200, 200)])
 def test_reference_matches_interpret_flash(S, block):
     """Against the Pallas kernel the port replaces, lse included."""
-    B, H, D = 1, 2, 128
+    _check_interpret_flash(S, block, 128)
+
+
+@pytest.mark.parametrize("S,block", [(256, 128), (200, 200)])
+def test_d64_reference_matches_interpret_flash(S, block):
+    """At the SD3 transformer's head width D = 64 (B1's second
+    instantiation), against the same Pallas kernel, which is generic in
+    D."""
+    _check_interpret_flash(S, block, 64)
+
+
+def _check_interpret_flash(S, block, D):
+    B, H = 1, 2
     q, k, v = _inputs(B, S, H, D, 7 + S)
     out, lse = tattn.attention_reference(*map(torch.from_numpy, (q, k, v)))
 
@@ -149,6 +162,27 @@ def test_cpu_tensor_takes_plain_version():
         torch.testing.assert_close(x, y, rtol=0, atol=0)
         torch.testing.assert_close(z, y, rtol=0, atol=0)
     assert (tattn.launches, tattn.launches_bwd_dkv, tattn.launches_bwd_dq) == before
+
+
+def test_b1_takes_both_head_widths():
+    """B1's check takes D = 128 and 64 (its two instantiations) and
+    nothing else; the backward kernels' default takes 128 only."""
+    for D in (128, 64):
+        x = torch.zeros((1, 64, 2, D), dtype=torch.bfloat16)
+        tattn._check(x, x, x, head_dims=(128, 64))
+    x = torch.zeros((1, 64, 2, 32), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="D in"):
+        tattn._check(x, x, x, head_dims=(128, 64))
+
+
+def test_d64_backward_names_the_missing_trainer():
+    """``FlashAttention``'s backward at D = 64 raises, naming the TSD-SR
+    trainer, instead of running a plain backward."""
+    q, k, v = (torch.from_numpy(x).requires_grad_()
+               for x in _inputs(1, 40, 2, 64, 3))
+    out = tattn.FlashAttention.apply(q, k, v)
+    with pytest.raises(NotImplementedError, match="TSD-SR trainer"):
+        out.sum().backward()
 
 
 @pytest.mark.parametrize("case", ["d64", "f32", "shape", "stride"])

@@ -1,8 +1,9 @@
 """``chip_smoke.py``'s helpers on the CPU: the ptxas report parser (each
 kernel's line in the script's output carries its own registers and spill
-text), the tree -> diffusers names of the checkpoint it writes, read
-back through the port's loader at tiny size, phase 10's comparison with
-ORACLE_r05.json and the result lines.  ``chip_smoke.py`` imports
+text, B1's two head-width instantiations apart), the tree -> diffusers
+names of the checkpoints it writes (FLUX, VAE, SD3), read back through
+the port's loaders at tiny size, the SR stage's derived launch count,
+phase 10's comparison with ORACLE_r05.json and the result lines.  ``chip_smoke.py`` imports
 only the standard library at its top; the parser's tests need neither a
 card, PyTorch nor JAX."""
 
@@ -23,8 +24,12 @@ def _chip_smoke():
 
 
 def _mangled(name, lib):
-    return (f"_ZN50_GLOBAL__N__5c148451_17_{lib}_cu_b137d46c{len(name)}{name}"
-            "E14CUtensorMap_stS0_S0_S0_PKfS2_P13__nv_bfloat16iixxxff")
+    """A kernel's mangled name; ``name<N>`` is an instantiation of a
+    template on the int N (B1's head widths)."""
+    base, _, arg = name.partition("<")
+    inst = f"ILi{arg[:-1]}EEEv" if arg else "E"
+    return (f"_ZN50_GLOBAL__N__5c148451_17_{lib}_cu_b137d46c{len(base)}{base}"
+            f"{inst}14CUtensorMap_stS0_S0_S0_PKfS2_P13__nv_bfloat16iixxxff")
 
 
 # (kernel, library, registers, spill stores, spill loads, serialized)
@@ -33,6 +38,8 @@ KERNELS = [
     ("flash_bwd_dkv_kernel", "flash_attn_bwd", 168, 276, 284, True),
     ("flash_bwd_dq_kernel", "flash_attn_bwd", 166, 0, 0, False),
     ("flash_qk8_kernel", "flash_attn_qk8", 226, 0, 0, False),
+    ("flash_fwd_kernel<128>", "flash_attn_fwd", 168, 0, 0, False),
+    ("flash_fwd_kernel<64>", "flash_attn_fwd", 154, 8, 8, True),
 ]
 
 
@@ -116,6 +123,49 @@ def test_state_dict_names_round_trip_through_the_loader(which):
     assert len(pairs) == n_leaves
     for k in want:
         assert torch.equal(got[k], want[k]), k
+
+
+def test_sd3_state_dict_round_trips_through_the_loader():
+    """``sd3_state_dict`` (phase 6's SD3 checkpoint) gives every leaf of a
+    tiny SD3 tree its diffusers name and torch layout (the patchify linear
+    as the PatchEmbed conv, the position table as [1, pmax², d], the final
+    block as the last ``transformer_blocks`` entry): the port's loader maps
+    them back to the same tree, and no name repeats."""
+    import torch
+
+    from unitex_torch.models.sd3 import loader
+    from unitex_torch.models.sd3.config import SD3Config
+    from unitex_torch.models.sd3.model import init_sd3_params
+
+    cs = _chip_smoke()
+    cfg = SD3Config.tiny()
+    tree = init_sd3_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    pairs = list(cs.sd3_state_dict(tree, cfg))
+    names = dict(pairs)
+    assert len(pairs) == len(names)
+    assert names["pos_embed.proj.weight"].shape == (64, 4, 2, 2)
+    assert names["pos_embed.pos_embed"].shape == (1, 16 * 16, 64)
+    assert "transformer_blocks.1.attn.to_add_out.weight" not in names
+    assert "transformer_blocks.0.attn.to_add_out.weight" in names
+    back = loader.sd3_params_from_state_dict(names, cfg, device="cpu")
+    want, got = dict(cs._named_leaves(tree)), dict(cs._named_leaves(back))
+    assert sorted(got) == sorted(want)
+    n_leaves = sum(x.shape[0] if k.startswith("/blocks") else 1
+                   for k, x in want.items())
+    assert len(pairs) == n_leaves
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+
+
+def test_sr_launches_are_derived_from_the_tiling():
+    """The SR stage's B1 (D = 64) launches: the 2x3 grid of 512² views is
+    a 512 x 768 latent, 9 x 14 = 126 tiles of 64² (overlap 8) in 16 calls
+    of 8 (the last of 6), one launch a layer of SD3-medium's 24; one view
+    is 5 x 5 = 25 tiles in 4 calls."""
+    cs = _chip_smoke()
+    assert cs.sr_launches(512, 2, 3) == 16 * 24 == 384
+    assert cs.sr_launches(512, 1, 1) == 4 * 24
+    assert (cs.SD3_H, cs.SD3_D, cs.SD3_S) == (24, 64, 1178)
 
 
 @pytest.mark.parametrize("primitive", ["cup", "trefoil"])

@@ -35,17 +35,19 @@ def card():
     return torch.device("cuda")
 
 
-def _qkv(S, H, seed, device, B=1):
+def _qkv(S, H, seed, device, B=1, D=128):
     gen = torch.Generator(device=device).manual_seed(seed)
-    return [torch.randn((B, S, H, 128), generator=gen, device=device).bfloat16()
+    return [torch.randn((B, S, H, D), generator=gen, device=device).bfloat16()
             for _ in range(3)]
 
 
 def _check_against_plain(q, k, v):
-    before = attn.launches
+    before = (attn.launches, attn.launches_d64)
     out, lse = attn.flash_attention(q, k, v)
     torch.cuda.synchronize()
-    assert attn.launches == before + 1
+    d64 = q.shape[-1] == 64
+    assert (attn.launches, attn.launches_d64) == (before[0] + (not d64),
+                                                  before[1] + d64)
     ref, ref_lse = attn.attention_reference(q.float(), k.float(), v.float())
     assert out.dtype == torch.bfloat16 and lse.dtype == torch.float32
     assert lse.shape == (q.shape[0] * q.shape[2], q.shape[1])
@@ -75,11 +77,52 @@ def test_flash_kernel_reads_strided_heads(card):
 
 @pytest.mark.cuda
 def test_cuda_tensor_never_falls_back(card):
+    """A CUDA tensor the kernel does not take raises: f32, or a head width
+    other than B1's two instantiations (128, 64)."""
     q, k, v = _qkv(64, 2, 0, card)
     with pytest.raises(TypeError):
         attn.flash_attention(q.float(), k.float(), v.float())
     with pytest.raises(ValueError):
-        attn.flash_attention(q[..., :64], k[..., :64], v[..., :64])
+        attn.flash_attention(q[..., :32], k[..., :32], v[..., :32])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 63, 127, 129, 257, 385, 1000, 1178])
+def test_flash_kernel_d64_matches_plain(card, S):
+    """B1 at D = 64 (the SD3 transformer's heads): ragged tiles on both
+    sides of a tile edge, and 1 to 10 key tiles through its three-stage
+    ring; S = 1178 is SD3's latent tile (1024 + 154 tokens), 26 keys in
+    its last tile."""
+    _check_against_plain(*_qkv(S, 4, S, card, D=64))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [6, 8])
+def test_flash_kernel_d64_at_the_sd3_shapes(card, B):
+    """The TSD-SR grid's transformer calls: 8 latent tiles a call, 6 in the
+    last, 24 heads, S = 1178."""
+    _check_against_plain(*_qkv(1178, 24, B, card, B=B, D=64))
+
+
+@pytest.mark.cuda
+def test_flash_kernel_d64_reads_strided_heads(card):
+    """q/k/v at D = 64 as views into one fused [B, S, 3, H, D] tensor."""
+    qkv = torch.randn((2, 300, 3, 4, 64), device=card).bfloat16()
+    q, k, v = qkv.unbind(2)
+    assert not q.is_contiguous()
+    _check_against_plain(q, k, v)
+
+
+@pytest.mark.cuda
+def test_d64_backward_is_refused(card):
+    """No backward at D = 64 (B2a/B2b take D = 128): the error names the
+    TSD-SR trainer, and no plain backward runs on the card."""
+    q, k, v = (t.requires_grad_() for t in _qkv(130, 2, 0, card, D=64))
+    out = attn.attention(q, k, v)
+    before = (attn.launches_bwd_dkv, attn.launches_bwd_dq)
+    with pytest.raises(NotImplementedError, match="TSD-SR trainer"):
+        out.float().sum().backward()
+    assert (attn.launches_bwd_dkv, attn.launches_bwd_dq) == before
 
 
 def _check_backward_against_plain(q, k, v, g):

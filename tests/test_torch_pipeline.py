@@ -88,6 +88,19 @@ def _ltm_config():
         diffusion=DiffusionConfig(**DIFFUSION))
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _jitted_scores():
+    """``compare_caches`` scores every artifact with the JAX package's
+    ``psnr`` and ``ssim``: here each runs as one jitted program an image
+    size instead of compiling each of its ops eagerly."""
+    import unitex_tpu.utils.metrics as metrics
+
+    saved = metrics.psnr, metrics.ssim
+    metrics.psnr, metrics.ssim = jax.jit(metrics.psnr), jax.jit(metrics.ssim)
+    yield
+    metrics.psnr, metrics.ssim = saved
+
+
 @pytest.fixture(scope="module")
 def assets(tmp_path_factory):
     d = tmp_path_factory.mktemp("assets")

@@ -33,9 +33,19 @@
 //   * any S: TMA reads rows past S as zeros, keys past S are masked to
 //     -inf before the max, query rows past S are computed and not stored.
 //
+// Head width: one kernel template, instantiated for D = 128 (FLUX) and
+// D = 64 (the SD3 transformer of TSD-SR), as the Pallas kernel is generic
+// in D.  At D = 64 a K or V row is exactly one 128-byte swizzle row, so a
+// 128-key tile is one 16 KB TMA box (D = 128 needs two); Q·Kᵀ runs four
+// k16 steps instead of eight; P·V is a wgmma m64n64k16, so the O
+// accumulator is 32 registers a thread instead of 64; and, with the tile
+// half as large, the ring is three stages deep instead of two.  At SD3's
+// S = 1178 the products per key tile halve while the exp work stays the
+// same, so the SFUs bound it about as much as the tensor cores do.
+//
 // Layout: q/k/v/out are [B, S, H, D] read through their strides (D
 // contiguous, rows 16-byte aligned, as TMA requires); lse is [B·H, S] f32
-// in natural log.  D = 128 only.
+// in natural log.
 
 #include <math.h>
 
@@ -44,26 +54,36 @@
 namespace {
 
 using namespace hop;
-using fa::kD;
 using fa::kLog2e;
 
 constexpr int kBlockM = 128;  // queries per block: two warpgroups of 64
 constexpr int kBlockN = 128;  // keys per stage
 constexpr int kThreads = 3 * 128;
-constexpr uint32_t kTileBytes = 128 * kD * 2;    // one 128-row tile
-constexpr uint32_t kBoxBytes = kTileBytes / 2;   // its [128][64] half
+constexpr uint32_t kBoxBytes = 128 * 64 * 2;  // one [128][64] box
 
-constexpr int kStages = 2;  // K/V ring depth
+// The sizes that follow from the head width D (128 or 64).
+template <int D>
+struct Shape {
+  static constexpr int kBoxes = D / 64;                   // boxes a tile
+  static constexpr uint32_t kTileBytes = kBoxes * kBoxBytes;  // 128 rows
+  static constexpr int kStages = D == 64 ? 3 : 2;         // K/V ring depth
+  static constexpr int kAcc = D / 2;  // O accumulators a thread
+};
+
 // P of one consumer: [64 rows][128 keys] bf16 as two 128-byte-swizzled
 // [64][64] boxes, the K-major A operand of P·V
 constexpr uint32_t kPBytes = 64 * 128 * 2;
 // Q, the K and V rings, both consumers' P, the barriers, and slack to
 // align the base to 1024
-constexpr uint32_t kSmemBytes = kTileBytes * (1 + 2 * kStages) +
-                                2 * kPBytes + 8 * (1 + 4 * kStages) + 1024;
+template <int D>
+constexpr uint32_t smem_bytes() {
+  return Shape<D>::kTileBytes * (1 + 2 * Shape<D>::kStages) + 2 * kPBytes +
+         8 * (1 + 4 * Shape<D>::kStages) + 1024;
+}
 
 // The mbarriers, 8 bytes each from `base`: Q's, then per stage K full, V
 // full, K empty and V empty.
+template <int kStages>
 struct Bars {
   uint32_t base;
   __device__ uint32_t q() const { return base; }
@@ -79,27 +99,36 @@ struct Bars {
   }
 };
 
-// S (64 x 128) = Q rows of this warpgroup · K tileᵀ, 8 k-steps of 16 over D.
+// S (64 x 128) = Q rows of this warpgroup · K tileᵀ, D/16 k-steps of 16.
+template <int D>
 __device__ __forceinline__ void issue_qk(float (&s)[64], uint32_t q_rows,
                                          uint32_t k_tile) {
   wgmma_m64n128_ss_zero(s, desc_sw128(q_rows, 16, 1024),
                         desc_sw128(k_tile, 16, 1024));
 #pragma unroll
-  for (int kk = 1; kk < kD / 16; ++kk) {
+  for (int kk = 1; kk < D / 16; ++kk) {
     const uint32_t off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
     wgmma_m64n128_ss(s, desc_sw128(q_rows + off, 16, 1024),
                      desc_sw128(k_tile + off, 16, 1024));
   }
 }
 
-// O (64 x 128) += P (shared memory) · V tile, 8 k-steps of 16 keys.
-__device__ __forceinline__ void issue_pv(float (&o)[64], uint32_t p_tile,
+// O (64 x D) += P (shared memory) · V tile, 8 k-steps of 16 keys: V is
+// MN-major, the leading offset steps between its 64-column boxes (one at
+// D = 64, where it is unused).
+template <int D>
+__device__ __forceinline__ void issue_pv(float (&o)[D / 2], uint32_t p_tile,
                                          uint32_t v_tile) {
 #pragma unroll
   for (int kk = 0; kk < kBlockN / 16; ++kk) {
-    const uint32_t off = (kk / 4) * (kPBytes / 2) + (kk % 4) * 32;
-    wgmma_m64n128_ss<1>(o, desc_sw128(p_tile + off, 16, 1024),
-                        desc_sw128(v_tile + kk * 16 * 128, kBoxBytes, 1024));
+    const uint64_t da =
+        desc_sw128(p_tile + (kk / 4) * (kPBytes / 2) + (kk % 4) * 32, 16, 1024);
+    const uint64_t db = desc_sw128(v_tile + kk * 16 * 128, kBoxBytes, 1024);
+    if constexpr (D == 128) {
+      wgmma_m64n128_ss<1>(o, da, db);
+    } else {
+      wgmma_m64n64_ss<1>(o, da, db);
+    }
   }
 }
 
@@ -160,11 +189,13 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m)[2],
   }
 }
 
-__device__ __forceinline__ void rescale(float (&o)[64], const float (&alpha)[2]) {
+template <int N>
+__device__ __forceinline__ void rescale(float (&o)[N], const float (&alpha)[2]) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) o[i] *= alpha[(i >> 1) & 1];
+  for (int i = 0; i < N; ++i) o[i] *= alpha[(i >> 1) & 1];
 }
 
+template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
                      const __grid_constant__ CUtensorMap tk,
@@ -172,12 +203,15 @@ __global__ void __launch_bounds__(kThreads, 1)
                      __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
                      int S, int H, long long ob, long long os, long long oh,
                      float scale_log2) {
+  constexpr uint32_t kTileBytes = Shape<D>::kTileBytes;
+  constexpr int kStages = Shape<D>::kStages;
+  constexpr int kBoxes = Shape<D>::kBoxes;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t sQ = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t sK = sQ + kTileBytes;
   const uint32_t sV = sK + kStages * kTileBytes;
   const uint32_t sP = sV + kStages * kTileBytes;
-  const Bars bar{sP + 2 * kPBytes};
+  const Bars<kStages> bar{sP + 2 * kPBytes};
   const int tid = threadIdx.x;
   // the warpgroup, broadcast from lane 0 so that the compiler sees each
   // role's branch taken by whole warps (setmaxnreg needs that)
@@ -208,22 +242,28 @@ __global__ void __launch_bounds__(kThreads, 1)
     reg_dealloc<24>();
     if (tid == 0) {
       mbar_expect_tx(bar.q(), kTileBytes);
-      tma_load_4d(sQ, &tq, bar.q(), 0, h, m0, b);
-      tma_load_4d(sQ + kBoxBytes, &tq, bar.q(), 64, h, m0, b);
+#pragma unroll
+      for (int x = 0; x < kBoxes; ++x) {
+        tma_load_4d(sQ + x * kBoxBytes, &tq, bar.q(), 64 * x, h, m0, b);
+      }
       for (int j = 0; j < n_tiles; ++j) {
         const int s = j % kStages;
         const uint32_t free_parity = ((j / kStages) & 1) ^ 1;
         const int key0 = j * kBlockN;
         mbar_wait(bar.kempty(s), free_parity);
         mbar_expect_tx(bar.kfull(s), kTileBytes);
-        tma_load_4d(sK + s * kTileBytes, &tk, bar.kfull(s), 0, h, key0, b);
-        tma_load_4d(sK + s * kTileBytes + kBoxBytes, &tk, bar.kfull(s), 64, h,
-                    key0, b);
+#pragma unroll
+        for (int x = 0; x < kBoxes; ++x) {
+          tma_load_4d(sK + s * kTileBytes + x * kBoxBytes, &tk, bar.kfull(s),
+                      64 * x, h, key0, b);
+        }
         mbar_wait(bar.vempty(s), free_parity);
         mbar_expect_tx(bar.vfull(s), kTileBytes);
-        tma_load_4d(sV + s * kTileBytes, &tv, bar.vfull(s), 0, h, key0, b);
-        tma_load_4d(sV + s * kTileBytes + kBoxBytes, &tv, bar.vfull(s), 64, h,
-                    key0, b);
+#pragma unroll
+        for (int x = 0; x < kBoxes; ++x) {
+          tma_load_4d(sV + s * kTileBytes + x * kBoxBytes, &tv, bar.vfull(s),
+                      64 * x, h, key0, b);
+        }
       }
     }
   } else {
@@ -238,9 +278,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     const uint32_t q_rows = sQ + c * 64 * 128;  // 128 bytes a row in a box
     const uint32_t p_tile = sP + c * kPBytes;
 
-    float oacc[64];
+    float oacc[Shape<D>::kAcc];
 #pragma unroll
-    for (int i = 0; i < 64; ++i) oacc[i] = 0.f;
+    for (int i = 0; i < Shape<D>::kAcc; ++i) oacc[i] = 0.f;
     float sacc[64];
     float m[2] = {-INFINITY, -INFINITY};  // running max, exp2 domain
     float l[2] = {0.f, 0.f};              // per-thread partial row sums
@@ -257,7 +297,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     mbar_wait(bar.kfull(0), 0);
     bar_sync(1 + c, 256);
     wgmma_fence();
-    issue_qk(sacc, q_rows, sK);
+    issue_qk<D>(sacc, q_rows, sK);
     wgmma_commit();
     if (!(c == 1 && n_tiles == 1)) bar_arrive(2 - c, 256);
     wgmma_wait<0>();
@@ -276,9 +316,9 @@ __global__ void __launch_bounds__(kThreads, 1)
       mbar_wait(bar.vfull(sp), parity_p);
       bar_sync(1 + c, 256);
       wgmma_fence();
-      issue_qk(sacc, q_rows, sK + s * kTileBytes);
+      issue_qk<D>(sacc, q_rows, sK + s * kTileBytes);
       wgmma_commit();
-      issue_pv(oacc, p_tile, sV + sp * kTileBytes);
+      issue_pv<D>(oacc, p_tile, sV + sp * kTileBytes);
       wgmma_commit();
       // the other warpgroup takes no turn after its last tile
       if (!(c == 1 && j == n_tiles - 1)) bar_arrive(2 - c, 256);
@@ -297,7 +337,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int s = (n_tiles - 1) % kStages;
     mbar_wait(bar.vfull(s), ((n_tiles - 1) / kStages) & 1);
     wgmma_fence();
-    issue_pv(oacc, p_tile, sV + s * kTileBytes);
+    issue_pv<D>(oacc, p_tile, sV + s * kTileBytes);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(oacc);
@@ -314,7 +354,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         const float inv = 1.f / sum;
         __nv_bfloat16* orow = o + b * ob + row * os + h * oh + 2 * t;
 #pragma unroll
-        for (int dt = 0; dt < kD / 8; ++dt) {
+        for (int dt = 0; dt < D / 8; ++dt) {
           *reinterpret_cast<__nv_bfloat162*>(orow + dt * 8) =
               __floats2bfloat162_rn(oacc[4 * dt + 2 * half] * inv,
                                     oacc[4 * dt + 2 * half + 1] * inv);
@@ -328,13 +368,37 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int S, int H, long long qb, long long qs, long long qh,
+           long long kb, long long ks, long long kh, long long vb,
+           long long vs, long long vh, long long ob, long long os,
+           long long oh, float scale, void* stream) {
+  CUtensorMap tq, tk, tv;
+  int rc = make_map_bshd(&tq, q, B, S, H, qb, qs, qh, kBlockM, D);
+  if (rc == 0) rc = make_map_bshd(&tk, k, B, S, H, kb, ks, kh, kBlockN, D);
+  if (rc == 0) rc = make_map_bshd(&tv, v, B, S, H, vb, vs, vh, kBlockN, D);
+  if (rc != 0) return rc;
+  // Per device, cheap: set on every call rather than cached per process.
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem_bytes<D>());
+  if (err != cudaSuccess) return err;
+  const dim3 grid((S + kBlockM - 1) / kBlockM, B * H);
+  flash_fwd_kernel<D><<<grid, kThreads, smem_bytes<D>(),
+                        static_cast<cudaStream_t>(stream)>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, S, H, ob, os, oh,
+      scale * kLog2e);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// Plain C entry point (bound with ctypes).  Strides are in elements; the
-// innermost D stride of every tensor must be 1 and the others multiples of
-// 8 (16 bytes, for TMA).  Returns cudaGetLastError() after the launch (0 on
-// success), or hop::kMapError + the driver's CUresult if a tensor map could
-// not be encoded.
+// Plain C entry point (bound with ctypes).  D is 128 or 64.  Strides are in
+// elements; the innermost D stride of every tensor must be 1 and the others
+// multiples of 8 (16 bytes, for TMA).  Returns cudaGetLastError() after the
+// launch (0 on success), or hop::kMapError + the driver's CUresult if a
+// tensor map could not be encoded.
 extern "C" int flash_attn_fwd_bf16(const void* q, const void* k, const void* v,
                                    void* o, float* lse, int B, int S, int H,
                                    int D, long long qb, long long qs,
@@ -342,21 +406,14 @@ extern "C" int flash_attn_fwd_bf16(const void* q, const void* k, const void* v,
                                    long long kh, long long vb, long long vs,
                                    long long vh, long long ob, long long os,
                                    long long oh, float scale, void* stream) {
-  if (D != kD || B <= 0 || S <= 0 || H <= 0) return cudaErrorInvalidValue;
-  CUtensorMap tq, tk, tv;
-  int rc = make_map_bshd(&tq, q, B, S, H, qb, qs, qh, kBlockM);
-  if (rc == 0) rc = make_map_bshd(&tk, k, B, S, H, kb, ks, kh, kBlockN);
-  if (rc == 0) rc = make_map_bshd(&tv, v, B, S, H, vb, vs, vh, kBlockN);
-  if (rc != 0) return rc;
-  // Per device, cheap: set on every call rather than cached per process.
-  const cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kSmemBytes);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((S + kBlockM - 1) / kBlockM, B * H);
-  flash_fwd_kernel<<<grid, kThreads, kSmemBytes,
-                     static_cast<cudaStream_t>(stream)>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, S, H, ob, os, oh,
-      scale * kLog2e);
-  return cudaGetLastError();
+  if (B <= 0 || S <= 0 || H <= 0) return cudaErrorInvalidValue;
+  if (D == 128) {
+    return launch<128>(q, k, v, o, lse, B, S, H, qb, qs, qh, kb, ks, kh, vb,
+                       vs, vh, ob, os, oh, scale, stream);
+  }
+  if (D == 64) {
+    return launch<64>(q, k, v, o, lse, B, S, H, qb, qs, qh, kb, ks, kh, vb,
+                      vs, vh, ob, os, oh, scale, stream);
+  }
+  return cudaErrorInvalidValue;
 }

@@ -7,6 +7,7 @@
 // 128-byte row each, 16-byte chunks XOR-swizzled by row within 1024-byte
 // groups of 8 rows, as TMA's CU_TENSOR_MAP_SWIZZLE_128B writes them); the
 // box holding columns 64..127 follows the first at R * 128 bytes.  A tile
+// of D = 64 bf16 (B1 at SD3's head width) is one such box.  A tile
 // of R rows of D = 128 int8 is a single [R][128] box: one row is 128 bytes.
 // Every box starts on a 1024-byte boundary, which the swizzle requires.
 
@@ -242,9 +243,11 @@ __device__ __forceinline__ void wgmma_m64n128_ss_zero(float (&d)[64],
       : "l"(da), "l"(db), "r"(0));
 }
 
-// d (64 x 64, f32) += a·bᵀ: a and b K-major in shared memory (b stored
-// [n][k]).  Accumulator layout as wgmma_m64n128_ss's, at columns
-// 8i + 2(lane%4) + {0, 1} for i < 8.
+// d (64 x 64, f32) += a·b: a and b from shared memory, a K-major, b
+// K-major (kTransB = 0, d = a·bᵀ for b stored [n][k]) or MN-major
+// (kTransB = 1, b stored [k][n]).  Accumulator layout as
+// wgmma_m64n128_ss's, at columns 8i + 2(lane%4) + {0, 1} for i < 8.
+template <int kTransB = 0>
 __device__ __forceinline__ void wgmma_m64n64_ss(float (&d)[32], uint64_t da,
                                                 uint64_t db) {
   asm volatile(
@@ -252,7 +255,7 @@ __device__ __forceinline__ void wgmma_m64n64_ss(float (&d)[32], uint64_t da,
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
       "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      "%29, %30, %31}, %32, %33, p, 1, 1, 0, %35;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -260,7 +263,7 @@ __device__ __forceinline__ void wgmma_m64n64_ss(float (&d)[32], uint64_t da,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(1), "n"(kTransB));
 }
 
 // d (64 x 64, f32) = a·bᵀ, the first k-step of a product.  Otherwise as
@@ -420,17 +423,18 @@ inline EncodeTiledFn encode_tiled() {
 // driver's CUresult (distinct from every cudaError_t).
 constexpr int kMapError = 100000;
 
-// A 4-D map over a [B, S, H, 128] tensor of `bytes`-byte elements read
+// A 4-D map over a [B, S, H, d] tensor of `bytes`-byte elements read
 // through its strides (in elements; D contiguous), whose box is `cols`
 // columns (one 128-byte row) of one head over `rows` sequence positions,
 // 128-byte swizzled; positions past S read as zeros.
 inline int encode_map_bshd(CUtensorMap* map, CUtensorMapDataType type,
                            int bytes, int cols, const void* base, int B,
                            int S, int H, long long sb, long long ss,
-                           long long sh, int rows) {
+                           long long sh, int rows, int d = fa::kD) {
   const EncodeTiledFn enc = encode_tiled();
   if (enc == nullptr) return kMapError;
-  const cuuint64_t dims[4] = {128, static_cast<cuuint64_t>(H),
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d),
+                              static_cast<cuuint64_t>(H),
                               static_cast<cuuint64_t>(S),
                               static_cast<cuuint64_t>(B)};
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh) * bytes,
@@ -447,12 +451,13 @@ inline int encode_map_bshd(CUtensorMap* map, CUtensorMapDataType type,
   return r == CUDA_SUCCESS ? 0 : kMapError + static_cast<int>(r);
 }
 
-// bf16: a box is 64 of the 128 columns, so a tile is two boxes.
+// bf16: a box is 64 columns (one 128-byte row), so a tile of head dim
+// d = 128 is two boxes and one of d = 64 a single box.
 inline int make_map_bshd(CUtensorMap* map, const void* base, int B, int S,
                          int H, long long sb, long long ss, long long sh,
-                         int rows) {
+                         int rows, int d = fa::kD) {
   return encode_map_bshd(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, 64, base,
-                         B, S, H, sb, ss, sh, rows);
+                         B, S, H, sb, ss, sh, rows, d);
 }
 
 // int8, copied as bytes: a box is all 128 columns.

@@ -90,15 +90,18 @@ def merge_lora(
     params: Dict[str, Any],
     loras: Iterable[Tuple[Dict[str, Any], float]],
 ) -> Dict[str, Any]:
-    """Return params with each (lora, weight) folded into the kernels.
+    """Return params with each (lora, weight) folded into the kernels,
+    stacked [L, d_in, d_out] or single [d_in, d_out].
 
     The result shares every untargeted leaf with ``params``; each targeted
-    kernel is a fresh tensor (the base tree is never written), filled one
-    layer at a time so the f32 ``a @ b`` temporary is one layer's, not the
+    kernel is a fresh tensor (the base tree is never written), a stacked
+    one filled one layer at a time so the f32 ``a @ b`` temporary is one layer's, not the
     stacked [L, d_in, d_out] product.  Drop the result after the pass to
     free the merged copies."""
 
     def merged_kernel(kernel, d, scale):
+        if kernel.dim() == 2:  # an unstacked linear (SD3's final block)
+            return _merged(kernel, d["a"], d["b"], scale)
         out = torch.empty_like(kernel)
         for i in range(kernel.shape[0]):
             out[i] = _merged(kernel[i], d["a"][i], d["b"][i], scale)

@@ -6,8 +6,9 @@ plain versions.
 a producer and two consumer warpgroups), the counterpart of the JAX
 package's Pallas ``_flash_kernel``.  It takes q/k/v ``[B, S, H, D]`` bf16
 on a CUDA device through their strides (no transpose copy; the base and
-strides 16-byte aligned), any S, D = 128, and returns ``(out [B, S, H, D]
-bf16, lse [B·H, S] f32)``.
+strides 16-byte aligned), any S, D = 128 (FLUX) or D = 64 (the SD3
+transformer of TSD-SR: one kernel template, two instantiations), and
+returns ``(out [B, S, H, D] bf16, lse [B·H, S] f32)``.
 
 ``flash_attention_backward`` is the matching backward
 (``csrc/flash_attn_bwd.cu``, on the same TMA/wgmma design): kernel B2a for
@@ -51,7 +52,8 @@ KERNEL_BWD = "flash_attn_bwd"
 KERNEL_QK8 = "flash_attn_qk8"
 
 #: launches of each kernel since import; callers may reset them to 0
-launches = 0            # B1
+launches = 0            # B1 at D = 128
+launches_d64 = 0        # B1 at D = 64
 launches_bwd_dkv = 0    # B2a
 launches_bwd_dq = 0     # B2b
 launches_qk8 = 0        # B3
@@ -145,15 +147,16 @@ def _kernel(source: str, name: str, n_ptrs: int, n_ints: int, n_strides: int):
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           **more: torch.Tensor) -> None:
+           head_dims: Tuple[int, ...] = (128,), **more: torch.Tensor) -> None:
     named = {"q": q, "k": k, "v": v, **more}
     shapes = {tuple(t.shape) for t in named.values()}
     if len(shapes) != 1 or q.dim() != 4:
         raise ValueError(
             "q/k/v" + "".join(f"/{n}" for n in more) + " must share one "
             f"[B, S, H, D] shape, got {[tuple(t.shape) for t in named.values()]}")
-    if q.shape[-1] != 128:
-        raise ValueError(f"flash attention takes D = 128, got {q.shape[-1]}")
+    if q.shape[-1] not in head_dims:
+        raise ValueError(f"this flash attention kernel takes D in "
+                         f"{head_dims}, got {q.shape[-1]}")
     for name, t in named.items():
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
@@ -195,11 +198,12 @@ def flash_attention(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full bidirectional attention with the row logsumexp (kernel B1).
 
-    q/k/v [B, S, H, D] -> (out [B, S, H, D], lse [B·H, S] f32)."""
-    global launches
+    q/k/v [B, S, H, D] with D = 128 or 64 -> (out [B, S, H, D], lse
+    [B·H, S] f32)."""
+    global launches, launches_d64
     if not _on_card(q):
         return attention_reference(q, k, v)
-    _check(q, k, v)
+    _check(q, k, v, head_dims=(128, 64))
     B, S, H, D = q.shape
     fn = _kernel(KERNEL, "flash_attn_fwd_bf16", 5, 4, 12)
     out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
@@ -211,7 +215,10 @@ def flash_attention(
         1.0 / math.sqrt(D), _stream(q.device),
     )
     _raise_on(rc, "flash_attn_fwd_bf16")
-    launches += 1
+    if D == 64:
+        launches_d64 += 1
+    else:
+        launches += 1
     return out, lse
 
 
@@ -310,6 +317,11 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, k, v, out, lse = ctx.saved_tensors
+        if q.shape[-1] != 128:
+            raise NotImplementedError(
+                f"the flash-attention backward (B2a/B2b) takes D = 128, got "
+                f"D = {q.shape[-1]}: a backward through the SD3 transformer "
+                "waits for the TSD-SR trainer, which is not ported")
         return flash_attention_backward(q, k, v, out, lse, g.contiguous())
 
 

@@ -120,46 +120,53 @@ def _pick(z_masked, b0, b1, b2, w):
 
 
 def _rasterize_brute(pix, z_ndc, w_clip, valid, H, W, face_chunk):
-    """All faces against every pixel, in bands of rows.  A band only
-    evaluates the faces whose screen y-range reaches it (with a one-pixel
-    margin); a face that cannot reach the band is never inside there, so
-    the result — nearest z, ties to the lowest face index — is the one of
-    the full evaluation."""
+    """All faces against every pixel, tile by tile: bands of rows on the
+    card, 32 x 32 tiles on the CPU (where every evaluation costs).  A tile
+    only evaluates the faces whose screen box reaches it (with a one-pixel
+    margin), in face order; a face that cannot reach the tile is never
+    inside there, so the result — nearest z, ties to the lowest face
+    index — is the one of the full evaluation."""
     dev = pix.device
-    P = H * W
-    zbuf = torch.full((P,), float("inf"), device=dev)
-    tribuf = torch.full((P,), -1, dtype=torch.int64, device=dev)
-    b1buf = torch.zeros((P,), device=dev)
-    b2buf = torch.zeros((P,), device=dev)
+    zbuf = torch.full((H, W), float("inf"), device=dev)
+    tribuf = torch.full((H, W), -1, dtype=torch.int64, device=dev)
+    b1buf = torch.zeros((H, W), device=dev)
+    b2buf = torch.zeros((H, W), device=dev)
     xs = torch.arange(W, dtype=torch.float32, device=dev) + 0.5
-    ymin = pix[..., 1].min(dim=1).values
-    ymax = pix[..., 1].max(dim=1).values
-    band = max(1, _PIXEL_BLOCK // W)
-    for r0 in range(0, H, band):
-        r1 = min(H, r0 + band)
-        sel = torch.nonzero((ymax >= r0 - 1) & (ymin <= r1 + 1))[:, 0]
-        if sel.numel() == 0:
-            continue
+    xmin, xmax = pix[..., 0].min(dim=1).values, pix[..., 0].max(dim=1).values
+    ymin, ymax = pix[..., 1].min(dim=1).values, pix[..., 1].max(dim=1).values
+    if dev.type == "cpu":
+        tile_h, tile_w = min(H, 32), min(W, 32)
+    else:
+        tile_h, tile_w = max(1, _PIXEL_BLOCK // W), W
+    for r0 in range(0, H, tile_h):
+        r1 = min(H, r0 + tile_h)
+        rows = (ymax >= r0 - 1) & (ymin <= r1 + 1)
         ys = torch.arange(r0, r1, dtype=torch.float32, device=dev) + 0.5
-        px = xs[None, :].expand(r1 - r0, W).reshape(-1)
-        py = ys[:, None].expand(r1 - r0, W).reshape(-1)
-        p0, p1 = r0 * W, r1 * W
-        for f0 in range(0, sel.numel(), face_chunk):
-            ids = sel[f0:f0 + face_chunk]
-            z_masked, b0, b1, b2 = _edge_eval(
-                px, py, pix[ids], z_ndc[ids], w_clip[ids], valid[ids])
-            zb, best, pc = _pick(z_masked, b0, b1, b2, w_clip[ids])
-            better = zb < zbuf[p0:p1]
-            zbuf[p0:p1] = torch.where(better, zb, zbuf[p0:p1])
-            tribuf[p0:p1] = torch.where(better, ids[best], tribuf[p0:p1])
-            b1buf[p0:p1] = torch.where(better, pc[:, 1], b1buf[p0:p1])
-            b2buf[p0:p1] = torch.where(better, pc[:, 2], b2buf[p0:p1])
+        for c0 in range(0, W, tile_w):
+            c1 = min(W, c0 + tile_w)
+            sel = torch.nonzero(rows & (xmax >= c0 - 1) & (xmin <= c1 + 1))[:, 0]
+            if sel.numel() == 0:
+                continue
+            px = xs[None, c0:c1].expand(r1 - r0, c1 - c0).reshape(-1)
+            py = ys[:, None].expand(r1 - r0, c1 - c0).reshape(-1)
+            tile = (slice(r0, r1), slice(c0, c1))
+            z_t, tri_t = zbuf[tile].reshape(-1), tribuf[tile].reshape(-1)
+            b1_t, b2_t = b1buf[tile].reshape(-1), b2buf[tile].reshape(-1)
+            for f0 in range(0, sel.numel(), face_chunk):
+                ids = sel[f0:f0 + face_chunk]
+                z_masked, b0, b1, b2 = _edge_eval(
+                    px, py, pix[ids], z_ndc[ids], w_clip[ids], valid[ids])
+                zb, best, pc = _pick(z_masked, b0, b1, b2, w_clip[ids])
+                better = zb < z_t
+                z_t = torch.where(better, zb, z_t)
+                tri_t = torch.where(better, ids[best], tri_t)
+                b1_t = torch.where(better, pc[:, 1], b1_t)
+                b2_t = torch.where(better, pc[:, 2], b2_t)
+            shape = (r1 - r0, c1 - c0)
+            zbuf[tile], tribuf[tile] = z_t.view(shape), tri_t.view(shape)
+            b1buf[tile], b2buf[tile] = b1_t.view(shape), b2_t.view(shape)
     zbuf = torch.where(torch.isinf(zbuf), torch.ones_like(zbuf), zbuf)
-    return Rast(
-        torch.stack([b1buf, b2buf], dim=-1).reshape(H, W, 2),
-        zbuf.reshape(H, W),
-        tribuf.reshape(H, W),
-    )
+    return Rast(torch.stack([b1buf, b2buf], dim=-1), zbuf, tribuf)
 
 
 @exact_f32()

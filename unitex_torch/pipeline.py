@@ -1,17 +1,18 @@
-"""End-to-end texture generation pipeline (port of unitex_tpu/pipeline.py,
-bf16 serving without super-resolution).
+"""End-to-end texture generation pipeline (port of unitex_tpu/pipeline.py).
 
 One RGB reference image + an untextured mesh -> a textured GLB:
 
   step_1_1        mesh preprocess -> reference-image matting -> 6-view
                   geometry conditioning renders -> FLUX texture pass ->
-                  FLUX delight pass
+                  FLUX delight pass -> with ``super_resolutions=True``
+                  the TSD-SR x4 stage (models/sd3/sr_pipeline.py)
   step_2_ablition multi-view back-projection bake -> textured_mesh.glb
 
 Artifact names match the JAX package, so its tooling (for example
 scripts/compare_golden.py) reads both: ``processed_mesh.obj``,
 ``rembg_image.png``, ``processed_image.png``, ``mv_alpha/ccm/normal.png``,
-``camera_info.npz``, ``mv_rgb_w_light.png``, ``mv_rgb.png``,
+``camera_info.npz``, ``mv_rgb_w_light.png``, ``mv_rgb_lr.png`` (the grid
+before super-resolution), ``mv_rgb.png``,
 ``textured_mesh.glb``, ``visable_uv_mask.png``, ``valid_uv_mask.png``,
 ``completed_uv.png``, and with ``export_video=True`` the orbit video
 ``textured_mesh.mp4`` (``.gif`` without an mp4 writer).
@@ -34,8 +35,10 @@ cache (``params_cache``, optionally int4-packed with
 ``params_cache_int4``), whose files either package reads.
 ``RGBTextureFullPipeline`` bakes with the learned LTM fill
 (``ltm_params``, such as the repo's trained ``ltm_params.npz``; step_2_2).
-Deferred (``NotImplementedError``): TSD-SR super-resolution, ``async_io``
-and multi-GPU placement.
+``super_resolutions=True`` adds TSD-SR (SD3-medium and its VAE from
+``<pretrain_models>/sd3``; without them the bicubic x4 upscale, as in
+the JAX package), whole grid, or per view under ``"max_memory"``.
+Deferred (``NotImplementedError``): ``async_io`` and multi-GPU placement.
 """
 
 from __future__ import annotations
@@ -82,7 +85,8 @@ from .render.video import export_orbit_video
 from .utils.image_io import save_image, to_uint8_device
 from .utils.param_cache import load_meta, load_params, save_params
 from .utils.params import tree_to
-from .utils.precision import exact_f32, resolve_device
+from .utils.precision import resolve_device
+from .utils.resize import resize_bilinear
 from .utils.timer import CPUTimer
 
 
@@ -117,35 +121,6 @@ def _host(x) -> np.ndarray:
     return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
 
 
-def _tri_weights(n_in: int, n_out: int) -> np.ndarray:
-    """[n_in, n_out] weights of ``jax.image.resize(..., "bilinear")`` along
-    one axis: a triangle kernel widened by the downscale factor
-    (antialiased when shrinking), columns normalized, samples outside the
-    input zeroed — the same construction as JAX's scale_and_translate."""
-    scale = n_out / n_in
-    inv = 1.0 / scale
-    kscale = max(inv, 1.0)
-    sample = (np.arange(n_out, dtype=np.float32) + 0.5) * np.float32(inv) - 0.5
-    x = np.abs(sample[None, :] - np.arange(n_in, dtype=np.float32)[:, None]) \
-        / np.float32(kscale)
-    w = np.maximum(0.0, 1.0 - x).astype(np.float32)
-    tot = w.sum(axis=0, keepdims=True)
-    w = np.where(np.abs(tot) > 1000.0 * np.finfo(np.float32).eps,
-                 w / np.where(tot != 0, tot, 1), 0.0)
-    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
-    return np.where(inside[None, :], w, 0.0).astype(np.float32)
-
-
-@exact_f32()
-def resize_bilinear(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
-    """[H, W, C] -> [out_h, out_w, C], the ``jax.image.resize`` bilinear
-    convention (antialiased downsampling), as two f32 weight products."""
-    H, W = img.shape[:2]
-    wh = torch.from_numpy(_tri_weights(H, out_h)).to(img.device)
-    ww = torch.from_numpy(_tri_weights(W, out_w)).to(img.device)
-    return torch.einsum("hwc,hy,wx->yxc", img.float(), wh, ww)
-
-
 class RGBTextureFullPipelineBase:
     """Owns the models and runs the stages."""
 
@@ -164,8 +139,6 @@ class RGBTextureFullPipelineBase:
         params_cache_int4: bool = False,
         device="cuda",
     ):
-        if super_resolutions or config.super_resolution:
-            raise NotImplementedError("TSD-SR super-resolution is not ported")
         if async_io:
             raise NotImplementedError("async_io is not ported")
         if int8_serving not in _CACHE_MODES:
@@ -196,12 +169,20 @@ class RGBTextureFullPipelineBase:
         self.vae_params = None
         self.texture_lora = None
         self.delight_lora = None
+        self.sr_pipeline = None
         if pretrain_models is not None:
             self._try_load_weights(require_weights)
         elif random_weights:
             self._init_random_weights()
         elif require_weights:
             raise FileNotFoundError("pretrain_models is required")
+        if super_resolutions:
+            from .models.sd3.sr_pipeline import TSDSRPipeline
+
+            # SD3 and its VAE from <root>/sd3; without them the SR stage is
+            # the bicubic upscale, as in the JAX package
+            self.sr_pipeline = TSDSRPipeline(pretrain_models,
+                                             device=self.device)
 
     # bump when the serving tree's layout or the file encoding changes
     _PARAMS_CACHE_VERSION = 1
@@ -482,10 +463,14 @@ class RGBTextureFullPipelineBase:
         save_dir: str,
         reference_image: np.ndarray,
         condition: Dict[str, torch.Tensor],
+        apply_sr: bool = True,
     ) -> torch.Tensor:
         """Texture + delight FLUX passes over the 1x6 strip.  Returns the
-        delighted 2x3 grid in [0, 1].  Without FLUX weights the control
-        strip (geometry-shaded) stands in for both passes."""
+        delighted 2x3 grid in [0, 1], super-resolved when the pipeline has
+        an SR stage (a uint8 grid on the host under ``"max_memory"``).
+        Without FLUX weights the control strip (geometry-shaded) stands in
+        for both passes.  ``apply_sr=False`` leaves the SR stage to the
+        caller (:meth:`_apply_sr`), as batch drivers do."""
         control_grid = 0.5 * condition["normal"] + 0.5 * condition["ccm"]
         control_strip = grid_to_strip(control_grid)
         if self._flux_loaded:
@@ -497,9 +482,63 @@ class RGBTextureFullPipelineBase:
                            _host(control_strip))
             strip_delight = control_strip
         mv_rgb = strip_to_grid(strip_delight)
-        if self.save_artifacts:
-            save_image(os.path.join(save_dir, "mv_rgb.png"), _host(mv_rgb))
+        if apply_sr:
+            mv_rgb = self._apply_sr(mv_rgb, save_dir)
+        if self.save_artifacts and (apply_sr or self.sr_pipeline is None):
+            # timed: the SR grid is 4096 x 6144, encoded on the host
+            with CPUTimer("save_mv_rgb"):
+                save_image(os.path.join(save_dir, "mv_rgb.png"), _host(mv_rgb))
         return mv_rgb
+
+    def _apply_sr(self, mv_rgb: torch.Tensor, save_dir: Optional[str] = None):
+        """TSD-SR on the delighted grid: the whole grid at once, or with
+        ``int8_serving="max_memory"`` and FLUX loaded one view at a time
+        inside one ``staged()`` window, each view quantized to uint8 on the
+        device and assembled into a uint8 grid on the host.  There the
+        AdaIN colour fix, whose statistics are per grid, runs as one
+        grid-level affine on the host over views super-resolved without a
+        colour fix; the wavelet fix stays per view."""
+        if self.sr_pipeline is None:
+            return mv_rgb
+        if self.save_artifacts and save_dir is not None:
+            save_image(os.path.join(save_dir, "mv_rgb_lr.png"), _host(mv_rgb))
+        with CPUTimer("super_resolution"):
+            if not (self.int8_serving == "max_memory" and self._flux_loaded):
+                return self.sr_pipeline(mv_rgb)
+            return self._apply_sr_per_view(mv_rgb)
+
+    def _apply_sr_per_view(self, mv_rgb: torch.Tensor) -> torch.Tensor:
+        """:meth:`_apply_sr`'s ``"max_memory"`` branch: the uint8 grid."""
+        from .models.sd3.sr_pipeline import upscale_clip
+
+        cam = self.config.camera
+        views = grid_to_views(mv_rgb, cam.rows, cam.cols)
+        sr_cfg = self.sr_pipeline.cfg
+        align = sr_cfg.align_method
+        grid_adain = align == "adain"
+        if grid_adain:
+            sr_cfg.align_method = "nofix"
+        try:
+            with self.sr_pipeline.staged():
+                sr_views = [_host(to_uint8_device(self.sr_pipeline(v)))
+                            for v in views]
+                if grid_adain:
+                    # the AdaIN source is the bicubic upscale
+                    ups = [_host(to_uint8_device(
+                        upscale_clip(v, sr_cfg.upscale))) for v in views]
+        finally:
+            sr_cfg.align_method = align
+        if grid_adain:
+            t = np.stack(sr_views).astype(np.float32) / 255.0
+            s = np.stack(ups).astype(np.float32) / 255.0
+            ax = (0, 1, 2)
+            a = (s.std(axis=ax) + 1e-5) / (t.std(axis=ax) + 1e-5)
+            b = s.mean(axis=ax) - a * t.mean(axis=ax)
+            sr_views = [(np.clip(a * v + b, 0.0, 1.0) * 255.0 + 0.5)
+                        .astype(np.uint8) for v in t]
+        return torch.from_numpy(np.concatenate(
+            [np.concatenate(sr_views[r * cam.cols:(r + 1) * cam.cols], axis=1)
+             for r in range(cam.rows)], axis=0))
 
     def _flux_passes(self, save_dir: str, reference_image: np.ndarray,
                      control_strip: torch.Tensor) -> torch.Tensor:
@@ -590,8 +629,12 @@ class RGBTextureFullPipelineBase:
         return self.int8_serving == "max_memory" and self._flux_loaded
 
     def _views(self, mv_rgb_grid: torch.Tensor) -> torch.Tensor:
+        """The grid's views in f32 on the device; a uint8 grid (the
+        per-view SR's) is converted there."""
         cam = self.config.camera
-        return grid_to_views(mv_rgb_grid.float(), cam.rows, cam.cols)
+        grid = mv_rgb_grid.to(self.device)
+        grid = grid.float() / 255.0 if grid.dtype == torch.uint8 else grid.float()
+        return grid_to_views(grid, cam.rows, cam.cols)
 
     def _write_textured(self, save_dir: str, texture: torch.Tensor,
                         processed_mesh: HostMesh, save_uv: bool) -> str:

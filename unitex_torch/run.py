@@ -3,10 +3,15 @@
 orbit video).
 
     python -m unitex_torch.run --image ref.png --mesh model.obj \\
-        --pretrain-models <root> [--out output] [--fast-steps 8] [--int8]
+        --pretrain-models <root> [--out output] [--fast-steps 8] [--int8] \\
+        [--super-resolution]
 
 It takes the root ``run.py``'s flags with the same defaults, and
 ``--device`` (default ``cuda``; ``cpu`` runs it without a card).
+``--super-resolution`` adds the TSD-SR x4 stage before the bake: SD3-medium
+and its VAE from ``<root>/sd3/{transformer,vae}`` (and the prompt
+embedding ``<root>/tsdsr/prompt_embeds.npz`` if present), or without them
+the bicubic x4 upscale; the bake then reads 2048² views.
 """
 
 from __future__ import annotations
@@ -28,7 +33,9 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--pretrain-models", default=None,
                     help="checkpoint root (flux/{transformer,vae} + LoRAs)")
     ap.add_argument("--seed", type=int, default=63)
-    ap.add_argument("--super-resolution", action="store_true")
+    ap.add_argument("--super-resolution", action="store_true",
+                    help="TSD-SR x4 super-resolution of the views (SD3 "
+                         "weights from <root>/sd3, else bicubic)")
     # the 120-frame orbit video is written by default, as by the reference
     ap.add_argument("--export-video", action=argparse.BooleanOptionalAction,
                     default=True)
