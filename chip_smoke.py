@@ -32,12 +32,28 @@ non-zero:
    tensor-core, SFU (exp) and memory times; and one
    W8A8 projection ([13312, 3072] @ [3072, 12288], ``torch._int_mm``)
    timed beside the same product in bf16 (context, not a gate);
-4. serving path: ``CustomRGBTextureFullPipeline(random_weights=True)`` at
-   full FLUX.1-dev width and depth with the FLUX VAE answers two jobs
-   (a 20,480-face icosphere and a torus, synthetic reference images) on
-   ``DEFAULT_CONFIG`` with ``num_inference_steps=4`` instead of 28 to fit
-   the time limit; each job must write its GLB, bake a finite 2048²
-   texture and launch B1 exactly 57 x 4 x 2 = 456 times;
+12. matting (right after phase 3): ISNet ``IsnetConfig.rmbg14()`` and
+   BiRefNet ``BiRefNetConfig.rmbg20()`` (Swin-L, about 220 M parameters)
+   from seeded state dicts in the checkpoints' naming, each forward at a
+   256² input on the card held to the same module on the CPU with the same
+   parameters (f32, TF32 off, max|dlogit| <= ``MATTING_TOL`` of the
+   largest CPU logit), then the remover at its 1024² on a 512² synthetic
+   image: the seconds of two calls, the peak, a finite matte of the
+   image's size; no kernel launches;
+4. serving path: ``CustomRGBTextureFullPipeline(random_weights=True,
+   async_io=True)`` at full FLUX.1-dev width and depth with the FLUX VAE
+   answers two jobs (a 20,480-face icosphere and a torus, synthetic
+   reference images) on ``DEFAULT_CONFIG`` with ``num_inference_steps=4``
+   instead of 28 to fit the time limit; each job (its writes flushed) must
+   write its GLB, bake a finite 2048² texture and launch B1 exactly
+   57 x 4 x 2 = 456 times;
+13. job server (right after phase 4): ``unitex_torch.serving.serve`` over
+   the resident phase-4 pipeline answers the same two jobs submitted over
+   HTTP, the icosphere by path and the torus inlined as base64: both must
+   reach ``done``, the GLBs fetched from ``/jobs/<id>/result`` must hold
+   finite 2048² textures, and the two must launch B1 exactly 2 x 456
+   times and nothing else; the line gives their wall time beside the sum
+   of their stage times;
 5. training path: three FLUX.1-dev LoRA ``train_step``s (rank 16, remat,
    constant lr 1e-4) on the serving pipeline's resident base tree, each on
    one ``SyntheticTextureDataset(view_size=512)`` batch built by the
@@ -55,7 +71,9 @@ non-zero:
    the loaded copy are freed, and a random SD3-medium transformer (bf16)
    and SD3 VAE (f32), seeded, are written under the diffusers names into
    ``<tmp>/sd3/{transformer,vae}`` and read back leaf for leaf;
-7. CLI: ``unitex_torch.run.main`` in process on the icosphere job with
+7. CLI (after the seeded full-width RMBG-2.0 state dict is written to
+   ``<tmp>/models/briaai/RMBG-2.0/model.safetensors``, its bytes printed):
+   ``unitex_torch.run.main`` in process on the icosphere job with
    ``--pretrain-models <tmp> --fast-steps 8 --super-resolution`` and
    otherwise the CLI's defaults (``DEFAULT_CONFIG``'s 28 steps, video
    export on): exactly 57 x 20 x 2 = 2280 launches of B1 (8 of the 28
@@ -66,13 +84,17 @@ non-zero:
    texture, read back with ``load_mesh``, is a finite 2048² image, a
    video of 120 frames of 1024², the peak under 80 GB; its ``[sr]`` line
    splits the SR stage into upscale, encode, transformer, decode and
-   colour fix and gives the bake's seconds on the 2048² views;
-8. int8 serving path from the checkpoint:
+   colour fix and gives the bake's seconds on the 2048² views; the CLI's
+   pipeline must matte with ``BirefnetRemover``, called once, and the
+   line gives the ``preprocess_reference_image`` seconds;
+8. int8 serving path from the checkpoint, with RMBG-1.4's seeded state
+   dict added beside RMBG-2.0's:
    ``CustomRGBTextureFullPipeline(int8_serving=True, pretrain_models=<tmp>)``
    (W8A8 FLUX.1-dev, each bf16 kernel dropped as it is quantized) with
    ``attn_qk8=True`` set on its ``flux_cfg`` answers the icosphere job on
    the 4-step config: a GLB and a finite 2048² texture, 456 launches of B3
-   and none of B1, the peak under 80 GB;
+   and none of B1, the peak under 80 GB; it must matte with
+   ``IsnetRemover`` (``build_background_remover`` tries RMBG-1.4 first);
 11. SR options (after phase 8, from ``<tmp>/sd3``): one 512² view
    through ``TSDSRPipeline`` in bf16 and with ``TSDSRConfig(
    int8_serving=True, host_params=True, stage_pack_int4=True)``, each a
@@ -150,6 +172,13 @@ TRAIN_STEPS = 3
 TRAIN_S = 12800          # 512 text + 6144 noise + 6144 control tokens
 FAST_STEPS = 8           # the CLI job's --fast-steps
 PEAK_LIMIT = 80e9        # bytes: one H100
+# the matting forwards on the card (f32, TF32 off) against the same module
+# on the CPU: max|dlogit| <= 1e-3 of the largest CPU logit.  Both are f32;
+# cuDNN's and the CPU's convolutions sum in other orders (about 1e-6 of a
+# logit a layer), while a wrong tap, window or fold moves logits by tens
+# of per cent.
+MATTING_TOL = 1e-3
+MATTING_SEEDS = {"isnet": 21, "birefnet": 22}   # the seeded state dicts
 
 
 KERNEL_FUNCTIONS = ("flash_fwd_kernel", "flash_bwd_dkv_kernel",
@@ -592,7 +621,7 @@ def run_main_path(attn, torch):
           f"weights", flush=True)
     t0 = time.perf_counter()
     pipe = CustomRGBTextureFullPipeline(random_weights=True, config=config,
-                                        device="cuda")
+                                        async_io=True, device="cuda")
     torch.cuda.synchronize()
     print(f"[main] init {time.perf_counter() - t0:.2f}s, params "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
@@ -605,6 +634,8 @@ def run_main_path(attn, torch):
             t0 = time.perf_counter()
             _, glb = pipe(out_dir, img_path, mesh_path)
             torch.cuda.synchronize()
+            wall_returned = time.perf_counter() - t0
+            pipe.flush_io()   # async_io: the GLB is written on a thread
             wall = time.perf_counter() - t0
             n = attn.launches - before
             total += n
@@ -617,7 +648,8 @@ def run_main_path(attn, torch):
                 "reproject": rec["reproject_and_query_field"],
             }
             tex = pipe.last_texture
-            print(f"[main] job {name}: wall {wall:.2f}s stages "
+            print(f"[main] job {name}: wall {wall:.2f}s (GLB write "
+                  f"flushed; {wall_returned:.2f}s to the call's return) stages "
                   + " ".join(f"{k}={v:.3f}s" for k, v in stages.items())
                   + f" peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB"
                   f" flash_attn_fwd launches {n}", flush=True)
@@ -631,6 +663,206 @@ def run_main_path(attn, torch):
                 raise AssertionError(
                     f"job {name}: {n} flash_attn_fwd launches, expected {per_job}")
     return total, pipe
+
+
+def matting_model(torch, name: str, device: str = "cuda", cfg=None):
+    """(config, seeded state dict on ``device``, converter, forward,
+    remover class) of the matting model ``name`` ("isnet": RMBG-1.4,
+    "birefnet": RMBG-2.0), at full width unless ``cfg`` is given."""
+    from unitex_torch.image import isnet
+    from unitex_torch.models import birefnet
+
+    if name == "isnet":
+        default, sd_fn, convert, forward, remover = (
+            isnet.IsnetConfig.rmbg14, isnet.isnet_state_dict,
+            isnet.convert_isnet_torch, isnet.isnet_forward, isnet.IsnetRemover)
+    else:
+        default, sd_fn, convert, forward, remover = (
+            birefnet.BiRefNetConfig.rmbg20, birefnet.birefnet_state_dict,
+            birefnet.convert_birefnet_torch, birefnet.birefnet_forward,
+            birefnet.BirefnetRemover)
+    cfg = cfg or default()
+    gen = torch.Generator(device=device).manual_seed(MATTING_SEEDS[name])
+    return cfg, sd_fn(gen, cfg), convert, forward, remover
+
+
+def run_matting(torch, device: str = "cuda", configs=None,
+                forward_size: int = 256) -> None:
+    """Phase 12: ISNet (RMBG-1.4) and BiRefNet (RMBG-2.0) at full width
+    from their seeded state dicts: the forward at ``forward_size``² on the
+    card against the same parameters on the CPU, then the remover at its
+    1024² on a 512² synthetic image (seconds of a first and a second call,
+    peak, a finite matte of the image's size).  ``device``, ``configs``
+    (tiny ones) and a smaller ``forward_size`` let it rehearse on the
+    CPU."""
+    import numpy as np
+    from PIL import Image
+
+    from unitex_torch.utils.params import tree_to
+
+    yy, xx = np.mgrid[:512, :512]
+    img = np.stack([xx // 2, yy // 2, 255 - xx // 2], -1).astype(np.uint8)
+    img[(yy - 256) ** 2 + (xx - 256) ** 2 < 160 ** 2] = (200, 60, 30)
+    image = Image.fromarray(img)
+    x = np.random.default_rng(7).normal(
+        size=(1, forward_size, forward_size, 3)).astype(np.float32)
+    for name in ("isnet", "birefnet"):
+        cfg, sd, convert, forward, remover_cls = matting_model(
+            torch, name, device, (configs or {}).get(name))
+        params = convert(sd, cfg, device)
+        del sd
+        n_params = sum(leaf.numel() for _, leaf in _named_leaves(params))
+
+        def logits(out):
+            return out[0] if isinstance(out, list) else out
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            got = logits(forward(params, cfg,
+                                 torch.from_numpy(x).to(device))).cpu()
+        t_card = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            want = logits(forward(tree_to(params, "cpu"), cfg,
+                                  torch.from_numpy(x)))
+        t_cpu = time.perf_counter() - t0
+        err = float((got - want).abs().max())
+        limit = MATTING_TOL * float(want.abs().max())
+        print(f"[matting] {name} ({n_params / 1e6:.1f} M parameters): "
+              f"{forward_size}² "
+              f"forward max|dlogit| {err:.3e} (limit {limit:.3e}); card "
+              f"{t_card:.3f}s (first call), CPU {t_cpu:.3f}s", flush=True)
+        if not math.isfinite(err) or err > limit:
+            raise AssertionError(f"matting {name}: card forward off the CPU's "
+                                 f"by {err} > {limit}")
+        remover = remover_cls(params, cfg)
+        torch.cuda.reset_peak_memory_stats()
+        secs = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            matte = remover(image)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        m = np.asarray(matte)
+        print(f"[matting] {name} remover at {cfg.size}² on a 512² image: "
+              f"{secs[0]:.3f}s first call, {secs[1]:.3f}s second; peak "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; matte "
+              f"{matte.mode} {matte.size} mean {m.mean():.1f}", flush=True)
+        if matte.mode != "L" or matte.size != image.size or not np.isfinite(
+                m.astype(np.float32)).all():
+            raise AssertionError(f"matting {name}: matte {matte.mode} "
+                                 f"{matte.size}")
+        del params, remover
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def write_matting_checkpoint(root: str, name: str, sd) -> int:
+    """The state dict ``sd`` of matting model ``name`` ("isnet" or
+    "birefnet") as ``<root>/briaai/RMBG-{1.4,2.0}/model.safetensors``, where
+    ``build_background_remover`` looks; returns its bytes."""
+    from safetensors.torch import save_file
+
+    d = os.path.join(root, "briaai",
+                     "RMBG-1.4" if name == "isnet" else "RMBG-2.0")
+    os.makedirs(d, exist_ok=True)
+    path = os.path.join(d, "model.safetensors")
+    save_file({k: v.contiguous().cpu() for k, v in sd.items()}, path)
+    nbytes = os.path.getsize(path)
+    print(f"[matting] wrote {path}: {nbytes} bytes", flush=True)
+    return nbytes
+
+
+def run_serving(attn, torch, pipe) -> None:
+    """Phase 13: ``unitex_torch.serving.serve`` over the resident phase-4
+    pipeline (``async_io=True``) answers two jobs over HTTP, the icosphere
+    by path and the torus inlined as base64; each must reach ``done``, its
+    GLB from ``/jobs/<id>/result`` must hold a finite texture of the
+    config's atlas (2048²), and the two must launch B1 exactly 2 x 456
+    times (57 blocks x 4 steps x 2 passes a job) and nothing else."""
+    import base64
+    import threading
+    import urllib.request
+
+    import numpy as np
+
+    from unitex_torch.geometry.io.mesh_io import load_mesh
+    from unitex_torch.serving import serve
+
+    cfg = pipe.flux_cfg
+    per_job = ((cfg.num_layers + cfg.num_single_layers)
+               * pipe.config.diffusion.num_inference_steps * 2)
+    uv = pipe.config.bake.uv_size
+
+    def request(url, payload=None):
+        data = None if payload is None else json.dumps(payload).encode()
+        req = urllib.request.Request(url, data=data, headers={
+            "Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return r.read()
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as d:
+        jobs = make_assets(d)
+        httpd = serve(pipe, os.path.join(d, "work"), port=0)
+        thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+        thread.start()
+        base = f"http://127.0.0.1:{httpd.server_address[1]}"
+        try:
+            before = _counts(attn)
+            t0 = time.perf_counter()
+            ids = []
+            for i, (name, mesh_path, img_path) in enumerate(jobs):
+                if i == 0:
+                    body = {"image_path": img_path, "mesh_path": mesh_path}
+                else:
+                    with open(img_path, "rb") as f:
+                        img = base64.b64encode(f.read()).decode()
+                    with open(mesh_path, "rb") as f:
+                        mesh = base64.b64encode(f.read()).decode()
+                    body = {"image_b64": img, "mesh_b64": mesh,
+                            "mesh_ext": ".obj"}
+                body["name"] = name
+                ids.append(json.loads(request(base + "/jobs", body))["id"])
+            recs = {}
+            while len(recs) < len(ids):
+                for job_id in ids:
+                    rec = json.loads(request(f"{base}/jobs/{job_id}"))
+                    if rec["status"] in ("done", "failed"):
+                        recs[job_id] = rec
+                time.sleep(0.1)
+            wall = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            n = tuple(a - b for a, b in zip(_counts(attn), before))
+            stage_sum = sum(r.get("preprocess_s", 0.0) + r.get("device_s", 0.0)
+                            for r in recs.values())
+            print(f"[serve] two HTTP jobs: wall {wall:.2f}s, sum of their "
+                  f"stages {stage_sum:.2f}s ("
+                  + ", ".join(f"{r['name']} {r['status']} preprocess "
+                              f"{r.get('preprocess_s', 0):.2f}s device "
+                              f"{r.get('device_s', 0):.2f}s"
+                              for r in recs.values())
+                  + f"); launches B1 {n[0]}", flush=True)
+            for job_id in ids:
+                rec = recs[job_id]
+                if rec["status"] != "done":
+                    raise AssertionError(f"serve: job {rec}")
+                glb = os.path.join(d, f"{job_id}.glb")
+                with open(glb, "wb") as f:
+                    f.write(request(f"{base}/jobs/{job_id}/result"))
+                tex = load_mesh(glb).texture
+                if tex is None or tex.shape[:2] != (uv, uv) or not \
+                        np.isfinite(tex.astype(np.float32)).all():
+                    raise AssertionError(f"serve: job {rec['name']} texture "
+                                         f"{None if tex is None else tex.shape}")
+            if n != (2 * per_job, 0, 0, 0, 0):
+                raise AssertionError(f"serve: launches B1/B2a/B2b/B3/B1(D=64) "
+                                     f"{n}, expected ({2 * per_job}, 0, 0, 0, 0)")
+        finally:
+            httpd.jobs.stop()
+            httpd.shutdown()
+            httpd.server_close()
 
 
 # tree key -> diffusers module name, where they differ
@@ -931,6 +1163,7 @@ def run_cli(attn, torch, root: str) -> None:
 
     from unitex_torch import run
     from unitex_torch.geometry.io.mesh_io import load_mesh
+    from unitex_torch.models.birefnet import BirefnetRemover
     from unitex_torch.models.flux.pipeline import make_reuse_mask
     from unitex_torch.utils.timer import CPUTimer
 
@@ -945,9 +1178,27 @@ def run_cli(attn, torch, root: str) -> None:
         torch.cuda.reset_peak_memory_stats()
         before = _counts(attn)
         t0 = time.perf_counter()
-        run.main(["--image", img_path, "--mesh", mesh_path, "--out", out,
-                  "--pretrain-models", root, "--fast-steps", str(FAST_STEPS),
-                  "--super-resolution"])
+        # the CLI's pipeline and the mattes its learned remover makes
+        pipes, mattes = [], []
+        pipe_cls, matte = run.CustomRGBTextureFullPipeline, BirefnetRemover.__call__
+
+        class Seen(pipe_cls):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                pipes.append(self)
+
+        def counted(self, image):
+            mattes.append(image.size)
+            return matte(self, image)
+
+        run.CustomRGBTextureFullPipeline, BirefnetRemover.__call__ = Seen, counted
+        try:
+            run.main(["--image", img_path, "--mesh", mesh_path, "--out", out,
+                      "--pretrain-models", root, "--fast-steps",
+                      str(FAST_STEPS), "--super-resolution"])
+        finally:
+            run.CustomRGBTextureFullPipeline = pipe_cls
+            BirefnetRemover.__call__ = matte
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         n = tuple(a - b for a, b in zip(_counts(attn), before))
@@ -973,6 +1224,13 @@ def run_cli(attn, torch, root: str) -> None:
               + " ".join(f"{k}={v:.3f}s" for k, v in stages.items())
               + f" peak {peak / 2**30:.2f} GiB launches B1 {n[0]} B1(D=64) "
               f"{n[4]} B3 {n[3]}", flush=True)
+        rembg = type(pipes[0].rembg).__name__ if pipes else None
+        print(f"[cli] matting: {rembg} from <root>/briaai/RMBG-2.0, called on "
+              f"{mattes}; preprocess_reference_image "
+              f"{rec['preprocess_reference_image']:.3f}s", flush=True)
+        if rembg != "BirefnetRemover" or len(mattes) != 1:
+            raise AssertionError(f"cli: matting by {rembg}, {len(mattes)} "
+                                 f"calls of BirefnetRemover")
         grids = {}
         for art in ("mv_rgb_lr.png", "mv_rgb.png"):
             path = os.path.join(out, "cache", art)
@@ -1063,13 +1321,17 @@ def run_int8_path(attn, torch, root: str) -> None:
                                         device="cuda")
     pipe.flux_cfg = dataclasses.replace(pipe.flux_cfg, attn_qk8=True)
     torch.cuda.synchronize()
+    # build_background_remover tries RMBG-1.4 first
+    if type(pipe.rembg).__name__ != "IsnetRemover":
+        raise AssertionError(f"int8: matting by {type(pipe.rembg).__name__}, "
+                             f"expected IsnetRemover")
     n_q, n_f = count_quantized(pipe.transformer_params)
     print(f"[int8] init (checkpoint streamed in bf16 + W8A8 quantization) "
           f"{time.perf_counter() - t0:.2f}s, peak "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; serving tree "
           f"{_tree_bytes(pipe.transformer_params) / 2**30:.2f} GiB ({n_q / 1e9:.3f} "
           f"G int8 elements, {n_f / 1e9:.3f} G float elements in leaves of 2+ "
-          f"axes); attn_qk8=True", flush=True)
+          f"axes); attn_qk8=True; matting by IsnetRemover", flush=True)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_int8_") as d:
         name, mesh_path, img_path = make_assets(d)[0]
         torch.cuda.reset_peak_memory_stats()
@@ -1433,12 +1695,13 @@ def run_oracle(torch, view_size: int = 512, uv_size: int = 2048,
 
 
 def _named_leaves(tree, prefix=""):
-    """("/a/0/b", leaf) of a tree of dicts and lists."""
+    """("/a/0/b", leaf) of a tree of dicts and lists (``None``, an absent
+    branch, has no leaf)."""
     if isinstance(tree, (dict, list)):
         items = tree.items() if isinstance(tree, dict) else enumerate(tree)
         for k, v in items:
             yield from _named_leaves(v, f"{prefix}/{k}")
-    else:
+    elif tree is not None:
         yield prefix, tree
 
 
@@ -1492,6 +1755,15 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
+    # phase 12: the learned matting models on the card
+    _reset(attn)
+    run_matting(torch)
+    torch.cuda.synchronize()
+    matting = _counts(attn)
+    if matting != (0, 0, 0, 0, 0):
+        return fail(f"launches B1/B2a/B2b/B3/B1(D=64) {matting} in the matting "
+                    f"models")
+
     _reset(attn)
     launches, pipe = run_main_path(attn, torch)
     torch.cuda.synchronize()
@@ -1499,6 +1771,15 @@ def main() -> int:
     if launches != serve[0] or launches == 0 or serve[1:] != (0, 0, 0, 0):
         return fail(f"launches B1/B2a/B2b/B3/B1(D=64) {serve} on the serving "
                     f"path")
+    torch.cuda.empty_cache()
+
+    # phase 13: the job server over HTTP on the resident phase-4 pipeline
+    _reset(attn)
+    run_serving(attn, torch, pipe)
+    torch.cuda.synchronize()
+    http = _counts(attn)
+    if http[0] == 0 or http[1:] != (0, 0, 0, 0):
+        return fail(f"launches B1/B2a/B2b/B3/B1(D=64) {http} on the job server")
     torch.cuda.empty_cache()
 
     _reset(attn)
@@ -1533,6 +1814,9 @@ def main() -> int:
         run_sd3_checkpoint(torch, models)
         gc.collect()
         torch.cuda.empty_cache()
+        # RMBG-2.0 weights for the CLI: its pipeline mattes with BiRefNet
+        write_matting_checkpoint(models, "birefnet",
+                                 matting_model(torch, "birefnet")[1])
         if _counts(attn) != (0, 0, 0, 0, 0):
             return fail(f"launches {_counts(attn)} while writing the checkpoint")
 
@@ -1545,6 +1829,9 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
 
+        # RMBG-1.4 weights beside them: the int8 pipeline mattes with ISNet
+        write_matting_checkpoint(models, "isnet",
+                                 matting_model(torch, "isnet")[1])
         _reset(attn)
         run_int8_path(attn, torch, models)
         torch.cuda.synchronize()
@@ -1575,10 +1862,10 @@ def main() -> int:
         return fail(f"launches B1/B2a/B2b/B3/B1(D=64) {oracle} on the oracle "
                     f"bakes")
 
-    paths = ("serve", "train", "ltm", "cli", "int8_serve", "sr_options",
-             "oracle")
-    for rec, *n in zip(records, serve, train, ltm, cli, int8, sr_options,
-                       oracle):
+    paths = ("matting", "serve", "http_serve", "train", "ltm", "cli",
+             "int8_serve", "sr_options", "oracle")
+    for rec, *n in zip(records, matting, serve, http, train, ltm, cli, int8,
+                       sr_options, oracle):
         rec["launches"] = sum(n)
         rec["launches_by_path"] = dict(zip(paths, n))
     keys = ("ms", "plain_ms", "bound_ms", "max_abs_err", "library_ms")

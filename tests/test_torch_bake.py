@@ -38,6 +38,7 @@ jimg = importlib.import_module("unitex_tpu.ops.image_ops")
 jknn = importlib.import_module("unitex_tpu.ops.knn")
 
 UV, VIEW = 128, 64
+KD_UV = 64          # the atlas of the ``bake_kdtree`` and blending cases
 MASK_AGREE = 0.999  # share of texels whose visibility / validity must match
 TEX_PSNR = 50.0     # dB over the valid texels: f32 on both sides, colours in [0, 1]
 
@@ -237,10 +238,11 @@ def test_geometry_size_matches_jax(scene):
 @pytest.fixture(scope="module")
 def kd_inputs(scene):
     """UV and view buffers and the per-view visibility at 150 degrees, in
-    both packages: the inputs of ``bake_kdtree``."""
+    both packages: the inputs of ``bake_kdtree``, on a 64² atlas (a quarter
+    of the KNN searches' queries)."""
     jm, tm, c2ws, intr, views = scene
     kw = dict(ray_normal_angle_threshold=150.0)
-    juv, tuv = jinv.uv_render(jm, UV), tinv.uv_render(tm, UV)
+    juv, tuv = jinv.uv_render(jm, KD_UV), tinv.uv_render(tm, KD_UV)
     jmv = jinv.mv_render(jm, jnp.asarray(c2ws), jnp.asarray(intr), (VIEW, VIEW), **kw)
     tmv = tinv.mv_render(tm, _t(c2ws), _t(intr), (VIEW, VIEW), **kw)
     # one compile of the whole visibility instead of an eager compile per op

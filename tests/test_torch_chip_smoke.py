@@ -3,7 +3,8 @@ kernel's line in the script's output carries its own registers and spill
 text, B1's two head-width instantiations apart), the tree -> diffusers
 names of the checkpoints it writes (FLUX, VAE, SD3), read back through
 the port's loaders at tiny size, the SR stage's derived launch count,
-phase 10's comparison with ORACLE_r05.json and the result lines.  ``chip_smoke.py`` imports
+phase 10's comparison with ORACLE_r05.json, phase 12 (matting) at tiny
+size and the result lines.  ``chip_smoke.py`` imports
 only the standard library at its top; the parser's tests need neither a
 card, PyTorch nor JAX."""
 
@@ -218,3 +219,38 @@ def test_the_last_line_is_the_result():
         "platform": "gpu", "kind": "NVIDIA H100 80GB HBM3", "count": 1}}
     assert lines[2] == ('{"ok": true, "device": {"platform": "gpu", "kind": '
                         '"NVIDIA H100 80GB HBM3", "count": 1}}')
+
+
+def test_matting_phase_and_checkpoints_rehearse_on_the_cpu(tmp_path, monkeypatch,
+                                                           capsys):
+    """Phase 12 on the CPU at tiny configs and 64² forwards (the card's
+    calls stubbed): both models' forwards, removers and lines; then the
+    seeded state dicts written where ``build_background_remover`` looks
+    pick ISNet (RMBG-1.4 is tried first) and, alone, BiRefNet (the default
+    configs patched to tiny)."""
+    import dataclasses
+
+    import torch
+
+    from unitex_torch.image import isnet, rembg
+    from unitex_torch.models import birefnet
+
+    cs = _chip_smoke()
+    for fn in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
+        monkeypatch.setattr(torch.cuda, fn, lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
+    tiny = {"isnet": dataclasses.replace(isnet.IsnetConfig.tiny(), size=64),
+            "birefnet": birefnet.BiRefNetConfig.tiny()}
+    cs.run_matting(torch, "cpu", tiny, forward_size=64)
+    out = capsys.readouterr().out
+    for name in tiny:
+        assert f"[matting] {name} (" in out and f"[matting] {name} remover" in out
+    monkeypatch.setattr(isnet.IsnetConfig, "rmbg14", staticmethod(lambda: tiny["isnet"]))
+    monkeypatch.setattr(birefnet.BiRefNetConfig, "rmbg20",
+                        staticmethod(birefnet.BiRefNetConfig.tiny))
+    root = str(tmp_path)
+    for name, cls in (("birefnet", birefnet.BirefnetRemover),
+                      ("isnet", isnet.IsnetRemover)):
+        sd = cs.matting_model(torch, name, "cpu", tiny[name])[1]
+        assert cs.write_matting_checkpoint(root, name, sd) > 0
+        assert isinstance(rembg.build_background_remover(root, device="cpu"), cls)

@@ -118,11 +118,15 @@ def _forward_inputs():
 FORWARD_INPUTS = _forward_inputs()
 
 
+# one compile of the whole forward instead of one for each of its ops
+_jax_flux_forward = jax.jit(jmodel.flux_forward, static_argnums=1)
+
+
 def _forwards(tree, inputs, tcfg=None):
     """(port, JAX) flux_forward of one numpy tree on the same inputs."""
     *args, g = inputs
-    want = jmodel.flux_forward(jax.tree.map(jnp.asarray, tree),
-                               JFluxConfig.tiny(), *args, guidance=g)
+    want = _jax_flux_forward(jax.tree.map(jnp.asarray, tree),
+                             JFluxConfig.tiny(), *args, guidance=g)
     got = tmodel.flux_forward(params_from_jax(tree, "cpu"),
                               tcfg or TFluxConfig.tiny(),
                               *map(torch.from_numpy, args),
@@ -193,14 +197,15 @@ def test_vae_matches_jax(vae_tree, mode):
     jp = jax.tree.map(jnp.asarray, vae_tree)
     if mode == "decode":
         z = rng.normal(size=(1, 8, 12, jc.latent_channels)).astype(np.float32)
-        want = jvae.vae_decode(jp, jc, z)
+        want = jax.jit(jvae.vae_decode, static_argnums=1)(jp, jc, z)
         got = tvae.vae_decode(tp, tc, torch.from_numpy(z))
     else:
         img = rng.uniform(-1, 1, size=(1, 16, 24, 3)).astype(np.float32)
         eps = None
         if mode == "encode_sample":
             eps = rng.normal(size=(1, 8, 12, jc.latent_channels)).astype(np.float32)
-        want = jvae.vae_encode(jp, jc, img, sample_eps=eps)
+        want = jax.jit(jvae.vae_encode, static_argnums=1)(jp, jc, img,
+                                                          sample_eps=eps)
         got = tvae.vae_encode(tp, tc, torch.from_numpy(img),
                               sample_eps=None if eps is None else torch.from_numpy(eps))
     assert tuple(got.shape) == tuple(want.shape)

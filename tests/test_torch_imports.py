@@ -103,6 +103,10 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
     from unitex_torch.utils.precision import resolve_device
 
     from unitex_torch import run
+    from unitex_torch.image.isnet import convert_isnet_torch, load_isnet
+    from unitex_torch.image.rembg import build_background_remover
+    from unitex_torch.models.birefnet import convert_birefnet_torch, load_birefnet
+    from unitex_torch.scripts import batch_pipeline, serve_pipeline
     from unitex_torch.scripts.train_flux_lora import parse_args
     from unitex_torch.training.data import SyntheticTextureDataset
     from unitex_torch.training.flux_lora import create_train_state
@@ -114,6 +118,13 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
     assert SyntheticTextureDataset().device == "cuda"
     assert parse_args([]).device == "cuda"
     assert run.parse_args(["--image", "i.png", "--mesh", "m.obj"]).device == "cuda"
+    assert batch_pipeline.parse_args(["jobs"]).device == "cuda"
+    assert serve_pipeline.parse_args([]).device == "cuda"
+    assert inspect.signature(
+        build_background_remover).parameters["device"].default == "cuda"
+    for fn in (convert_isnet_torch, load_isnet, convert_birefnet_torch,
+               load_birefnet):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: nothing to refuse")
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -385,17 +385,3 @@ def test_background_remover_without_learned_weights_is_the_heuristic(tmp_path):
         remover = trembg.build_background_remover(root)
         assert isinstance(remover, trembg.SaliencyRemover)
         np.testing.assert_array_equal(np.asarray(remover(image)), want)
-
-
-@pytest.mark.parametrize("weights", trembg.LEARNED_WEIGHTS)
-def test_background_remover_refuses_learned_weights(tmp_path, weights):
-    """Where the JAX package would build a learned backend, the port
-    raises instead of giving the heuristic's other mask."""
-    path = tmp_path / weights
-    if weights.endswith("RMBG-2.0"):
-        path.mkdir(parents=True)
-    else:
-        path.parent.mkdir(parents=True, exist_ok=True)
-        path.write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        trembg.build_background_remover(str(tmp_path))

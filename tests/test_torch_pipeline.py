@@ -1,7 +1,7 @@
 """The ported texturing path as a whole against the JAX pipeline.
 
 Both ``CustomRGBTextureFullPipeline``s run one job on the small config of
-tests/test_golden_parity.py, cut to 32² views and 128² atlases, with a tiny
+tests/test_golden_parity.py, cut to 32² views and 64² atlases, with a tiny
 random FLUX + VAE (one numpy tree,
 made by the port's seeded init and carried into the port by
 ``params_from_jax``) and
@@ -55,14 +55,14 @@ def _numpy_tree(tree):
 
 
 def _small():
-    """tests/test_golden_parity.py's small config with 32² views and 128²
+    """tests/test_golden_parity.py's small config with 32² views and 64²
     atlases: every stage and artifact of the job, at a quarter of the
-    pixels."""
+    view pixels and a sixteenth of the atlas texels."""
     jc = small_config()
     return dataclasses.replace(
         jc, camera=dataclasses.replace(jc.camera, view_size=32),
-        mesh=dataclasses.replace(jc.mesh, uv_size=128),
-        bake=dataclasses.replace(jc.bake, uv_size=128))
+        mesh=dataclasses.replace(jc.mesh, uv_size=64),
+        bake=dataclasses.replace(jc.bake, uv_size=64))
 
 
 def _port_config(jc=None):
@@ -189,7 +189,8 @@ def test_weightless_pipeline_matches_jax(assets, tmp_path):
 @pytest.mark.parametrize("ltm_auto", [None, 0.0], ids=["field", "knn"])
 def test_ltm_pipeline_matches_jax(assets, tmp_path, monkeypatch, ltm_auto):
     """``RGBTextureFullPipeline`` (the LTM fill, step_2_2) in both packages,
-    weightless, with one tiny LTM tree from the JAX init (the counterpart
+    weightless, with one tiny LTM tree from the port's seeded init (the
+    counterpart
     of tests/test_pipeline.py's ``TestLTMPipeline``): every image artifact
     scored as in :func:`test_pipeline_artifacts_match_jax`, in both fill
     branches: ``None`` always takes the field, 0.0 always the k=8 fill
@@ -197,10 +198,10 @@ def test_ltm_pipeline_matches_jax(assets, tmp_path, monkeypatch, ltm_auto):
     at 64² views the gradient filter leaves the sphere's chart about 13 %
     visible.)"""
     from unitex_tpu.models.ltm import LTMConfig as JLTMConfig
-    from unitex_tpu.models.ltm import init_ltm_params as j_init_ltm
     from unitex_tpu.pipeline import RGBTextureFullPipeline as JLTMPipeline
 
     from unitex_torch.models.ltm import LTMConfig as TLTMConfig
+    from unitex_torch.models.ltm import init_ltm_params as t_init_ltm
     from unitex_torch.pipeline import RGBTextureFullPipeline as TLTMPipeline
 
     import unitex_tpu.models.ltm as jltm_mod
@@ -212,16 +213,19 @@ def test_ltm_pipeline_matches_jax(assets, tmp_path, monkeypatch, ltm_auto):
     mesh_path, img_path = assets
     empty = str(tmp_path / "no_weights")
     os.makedirs(empty)
-    jtree = jax.jit(j_init_ltm, static_argnums=1)(jax.random.key(0),
-                                                 JLTMConfig.tiny())
+    # the port's init (tests/test_torch_ltm.py holds its layout to JAX's):
+    # the JAX init's compile is not paid here
+    tree = _numpy_tree(t_init_ltm(torch.Generator().manual_seed(0),
+                                  TLTMConfig.tiny(), device="cpu"))
     jdir, tdir = str(tmp_path / "jax"), str(tmp_path / "torch")
     jcfg = _ltm_config()
-    JLTMPipeline(pretrain_models=empty, seed=63, config=jcfg, ltm_params=jtree,
+    JLTMPipeline(pretrain_models=empty, seed=63, config=jcfg,
+                 ltm_params=jax.tree.map(jax.numpy.asarray, tree),
                  ltm_cfg=JLTMConfig.tiny(), ltm_auto=ltm_auto)(
         jdir, img_path, mesh_path)
     tpipe = TLTMPipeline(pretrain_models=empty, seed=63,
                          config=_port_config(jcfg),
-                         ltm_params=params_from_jax(_numpy_tree(jtree), "cpu"),
+                         ltm_params=params_from_jax(tree, "cpu"),
                          ltm_cfg=TLTMConfig.tiny(), ltm_auto=ltm_auto,
                          device="cpu")
     _, glb = tpipe(tdir, img_path, mesh_path)

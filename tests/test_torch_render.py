@@ -164,6 +164,60 @@ def test_rasterize_picks_jax_triangle_on_shared_edges(route):
         assert (tr.tri.numpy() >= 0).mean() > 0.1  # the torus fills the view
 
 
+def _soup(seed, n=300):
+    """Random clip-space triangles: some behind the camera, some off
+    screen, every 17th degenerate, vertices snapped to 1/8 of NDC (pixel
+    centres on edges) for odd seeds."""
+    rng = np.random.default_rng(seed)
+    v = rng.normal(size=(3 * n, 4)).astype(np.float32)
+    v[:, 3] = rng.uniform(-0.3, 1.7, size=3 * n)
+    v[:, 2] = np.clip(v[:, 2], -1.5, 1.5) * v[:, 3]
+    if seed % 2:
+        v[:, :2], v[:, 3] = np.round(v[:, :2] * 8) / 8, 1.0
+    faces = np.arange(3 * n).reshape(n, 3)
+    faces[::17, 2] = faces[::17, 1]
+    return v, faces
+
+
+@pytest.mark.parametrize("case", ["icosphere-ortho", "icosphere-persp",
+                                  "torus-shared-edges", "uv", "soup0", "soup1"])
+def test_cpu_pair_rasterizer_equals_the_band_rasterizer(sphere, case, monkeypatch):
+    """The CPU's rasterizer (each face over its screen box) against the
+    card's (all faces over bands of rows), both run here: the same
+    triangle, barycentrics and depth for every pixel, bit for bit, with
+    the pairs in one block and in blocks of 257 (a pixel's faces split
+    across blocks)."""
+    size = (37, 53)
+    if case.startswith("icosphere"):
+        v, faces = _clip(sphere[0], 1, perspective=case.endswith("persp")), sphere[1].faces
+    elif case == "torus-shared-edges":
+        host = unwrap_atlas(make_torus(), size=128, gutter=2)
+        c2ws, intr = jcond.condition_cameras()
+        mvp = jconv.get_mvp(c2ws, jnp.broadcast_to(intr, (6, 3, 3)))
+        v = np.asarray(jconv.transform_points_mat4(
+            jnp.asarray(host.vertices.astype(np.float32) * np.float32(0.9)), mvp[2]))
+        faces, size = host.faces, (32, 32)
+    elif case == "uv":
+        uv = sphere[1].uv
+        v = np.concatenate([uv * 2 - 1, np.zeros_like(uv[:, :1]),
+                            np.ones_like(uv[:, :1])], -1).astype(np.float32)
+        faces, size = sphere[1].faces_uv, (64, 64)
+    else:
+        v, faces = _soup(int(case[-1]))
+    pix, z, w, valid = trast._triangle_setup(_t(v), _t(faces, torch.int64), *size)
+    bands = trast._rasterize_bands(pix, z, w, valid, *size, face_chunk=64)
+    assert (bands.tri >= 0).any()
+    for block in (trast._PAIR_BLOCK, 257):
+        monkeypatch.setattr(trast, "_PAIR_BLOCK", block)
+        pairs = trast._rasterize_pairs(pix, z, w, valid, *size)
+        for key in ("tri", "bary", "z"):
+            got, want = getattr(pairs, key), getattr(bands, key)
+            assert got.shape == want.shape and got.dtype == want.dtype
+            if got.is_floating_point():
+                got, want = got.view(torch.int32), want.view(torch.int32)
+            assert torch.equal(got, want), (key, block)
+
+
 def test_rasterize_uv_and_interpolate_match_jax(sphere):
     v, host = sphere
     tr = trast.rasterize_uv(_t(host.uv), _t(host.faces_uv, torch.int64), 128)

@@ -1,8 +1,9 @@
 """Triangle rasterization in PyTorch (port of unitex_tpu/ops/rasterize.py).
 
 Edge functions are evaluated for (pixel block x face chunk) pairs with a
-running z-buffer; above ``binned_threshold`` faces the tile-binned
-rasterizer (ops/rasterize_binned.py) takes over.  The arithmetic follows
+running z-buffer on the card, and for each face's screen box on the CPU;
+above ``binned_threshold`` faces the tile-binned rasterizer
+(ops/rasterize_binned.py) takes over.  The arithmetic follows
 the JAX package step for step, so the edge-inclusion (``>= 0`` on all
 three edge functions, double-sided) and depth-tie (first face index of
 the smallest z wins) rules are the same.
@@ -25,6 +26,8 @@ from ..utils.precision import exact_f32
 # pixels evaluated at once by the brute-force rasterizer (a band of whole
 # rows): bounds the [pixels, face_chunk] edge-function temporaries
 _PIXEL_BLOCK = 4096
+# (face, pixel) pairs evaluated at once by the CPU rasterizer
+_PAIR_BLOCK = 1 << 18
 
 
 @dataclasses.dataclass(frozen=True)
@@ -119,13 +122,95 @@ def _pick(z_masked, b0, b1, b2, w):
     return zb, best, pc
 
 
-def _rasterize_brute(pix, z_ndc, w_clip, valid, H, W, face_chunk):
-    """All faces against every pixel, tile by tile: bands of rows on the
-    card, 32 x 32 tiles on the CPU (where every evaluation costs).  A tile
-    only evaluates the faces whose screen box reaches it (with a one-pixel
-    margin), in face order; a face that cannot reach the tile is never
-    inside there, so the result — nearest z, ties to the lowest face
-    index — is the one of the full evaluation."""
+def _rasterize_pairs(pix, z_ndc, w_clip, valid, H, W):
+    """The CPU's brute force: each face against the pixels of its screen
+    box widened by more than a pixel (a face never reaches a pixel farther
+    out, as :func:`_rasterize_bands` also relies on), as a flat list of
+    (face, pixel) pairs in face order.  Every pair's arithmetic is
+    :func:`_edge_eval`'s and :func:`_pick`'s, element for element; each
+    pixel keeps the nearest z, ties to the lowest face index, so the
+    buffers are those of :func:`_rasterize_bands` bit for bit, for a few
+    pairs a face instead of whole bands of pixels."""
+    HW = H * W
+    zbuf = torch.full((HW,), float("inf"))
+    tribuf = torch.full((HW,), -1, dtype=torch.int64)
+    b1buf = torch.zeros(HW)
+    b2buf = torch.zeros(HW)
+    ids = torch.nonzero(valid & torch.isfinite(pix).flatten(1).all(dim=1))[:, 0]
+    x0 = torch.ceil(pix[ids, :, 0].amin(dim=1) - 2).clamp(0, W).long()
+    x1 = torch.floor(pix[ids, :, 0].amax(dim=1) + 1).clamp(-1, W - 1).long()
+    y0 = torch.ceil(pix[ids, :, 1].amin(dim=1) - 2).clamp(0, H).long()
+    y1 = torch.floor(pix[ids, :, 1].amax(dim=1) + 1).clamp(-1, H - 1).long()
+    nx = (x1 - x0 + 1).clamp(min=0)
+    counts = nx * (y1 - y0 + 1).clamp(min=0)
+    ends = torch.cumsum(counts, 0)
+    total = int(ends[-1]) if ends.numel() else 0
+    for p0 in range(0, total, _PAIR_BLOCK):
+        p = torch.arange(p0, min(total, p0 + _PAIR_BLOCK))
+        face = torch.searchsorted(ends, p, right=True)  # into ids, ascending
+        j = p - (ends - counts)[face]
+        xi = x0[face] + j % nx[face]
+        yi = y0[face] + j // nx[face]
+        fid = ids[face]
+        z_masked, b0, b1, b2 = _edge_eval_pairs(
+            xi.float() + 0.5, yi.float() + 0.5, pix[fid], z_ndc[fid])
+        hit = torch.nonzero(torch.isfinite(z_masked))[:, 0]
+        if hit.numel() == 0:
+            continue
+        px_id, zh, face = (yi * W + xi)[hit], z_masked[hit], face[hit]
+        zmin = torch.full((HW,), float("inf")).scatter_reduce_(
+            0, px_id, zh, "amin")
+        cand = torch.nonzero(zh == zmin[px_id])[:, 0]
+        first = torch.full((HW,), ids.numel(), dtype=torch.int64)
+        first.scatter_reduce_(0, px_id[cand], face[cand], "amin")
+        win = hit[cand[face[cand] == first[px_id[cand]]]]
+        pw = (yi * W + xi)[win]
+        bb = torch.stack([b0[win], b1[win], b2[win]], dim=-1)
+        pc = bb / w_clip[fid[win]]
+        pc = pc / torch.sum(pc, dim=-1, keepdim=True)
+        better = z_masked[win] < zbuf[pw]
+        pw = pw[better]
+        zbuf[pw] = z_masked[win][better]
+        tribuf[pw] = fid[win][better]
+        b1buf[pw] = pc[better, 1]
+        b2buf[pw] = pc[better, 2]
+    zbuf = torch.where(torch.isinf(zbuf), torch.ones_like(zbuf), zbuf)
+    return Rast(torch.stack([b1buf, b2buf], dim=-1).view(H, W, 2),
+                zbuf.view(H, W), tribuf.view(H, W))
+
+
+def _edge_eval_pairs(px, py, pix, z):
+    """:func:`_edge_eval` of pair n's pixel centre (px[n], py[n]) against
+    pair n's valid face (pix[n] [3, 2], z[n] [3]): (z_masked, b0, b1, b2)
+    [N] each."""
+    ax, ay = pix[:, 0, 0], pix[:, 0, 1]
+    bx, by = pix[:, 1, 0], pix[:, 1, 1]
+    cx, cy = pix[:, 2, 0], pix[:, 2, 1]
+    area = _cross(bx - ax, cy - ay, by - ay, cx - ax)
+    nz = torch.abs(area) > 1e-12
+    inv_area = torch.where(nz, 1.0 / area, torch.zeros_like(area))
+
+    def edge(x1, y1, x2, y2):
+        return _cross(x2 - x1, py - y1, y2 - y1, px - x1)
+
+    e0 = edge(bx, by, cx, cy)    # weight of v0
+    e1 = edge(cx, cy, ax, ay)    # weight of v1
+    e2 = edge(ax, ay, bx, by)    # weight of v2
+    s = torch.sign(area)
+    inside = (e0 * s >= 0) & (e1 * s >= 0) & (e2 * s >= 0) & nz
+    b0, b1, b2 = e0 * inv_area, e1 * inv_area, e2 * inv_area
+    zs = b0 * z[:, 0] + b1 * z[:, 1] + b2 * z[:, 2]
+    inside &= (zs >= -1.0) & (zs <= 1.0)
+    z_masked = torch.where(inside, zs, torch.full_like(zs, float("inf")))
+    return z_masked, b0, b1, b2
+
+
+def _rasterize_bands(pix, z_ndc, w_clip, valid, H, W, face_chunk):
+    """The card's brute force: all faces against every pixel, in bands of
+    rows.  A band only evaluates the faces whose screen box reaches it
+    (with a one-pixel margin), in face order; a face that cannot reach the
+    band is never inside there, so the result — nearest z, ties to the
+    lowest face index — is the one of the full evaluation."""
     dev = pix.device
     zbuf = torch.full((H, W), float("inf"), device=dev)
     tribuf = torch.full((H, W), -1, dtype=torch.int64, device=dev)
@@ -134,37 +219,31 @@ def _rasterize_brute(pix, z_ndc, w_clip, valid, H, W, face_chunk):
     xs = torch.arange(W, dtype=torch.float32, device=dev) + 0.5
     xmin, xmax = pix[..., 0].min(dim=1).values, pix[..., 0].max(dim=1).values
     ymin, ymax = pix[..., 1].min(dim=1).values, pix[..., 1].max(dim=1).values
-    if dev.type == "cpu":
-        tile_h, tile_w = min(H, 32), min(W, 32)
-    else:
-        tile_h, tile_w = max(1, _PIXEL_BLOCK // W), W
-    for r0 in range(0, H, tile_h):
-        r1 = min(H, r0 + tile_h)
-        rows = (ymax >= r0 - 1) & (ymin <= r1 + 1)
+    on_screen = (xmax >= -1) & (xmin <= W + 1)
+    band = max(1, _PIXEL_BLOCK // W)
+    for r0 in range(0, H, band):
+        r1 = min(H, r0 + band)
+        sel = torch.nonzero(on_screen & (ymax >= r0 - 1) & (ymin <= r1 + 1))[:, 0]
+        if sel.numel() == 0:
+            continue
         ys = torch.arange(r0, r1, dtype=torch.float32, device=dev) + 0.5
-        for c0 in range(0, W, tile_w):
-            c1 = min(W, c0 + tile_w)
-            sel = torch.nonzero(rows & (xmax >= c0 - 1) & (xmin <= c1 + 1))[:, 0]
-            if sel.numel() == 0:
-                continue
-            px = xs[None, c0:c1].expand(r1 - r0, c1 - c0).reshape(-1)
-            py = ys[:, None].expand(r1 - r0, c1 - c0).reshape(-1)
-            tile = (slice(r0, r1), slice(c0, c1))
-            z_t, tri_t = zbuf[tile].reshape(-1), tribuf[tile].reshape(-1)
-            b1_t, b2_t = b1buf[tile].reshape(-1), b2buf[tile].reshape(-1)
-            for f0 in range(0, sel.numel(), face_chunk):
-                ids = sel[f0:f0 + face_chunk]
-                z_masked, b0, b1, b2 = _edge_eval(
-                    px, py, pix[ids], z_ndc[ids], w_clip[ids], valid[ids])
-                zb, best, pc = _pick(z_masked, b0, b1, b2, w_clip[ids])
-                better = zb < z_t
-                z_t = torch.where(better, zb, z_t)
-                tri_t = torch.where(better, ids[best], tri_t)
-                b1_t = torch.where(better, pc[:, 1], b1_t)
-                b2_t = torch.where(better, pc[:, 2], b2_t)
-            shape = (r1 - r0, c1 - c0)
-            zbuf[tile], tribuf[tile] = z_t.view(shape), tri_t.view(shape)
-            b1buf[tile], b2buf[tile] = b1_t.view(shape), b2_t.view(shape)
+        px = xs[None, :].expand(r1 - r0, W).reshape(-1)
+        py = ys[:, None].expand(r1 - r0, W).reshape(-1)
+        z_t, tri_t = zbuf[r0:r1].reshape(-1), tribuf[r0:r1].reshape(-1)
+        b1_t, b2_t = b1buf[r0:r1].reshape(-1), b2buf[r0:r1].reshape(-1)
+        for f0 in range(0, sel.numel(), face_chunk):
+            ids = sel[f0:f0 + face_chunk]
+            z_masked, b0, b1, b2 = _edge_eval(
+                px, py, pix[ids], z_ndc[ids], w_clip[ids], valid[ids])
+            zb, best, pc = _pick(z_masked, b0, b1, b2, w_clip[ids])
+            better = zb < z_t
+            z_t = torch.where(better, zb, z_t)
+            tri_t = torch.where(better, ids[best], tri_t)
+            b1_t = torch.where(better, pc[:, 1], b1_t)
+            b2_t = torch.where(better, pc[:, 2], b2_t)
+        shape = (r1 - r0, W)
+        zbuf[r0:r1], tribuf[r0:r1] = z_t.view(shape), tri_t.view(shape)
+        b1buf[r0:r1], b2buf[r0:r1] = b1_t.view(shape), b2_t.view(shape)
     zbuf = torch.where(torch.isinf(zbuf), torch.ones_like(zbuf), zbuf)
     return Rast(torch.stack([b1buf, b2buf], dim=-1), zbuf, tribuf)
 
@@ -202,7 +281,9 @@ def rasterize(
             tile_batch=tile_batch,
         )
     pix, z_ndc, w_clip, valid = _triangle_setup(verts_clip, faces, H, W)
-    return _rasterize_brute(pix, z_ndc, w_clip, valid, H, W, face_chunk)
+    if verts_clip.device.type == "cpu":
+        return _rasterize_pairs(pix, z_ndc, w_clip, valid, H, W)
+    return _rasterize_bands(pix, z_ndc, w_clip, valid, H, W, face_chunk)
 
 
 def rasterize_uv(

@@ -38,7 +38,12 @@ cache (``params_cache``, optionally int4-packed with
 ``super_resolutions=True`` adds TSD-SR (SD3-medium and its VAE from
 ``<pretrain_models>/sd3``; without them the bicubic x4 upscale, as in
 the JAX package), whole grid, or per view under ``"max_memory"``.
-Deferred (``NotImplementedError``): ``async_io`` and multi-GPU placement.
+Reference-image matting is the JAX package's choice of backend
+(``image/rembg.py``): ISNet for ``<root>/briaai/RMBG-1.4`` weights,
+BiRefNet for ``<root>/briaai/RMBG-2.0``, on ``device``; else the
+heuristic.  ``async_io=True`` puts the GLB encode and the copies after it
+on one writer thread, in order, so they overlap the next job's device
+work; ``flush_io()`` waits for them.  Deferred: multi-GPU placement.
 """
 
 from __future__ import annotations
@@ -139,8 +144,6 @@ class RGBTextureFullPipelineBase:
         params_cache_int4: bool = False,
         device="cuda",
     ):
-        if async_io:
-            raise NotImplementedError("async_io is not ported")
         if int8_serving not in _CACHE_MODES:
             raise ValueError(f"int8_serving must be False, True or "
                              f"'max_memory', got {int8_serving!r}")
@@ -161,7 +164,16 @@ class RGBTextureFullPipelineBase:
         self.params_cache_int4 = params_cache_int4 and bool(int8_serving)
         # kinds whose cache failed validation: the rebuilt tree overwrites
         self._stale_caches: set = set()
-        self.rembg = build_background_remover(pretrain_models)
+        # async_io: the GLB encode and write and the copies after it run on
+        # one writer thread, which keeps their order; flush_io() joins them
+        self._io_pool = None
+        self._io_pending = []
+        if async_io:
+            from concurrent.futures import ThreadPoolExecutor
+
+            self._io_pool = ThreadPoolExecutor(max_workers=1)
+        self.rembg = build_background_remover(pretrain_models,
+                                              device=self.device)
         self.flux_cfg = FluxConfig.flux1_dev()
         self.vae_cfg = VAEConfig.flux()
         self._flux_loaded = False
@@ -376,6 +388,73 @@ class RGBTextureFullPipelineBase:
         return torch.Generator(device=self.device).manual_seed(self.seed)
 
     # ------------------------------------------------------------ stages
+
+    def _submit_io(self, fn, *args) -> None:
+        """Run ``fn(*args)`` now, or with ``async_io`` enqueue it on the
+        ordered one-thread writer pool."""
+        if self._io_pool is None:
+            fn(*args)
+        else:
+            # a long-lived server never flushes: drop the writes that ended
+            # well, keep the failures for flush_io to raise
+            self._io_pending = [f for f in self._io_pending
+                                if not f.done() or f.exception() is not None]
+            self._io_pending.append(self._io_pool.submit(fn, *args))
+
+    def flush_io(self) -> None:
+        """Wait for every pending write, re-raising the first failure."""
+        pending, self._io_pending = self._io_pending, []
+        for f in pending:
+            f.result()
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def prewarm(self, n_faces_hint: int = 20_000) -> Dict[str, float]:
+        """Run every device stage once on a synthetic asset (an icosphere
+        at the face budget's default bucket and a flat 256² image) before
+        the first real job, so a server's first job does not pay the
+        kernels' builds and the allocator's growth; returns the seconds of
+        each stage.  The job server calls it on its device thread."""
+        import tempfile
+
+        from PIL import Image
+
+        from .geometry.primitives import make_icosphere
+
+        timings: Dict[str, float] = {}
+        with tempfile.TemporaryDirectory(prefix="prewarm_") as d:
+            subdiv, faces = 2, 320
+            while faces * 4 <= max(n_faces_hint, 1280):
+                subdiv, faces = subdiv + 1, faces * 4
+            mesh_path = os.path.join(d, "prewarm.obj")
+            save_mesh(mesh_path, make_icosphere(subdiv))
+            img = np.full((256, 256, 3), 255, np.uint8)
+            img[64:192, 64:192] = [180, 80, 40]
+            img_path = os.path.join(d, "prewarm.png")
+            Image.fromarray(img).save(img_path)
+
+            t0 = time.perf_counter()
+            processed, ref_image = self.preprocess_job(d, img_path, mesh_path)
+            timings["host_preprocess"] = time.perf_counter() - t0
+
+            t0 = time.perf_counter()
+            condition = self.render_geometry_images_stage(d, processed)
+            self._sync()
+            timings["render_geometry"] = time.perf_counter() - t0
+
+            t0 = time.perf_counter()
+            mv_rgb = self.infer_mv_stage(d, ref_image, condition)
+            self._sync()
+            timings["infer_mv"] = time.perf_counter() - t0
+
+            t0 = time.perf_counter()
+            self.reproject_stage(d, condition["mesh"], mv_rgb, condition,
+                                 processed)
+            self.flush_io()
+            timings["reproject"] = time.perf_counter() - t0
+        return {k: round(v, 2) for k, v in timings.items()}
 
     def preprocess_job(self, save_dir: str, image_path: str, mesh_path: str):
         """All host-side preprocessing of one job (mesh normalize/decimate/
@@ -638,15 +717,16 @@ class RGBTextureFullPipelineBase:
 
     def _write_textured(self, save_dir: str, texture: torch.Tensor,
                         processed_mesh: HostMesh, save_uv: bool) -> str:
-        """The GLB of the baked texture, and ``completed_uv.png`` with
-        ``save_uv``; keeps the f32 texture as ``last_texture`` for callers
-        that check it."""
+        """The GLB of the baked texture (written through :meth:`_submit_io`),
+        and ``completed_uv.png`` with ``save_uv``; keeps the f32 texture as
+        ``last_texture`` for callers that check it.  The texture comes to
+        the host here, so only the calling thread touches the device."""
         self.last_texture = texture
         tex_u8 = _host(to_uint8_device(texture))
         if save_uv:
             save_image(os.path.join(save_dir, "completed_uv.png"), tex_u8)
         glb_path = os.path.join(save_dir, "textured_mesh.glb")
-        save_mesh(glb_path, HostMesh(
+        self._submit_io(save_mesh, glb_path, HostMesh(
             processed_mesh.vertices, processed_mesh.faces,
             uv=processed_mesh.uv, faces_uv=processed_mesh.faces_uv,
             texture=tex_u8,
@@ -693,13 +773,15 @@ class RGBTextureFullPipelineBase:
         glb_path = bake_stage(cache, condition["mesh"], mv_rgb, condition,
                               processed_mesh)
         if export_video:
+            self.flush_io()  # the exporter reads the GLB back from disk
             self.export_video_stage(cache, glb_path, "textured_mesh.mp4")
         rembg_out = os.path.join(save_dir, "rembg_image.png")
         glb_out = os.path.join(save_dir, "textured_mesh.glb")
         shutil.copy(os.path.join(cache, "rembg_image.png"), rembg_out)
-        shutil.copy(glb_path, glb_out)
+        # ordered behind the GLB's write on the same writer thread
+        self._submit_io(shutil.copy, glb_path, glb_out)
         if clear_cache:
-            shutil.rmtree(cache)
+            self._submit_io(shutil.rmtree, cache)
         return rembg_out, glb_out
 
     @CPUTimer("export_video")

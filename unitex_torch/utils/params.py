@@ -25,7 +25,10 @@ Spec = Dict[str, Union["Spec", LeafSpec]]
 def params_from_jax(tree: Any, device="cuda", dtype: torch.dtype | None = None):
     """Nested dict (or list) of numpy/JAX arrays -> the same structure of
     torch tensors on ``device``.  Floating leaves are cast to ``dtype``
-    when given; integer leaves keep their type."""
+    when given; integer leaves keep their type; ``None`` (an absent
+    branch, such as the last Swin stage's downsample) stays ``None``."""
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {k: params_from_jax(v, device, dtype) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -39,6 +42,8 @@ def params_from_jax(tree: Any, device="cuda", dtype: torch.dtype | None = None):
 
 def tree_to(tree: Any, device):
     """A nested dict/list of tensors, each moved to ``device``."""
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {k: tree_to(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -90,7 +95,7 @@ def tree_shapes(tree) -> Dict[str, tuple]:
         elif isinstance(node, (list, tuple)):
             for i, v in enumerate(node):
                 walk(v, f"{prefix}/{i}")
-        else:
+        elif node is not None:
             out[prefix] = tuple(node.shape)
 
     walk(tree, "")
