@@ -29,7 +29,13 @@ non-zero:
    at D = 64 (its second instantiation, the SD3 transformer's heads) at
    [8, 1178, 24, 64] and [6, 1178, 24, 64] (the TSD-SR grid's tile
    calls), held to the same tolerances, its bound the larger of the
-   tensor-core, SFU (exp) and memory times; and one
+   tensor-core, SFU (exp) and memory times; B2a and B2b at D = 64 (their
+   second instantiation, the TSD-SR trainer's backward) at
+   [1, 1178, 24, 64] and [8, 1178, 24, 64], each gradient within 2 % of
+   its largest reference value, each kernel's line giving its time, bound
+   (tensor cores, SFU exp, memory), the plain version's time and its
+   ptxas report, the pair's line its time against
+   ``scaled_dot_product_attention``'s backward; and one
    W8A8 projection ([13312, 3072] @ [3072, 12288], ``torch._int_mm``)
    timed beside the same product in bf16 (context, not a gate);
 12. matting (right after phase 3): ISNet ``IsnetConfig.rmbg14()`` and
@@ -87,6 +93,15 @@ non-zero:
    colour fix and gives the bake's seconds on the 2048² views; the CLI's
    pipeline must matte with ``BirefnetRemover``, called once, and the
    line gives the ``preprocess_reference_image`` seconds;
+15. FLUX launcher (after phase 7, from the same ``<tmp>``):
+   ``unitex_torch.scripts.train_flux_lora.main`` in process with
+   ``--pretrain-models <tmp> --optimizer prodigy --preconditioning-loss
+   --learning-rate 1.0 --lr-scheduler constant --max-train-steps 2`` at
+   full FLUX.1-dev width on the launcher's synthetic data: each step must
+   give a finite loss and launch B1 114 times and B2a and B2b 57 times
+   each at D = 128 and nothing else, the first must move the LoRA ``b``
+   leaves off 0, and the peak (the VAE decode under autograd at the 1024
+   x 1536 grid among it, its blocks checkpointed) must stay under 80 GB;
 8. int8 serving path from the checkpoint, with RMBG-1.4's seeded state
    dict added beside RMBG-2.0's:
    ``CustomRGBTextureFullPipeline(int8_serving=True, pretrain_models=<tmp>)``
@@ -100,8 +115,21 @@ non-zero:
    int8_serving=True, host_params=True, stage_pack_int4=True)``, each a
    finite 2048² image with 4 x 24 = 96 launches of B1 at D = 64, the
    staging seconds and the staged tree's bytes printed, and the PSNR
-   between the two (random weights: printed, not gated).  ``<tmp>`` is
-   then deleted;
+   between the two (random weights: printed, not gated);
+14. TSD-SR training (after phase 11, from ``<tmp>/sd3``):
+   ``unitex_torch.scripts.train_tsdsr.main`` in process on a synthetic
+   folder of three 640² HR and 160² LR PNGs with ``--pretrain <tmp>
+   --gt-size 512 --batch 1 --rank 64 --steps 2``: each step must give
+   finite ``loss``, ``tsd_loss``, ``data_loss`` and ``reg_loss`` and
+   launch B1, B2a and B2b at D = 64 exactly 24 x 5 = 120, 24 x 2 = 48 and
+   48 times and nothing else (the student, the two teacher CFG forwards,
+   the regularizer's CFG forward and its own phase; the student's and the
+   regularizer's backward), the first must move the ``b`` leaves of both
+   adapters off 0, the final checkpoint must read back leaf for leaf and
+   the peak stay under 80 GB; the lines split each step into the VAE
+   encodes, the student forward and backward, the teacher and
+   regularizer forwards, the regularizer's forward and backward and the
+   optimizers.  ``<tmp>`` is then deleted;
 9. LTM path (run between phases 5 and 6, on the serving phase's resident
    FLUX trees, so FLUX.1-dev is initialized once):
    ``RGBTextureFullPipeline(ltm_params=<repo>/ltm_params.npz)`` (the
@@ -188,6 +216,9 @@ KERNEL_FUNCTIONS = ("flash_fwd_kernel", "flash_bwd_dkv_kernel",
 # last chunk of 6
 SD3_H, SD3_D, SD3_S = 24, 64, 32 * 32 + 154
 SD3_BATCHES = (8, 6)
+# B2a/B2b at D = 64: the TSD-SR trainer's backward (one 512² crop), and a
+# batch of 8
+SD3_BWD_BATCHES = (1, 8)
 
 
 def ptxas_usage(log_path: str):
@@ -439,8 +470,9 @@ def check_flash_backward(attn, torch, ptxas: dict) -> list:
         bsd = B * S * H * D
         in_bytes = 4 * bsd * 2 + 2 * B * H * S * 4   # q, k, v, dO; lse, Drow
         for name, fn, mult, n_out, ms in (
-                ("flash_attn_bwd_dkv", "flash_bwd_dkv_kernel", 8, 2, ms_dkv),
-                ("flash_attn_bwd_dq", "flash_bwd_dq_kernel", 6, 1, ms_dq)):
+                ("flash_attn_bwd_dkv", "flash_bwd_dkv_kernel<128>", 8, 2,
+                 ms_dkv),
+                ("flash_attn_bwd_dq", "flash_bwd_dq_kernel<128>", 6, 1, ms_dq)):
             flops = mult * B * H * S * S * D
             nbytes = in_bytes + n_out * bsd * 2
             bound_ms = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3
@@ -468,6 +500,122 @@ def check_flash_backward(attn, torch, ptxas: dict) -> list:
     records["flash_attn_bwd_dkv"]["max_abs_err"] = worst["dkv"]
     records["flash_attn_bwd_dq"]["max_abs_err"] = worst["dq"]
     return [records["flash_attn_bwd_dkv"], records["flash_attn_bwd_dq"]]
+
+
+def check_flash_backward_d64(attn, torch, ptxas: dict) -> list:
+    """B2a and B2b at D = 64 (their second instantiation, the TSD-SR
+    trainer's backward through SD3's 24 heads of 64) against the plain
+    backward (f32 on the same bf16 inputs, one head at a time) at
+    [B, 1178, 24, 64] for each batch of ``SD3_BWD_BATCHES``, each gradient
+    within ``GRAD_REL`` of its largest reference value.  Each kernel's
+    bound is the larger of the tensor-core time (8·B·H·S²·D operations for
+    B2a, 6·B·H·S²·D for B2b), the SFU time of its B·H·S² exponentials and
+    the memory time; the pair is timed against
+    ``scaled_dot_product_attention``'s backward.  Returns their records
+    (the first batch's times)."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    H, D, S = SD3_H, SD3_D, SD3_S
+    records = {}
+    worst = {"dkv": 0.0, "dq": 0.0}
+    for B in SD3_BWD_BATCHES:
+        q, k, v, g = (torch.randn((B, S, H, D), generator=gen, device="cuda")
+                      .to(torch.bfloat16) for _ in range(4))
+        out, lse = attn.flash_attention(q, k, v)
+        drow = attn._row_dot(g, out)
+        before = (attn.launches_bwd_dkv_d64, attn.launches_bwd_dq_d64)
+        dk, dv = attn.flash_attention_bwd_dkv(q, k, v, g, lse, drow)
+        dq = attn.flash_attention_bwd_dq(q, k, v, g, lse, drow)
+        torch.cuda.synchronize()
+        if (attn.launches_bwd_dkv_d64, attn.launches_bwd_dq_d64) != (
+                before[0] + 1, before[1] + 1):
+            raise AssertionError("the backward at D = 64 did not count one "
+                                 "launch of each D = 64 instantiation")
+        got = {"dq": dq, "dk": dk, "dv": dv}
+        err = dict.fromkeys(got, 0.0)
+        ref_max = dict.fromkeys(got, 0.0)
+        lse_bh = lse.reshape(B, H, S)
+
+        def plain_head(h):
+            sl = slice(h, h + 1)
+            return dict(zip(("dq", "dk", "dv"), attn.attention_backward_reference(
+                q[:, :, sl].float(), k[:, :, sl].float(), v[:, :, sl].float(),
+                out[:, :, sl].float(), lse_bh[:, h].contiguous(),
+                g[:, :, sl].float())))
+
+        for h in range(H):
+            ref = plain_head(h)
+            for name, x in got.items():
+                err[name] = max(err[name], (x[:, :, h:h + 1].float() - ref[name])
+                                .abs().max().item())
+                ref_max[name] = max(ref_max[name], ref[name].abs().max().item())
+        torch.cuda.synchronize()
+        bad = [n for n in got if not err[n] <= GRAD_REL * ref_max[n]]
+        if bad:
+            raise AssertionError(
+                f"flash backward D=64 B={B}: " + ", ".join(
+                    f"max|d{n}|={err[n]:.3e} (tol {GRAD_REL * ref_max[n]:.3e})"
+                    for n in got))
+        worst["dkv"] = max(worst["dkv"], err["dk"], err["dv"])
+        worst["dq"] = max(worst["dq"], err["dq"])
+        ms_dkv = cuda_ms(lambda: attn.flash_attention_bwd_dkv(q, k, v, g, lse, drow),
+                         100)
+        ms_dq = cuda_ms(lambda: attn.flash_attention_bwd_dq(q, k, v, g, lse, drow),
+                        100)
+        plain_ms = cuda_ms(lambda: [plain_head(h) for h in range(H)], 2)
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
+                      for x in (q, k, v))
+        gt = g.transpose(1, 2)
+
+        def sdpa_fwd_bwd():
+            F.scaled_dot_product_attention(qt, kt, vt).backward(gt)
+            qt.grad = kt.grad = vt.grad = None
+
+        with torch.no_grad():
+            fwd_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt),
+                             100)
+        lib_ms = cuda_ms(sdpa_fwd_bwd, 100) - fwd_ms
+        bsd = B * S * H * D
+        in_bytes = 4 * bsd * 2 + 2 * B * H * S * 4   # q, k, v, dO; lse, Drow
+        t_exp = B * H * S * S / SFU_EXP_RATE
+        for name, fn, mult, n_out, ms in (
+                ("flash_attn_bwd_dkv_d64", "flash_bwd_dkv_kernel<64>", 8, 2,
+                 ms_dkv),
+                ("flash_attn_bwd_dq_d64", "flash_bwd_dq_kernel<64>", 6, 1,
+                 ms_dq)):
+            flops = mult * B * H * S * S * D
+            t_ops = max(flops / PEAK_BF16_FLOPS, t_exp)
+            nbytes = in_bytes + n_out * bsd * 2
+            bound_ms = max(t_ops, nbytes / PEAK_BYTES) * 1e3
+            print(f"[kernels] {name} [{B}, {S}, {H}, {D}]: ms={ms:.4f} "
+                  f"plain_ms={plain_ms:.3f} bound_ms={bound_ms:.4f} (tensor "
+                  f"cores {flops / PEAK_BF16_FLOPS * 1e3:.4f}, exp on the SFUs "
+                  f"{t_exp * 1e3:.4f}, memory {nbytes / PEAK_BYTES * 1e3:.4f}; "
+                  f"{flops / ms / 1e9:.1f} TFLOP/s, {bound_ms / ms:.1%} of the "
+                  f"bound); ptxas: {ptxas[fn]}", flush=True)
+            if name not in records:
+                records[name] = {
+                    "name": name, "route": "cuda",
+                    "source": "unitex_torch/csrc/flash_attn_bwd.cu",
+                    "replaces": "unitex_tpu/ops/attention.py:" + (
+                        "235" if "dkv" in name else "278"),
+                    "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "bound_by": "operations" if t_ops >= nbytes / PEAK_BYTES
+                    else "bytes",
+                    "library_ms": lib_ms,
+                }
+        print(f"[kernels] flash backward D=64 [{B}, {S}, {H}, {D}]: B2a+B2b="
+              f"{ms_dkv + ms_dq:.4f} ms plain_ms={plain_ms:.3f} library_ms "
+              f"(sdpa backward)={lib_ms:.4f} ({(ms_dkv + ms_dq) / lib_ms:.3f}x "
+              f"the library's time) " + " ".join(
+                  f"max|d{n}|={err[n]:.3e} (tol {GRAD_REL * ref_max[n]:.3e})"
+                  for n in got), flush=True)
+        del q, k, v, g, out, lse, lse_bh, drow, dq, dk, dv, got, qt, kt, vt, gt
+        torch.cuda.empty_cache()
+    records["flash_attn_bwd_dkv_d64"]["max_abs_err"] = worst["dkv"]
+    records["flash_attn_bwd_dq_d64"]["max_abs_err"] = worst["dq"]
+    return [records["flash_attn_bwd_dkv_d64"], records["flash_attn_bwd_dq_d64"]]
 
 
 def check_flash_qk8(attn, torch, ptxas: str, b1_ms: dict) -> dict:
@@ -856,9 +1004,9 @@ def run_serving(attn, torch, pipe) -> None:
                         np.isfinite(tex.astype(np.float32)).all():
                     raise AssertionError(f"serve: job {rec['name']} texture "
                                          f"{None if tex is None else tex.shape}")
-            if n != (2 * per_job, 0, 0, 0, 0):
-                raise AssertionError(f"serve: launches B1/B2a/B2b/B3/B1(D=64) "
-                                     f"{n}, expected ({2 * per_job}, 0, 0, 0, 0)")
+            if not _only(n, B1=2 * per_job):
+                raise AssertionError(f"serve: launches {COUNTED} {n}, expected "
+                                     f"B1 {2 * per_job} and nothing else")
         finally:
             httpd.jobs.stop()
             httpd.shutdown()
@@ -1265,9 +1413,9 @@ def run_cli(attn, torch, root: str) -> None:
         if grids != {"mv_rgb_lr.png": lr,
                      "mv_rgb.png": (4 * lr[0], 4 * lr[1])}:
             raise AssertionError(f"cli: SR grids {grids}")
-        if n != (per_job, 0, 0, 0, per_sr):
-            raise AssertionError(f"cli: launches B1/B2a/B2b/B3/B1(D=64) {n}, "
-                                 f"expected ({per_job}, 0, 0, 0, {per_sr})")
+        if not _only(n, B1=per_job, B1_d64=per_sr):
+            raise AssertionError(f"cli: launches {COUNTED} {n}, expected B1 "
+                                 f"{per_job}, B1(D=64) {per_sr}, nothing else")
         if peak >= PEAK_LIMIT:
             raise AssertionError(f"cli: peak {peak} bytes")
 
@@ -1285,15 +1433,35 @@ def video_frames(path: str):
     return (len(frames),) + frames[0].shape[:2]
 
 
+# the kernels in the order of ``_counts`` and of the records
+COUNTED = ("B1", "B2a", "B2b", "B3", "B1(D=64)", "B2a(D=64)", "B2b(D=64)")
+NONE = (0,) * len(COUNTED)
+
+
 def _counts(attn) -> tuple:
-    """Launches of B1 (D = 128), B2a, B2b, B3 and B1 at D = 64."""
+    """Launches of B1 (D = 128), B2a, B2b, B3, then B1, B2a and B2b at
+    D = 64."""
     return (attn.launches, attn.launches_bwd_dkv, attn.launches_bwd_dq,
-            attn.launches_qk8, attn.launches_d64)
+            attn.launches_qk8, attn.launches_d64, attn.launches_bwd_dkv_d64,
+            attn.launches_bwd_dq_d64)
 
 
 def _reset(attn) -> None:
     attn.launches = attn.launches_bwd_dkv = attn.launches_bwd_dq = 0
     attn.launches_qk8 = attn.launches_d64 = 0
+    attn.launches_bwd_dkv_d64 = attn.launches_bwd_dq_d64 = 0
+
+
+def _only(n: tuple, **want: int) -> bool:
+    """Whether the counts ``n`` are ``want`` (by name: B1, B2a, B2b, B3,
+    B1_d64, B2a_d64, B2b_d64; a value of -1 means "at least one") and 0
+    elsewhere."""
+    names = ("B1", "B2a", "B2b", "B3", "B1_d64", "B2a_d64", "B2b_d64")
+    for name, got in zip(names, n):
+        w = want.get(name, 0)
+        if (got == 0) if w == -1 else (got != w):
+            return False
+    return True
 
 
 def _tree_bytes(tree) -> int:
@@ -1361,10 +1529,10 @@ def run_int8_path(attn, torch, root: str) -> None:
                 torch.isfinite(tex).all()):
             raise AssertionError(
                 f"int8 job {name}: texture {tuple(tex.shape)} not a finite 2048²")
-        if n != (0, 0, 0, per_job, 0):
+        if not _only(n, B3=per_job):
             raise AssertionError(
-                f"int8 job {name}: launches B1/B2a/B2b/B3/B1(D=64) {n}, "
-                f"expected (0, 0, 0, {per_job}, 0)")
+                f"int8 job {name}: launches {COUNTED} {n}, expected B3 "
+                f"{per_job} and nothing else")
         if peak >= PEAK_LIMIT:
             raise AssertionError(f"int8 job {name}: peak {peak} bytes")
 
@@ -1421,9 +1589,9 @@ def run_sr_options(attn, torch, root: str) -> None:
                 torch.isfinite(out).all()):
             raise AssertionError(f"sr {name}: output {tuple(out.shape)} not a "
                                  f"finite 2048² image")
-        if n != (0, 0, 0, 0, per_view):
-            raise AssertionError(f"sr {name}: launches B1/B2a/B2b/B3/B1(D=64) "
-                                 f"{n}, expected (0, 0, 0, 0, {per_view})")
+        if not _only(n, B1_d64=per_view):
+            raise AssertionError(f"sr {name}: launches {COUNTED} {n}, expected "
+                                 f"B1(D=64) {per_view} and nothing else")
         if peak >= PEAK_LIMIT:
             raise AssertionError(f"sr {name}: peak {peak} bytes")
         outs[name] = out
@@ -1451,7 +1619,7 @@ def run_training(attn, torch, pipe) -> None:
     tcfg = FluxLoraTrainConfig(rank=16, learning_rate=1e-4,
                                lr_scheduler="constant")
     n_blocks = cfg.num_layers + cfg.num_single_layers
-    want = (2 * n_blocks, n_blocks, n_blocks, 0, 0)
+    want = (2 * n_blocks, n_blocks, n_blocks, 0, 0, 0, 0)
     t0 = time.perf_counter()
     state, tx = create_train_state(torch.Generator(device="cuda").manual_seed(5),
                                    pipe.transformer_params, tcfg, device="cuda")
@@ -1498,6 +1666,201 @@ def run_training(attn, torch, pipe) -> None:
             raise AssertionError(f"train step {step}: peak {peak} bytes")
         if b_max == 0.0:
             raise AssertionError(f"train step {step}: the LoRA b leaves are still 0")
+
+
+TSD_STEPS = 2
+TSD_TIMERS = ("tsd_vae_encode", "tsd_student_forward",
+              "tsd_teacher_reg_forwards", "tsd_student_backward",
+              "tsd_optimizer_student",
+              "tsd_reg_forward", "tsd_reg_backward", "tsd_optimizer_reg")
+
+
+def write_sr_pairs(d: str, n: int = 3, hr: int = 640, scale: int = 4):
+    """``n`` synthetic HR images of ``hr``² and their LR of ``hr/scale``²
+    (MATLAB bicubic) as PNGs under ``d/{hr,lr}``; returns the folders."""
+    import numpy as np
+    from PIL import Image
+
+    from unitex_torch.image.matlab import imresize
+
+    rng = np.random.default_rng(7)
+    dirs = {k: os.path.join(d, k) for k in ("hr", "lr")}
+    for path in dirs.values():
+        os.makedirs(path, exist_ok=True)
+    yy, xx = np.mgrid[:hr, :hr] / (hr - 1.0)
+    for i in range(n):
+        f = rng.uniform(4, 16, size=3)
+        img = np.stack([0.5 + 0.4 * np.sin(f[c] * xx + c) * np.cos(f[2 - c] * yy)
+                        for c in range(3)], axis=-1).astype(np.float32)
+        lr = np.clip(imresize(img, 1.0 / scale), 0, 1)
+        for key, x in (("hr", img), ("lr", lr)):
+            Image.fromarray(np.round(x * 255).astype(np.uint8)).save(
+                os.path.join(dirs[key], f"{i:03d}.png"))
+    return dirs["lr"], dirs["hr"]
+
+
+def run_tsdsr_training(attn, torch, root: str) -> None:
+    """Phase 14: ``unitex_torch.scripts.train_tsdsr.main`` in process from
+    the seeded SD3-medium checkpoint under ``root`` on synthetic 640² / 160²
+    pairs at 512² crops, rank 64, two steps.  Each step must give finite
+    losses and launch B1, B2a and B2b at D = 64 exactly 24 x 5, 24 x 2 and
+    24 x 2 times and nothing else; the first must move the ``b`` leaves of
+    both adapters off 0; the final checkpoint must read back leaf for leaf;
+    the peak must stay under 80 GB."""
+    from unitex_torch.models.sd3.config import SD3Config
+    from unitex_torch.scripts import train_tsdsr
+    from unitex_torch.utils.timer import CPUTimer
+
+    layers = SD3Config.sd3_medium().num_layers
+    # student, two teacher CFG forwards, the regularizer's CFG forward and
+    # its own phase forward; the backward of the student and the regularizer
+    want = (0, 0, 0, 0, 5 * layers, 2 * layers, 2 * layers)
+    d = tempfile.mkdtemp(prefix="chip_smoke_tsdsr_")
+    try:
+        lr_dir, hr_dir = write_sr_pairs(os.path.join(d, "data"))
+        out = os.path.join(d, "run")
+        steps = []
+        t_last = [time.perf_counter()]
+        before = [_counts(attn)]
+
+        def on_step(it, state, metrics):
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            n = tuple(a - b for a, b in zip(_counts(attn), before[0]))
+            rec = CPUTimer.records
+            b_max = {tree: max(float(leaf.detach().abs().max()) for path, leaf
+                               in _named_leaves(getattr(state, tree))
+                               if path.endswith("/b"))
+                     for tree in ("student_lora", "reg_lora")}
+            vals = {k: float(v) for k, v in metrics.items()}
+            print(f"[tsdsr] step {it}: " + " ".join(
+                f"{k} {v:.6f}" for k, v in vals.items())
+                + f"; {now - t_last[0]:.3f}s "
+                + ("since the call, the load included" if not steps
+                   else "since the last step") + " (" + " ".join(
+                    f"{k[4:]}={rec[k]:.3f}s" for k in TSD_TIMERS)
+                + f") launches {COUNTED} {n} max|b| student "
+                f"{b_max['student_lora']:.3e} reg {b_max['reg_lora']:.3e}",
+                flush=True)
+            if not all(math.isfinite(v) for v in vals.values()):
+                raise AssertionError(f"tsdsr step {it}: losses {vals}")
+            if n != want:
+                raise AssertionError(f"tsdsr step {it}: launches {n}, "
+                                     f"expected {want}")
+            if min(b_max.values()) == 0.0:
+                raise AssertionError(f"tsdsr step {it}: a LoRA's b leaves are "
+                                     f"still 0 ({b_max})")
+            steps.append(now - t_last[0])
+            t_last[0] = now
+            before[0] = _counts(attn)
+
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state = train_tsdsr.main(
+            ["--lr-dir", lr_dir, "--hr-dir", hr_dir, "--pretrain", root,
+             "--gt-size", "512", "--batch", "1", "--rank", "64", "--steps",
+             str(TSD_STEPS), "--log-every", "1", "--output-dir", out],
+            on_step=on_step)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        ckpt = os.path.join(out, "checkpoints", f"checkpoint-{TSD_STEPS}",
+                            "state.pt")
+        saved = dict(_named_leaves(torch.load(ckpt, map_location="cpu",
+                                              weights_only=True)))
+        live = dict(_named_leaves({"student_lora": state.student_lora,
+                                   "reg_lora": state.reg_lora}))
+        same = saved.keys() == live.keys() and all(
+            torch.equal(saved[k], live[k].detach().cpu()) for k in live)
+        print(f"[tsdsr] SD3-medium from <root>/sd3, 512² crops (S = "
+              f"{SD3_S}), rank 64: {len(steps)} steps in {wall:.2f}s with "
+              f"set-up (steps " + ", ".join(f"{t:.3f}s" for t in steps)
+              + f"); peak {peak / 2**30:.2f} GiB; checkpoint {ckpt} "
+              f"({os.path.getsize(ckpt)} bytes, {len(live)} leaves) read back "
+              f"{'equal' if same else 'DIFFERENT'}", flush=True)
+        if len(steps) != TSD_STEPS:
+            raise AssertionError(f"tsdsr: {len(steps)} steps")
+        if not same:
+            raise AssertionError("tsdsr: the checkpoint does not read back")
+        if peak >= PEAK_LIMIT:
+            raise AssertionError(f"tsdsr: peak {peak} bytes")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
+FLUX_LAUNCHER_STEPS = 2
+
+
+def run_flux_launcher(attn, torch, root: str) -> None:
+    """Phase 15: ``unitex_torch.scripts.train_flux_lora.main`` in process
+    with ``--pretrain-models <root> --optimizer prodigy
+    --preconditioning-loss`` at full FLUX.1-dev width on the launcher's
+    synthetic data, two steps.  Each must give a finite loss and launch B1
+    114 times (57 forward, 57 recomputed) and B2a and B2b 57 times each at
+    D = 128 and nothing else; the first must move the LoRA ``b`` leaves off
+    0; the peak (the VAE decode under autograd at the 1024 x 1536 grid
+    among it) must stay under 80 GB."""
+    from unitex_torch.models.flux.config import FluxConfig
+    from unitex_torch.scripts import train_flux_lora
+
+    cfg = FluxConfig.flux1_dev()
+    n_blocks = cfg.num_layers + cfg.num_single_layers
+    want = (2 * n_blocks, n_blocks, n_blocks, 0, 0, 0, 0)
+    d = tempfile.mkdtemp(prefix="chip_smoke_flux_launcher_")
+    try:
+        steps = []
+        t_last = [time.perf_counter()]
+        before = [_counts(attn)]
+
+        def on_step(step, state, loss):
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            n = tuple(a - b for a, b in zip(_counts(attn), before[0]))
+            loss = float(loss)
+            b_max = max(float(leaf.detach().abs().max()) for path, leaf in
+                        _named_leaves(state.lora) if path.endswith("/b"))
+            d_est = float(state.opt_state["estim_lr"])
+            since = ("since the call, the load included" if not steps
+                     else "since the last step")
+            print(f"[flux_launcher] step {step}: loss {loss:.6f} "
+                  f"{now - t_last[0]:.3f}s {since} (batch and step) peak so far "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+                  f"launches {COUNTED} {n} max|lora b| {b_max:.3e} prodigy d "
+                  f"{d_est:.3e}", flush=True)
+            if not math.isfinite(loss):
+                raise AssertionError(f"flux launcher step {step}: loss {loss}")
+            if n != want:
+                raise AssertionError(f"flux launcher step {step}: launches "
+                                     f"{n}, expected {want}")
+            if b_max == 0.0:
+                raise AssertionError(f"flux launcher step {step}: the LoRA b "
+                                     f"leaves are still 0")
+            steps.append(now - t_last[0])
+            t_last[0] = now
+            before[0] = _counts(attn)
+
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        train_flux_lora.main(
+            ["--pretrain-models", root, "--optimizer", "prodigy",
+             "--preconditioning-loss", "--learning-rate", "1.0",
+             "--lr-scheduler", "constant", "--max-train-steps",
+             str(FLUX_LAUNCHER_STEPS), "--output-dir", os.path.join(d, "out")],
+            on_step=on_step)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        print(f"[flux_launcher] FLUX.1-dev from <root>/flux (remat, rank 16, "
+              f"Prodigy lr 1.0, preconditioning loss weight 1): "
+              f"{len(steps)} steps in {wall:.2f}s with loading (steps "
+              + ", ".join(f"{t:.3f}s" for t in steps)
+              + f"); peak {peak / 2**30:.2f} GiB", flush=True)
+        if len(steps) != FLUX_LAUNCHER_STEPS:
+            raise AssertionError(f"flux launcher: {len(steps)} steps")
+        if peak >= PEAK_LIMIT:
+            raise AssertionError(f"flux launcher: peak {peak} bytes")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
 
 
 LTM_NPZ = os.path.join(REPO, "ltm_params.npz")
@@ -1622,10 +1985,10 @@ def run_ltm_path(attn, torch, pipe, config=None, device: str = "cuda") -> None:
                         or not bool(torch.isfinite(tex).all()):
                     raise AssertionError(f"ltm job {name}: texture {tuple(tex.shape)}"
                                          f" ({uv_size} png) not a finite {uv}²")
-                if n != (per_job, 0, 0, 0, 0):
-                    raise AssertionError(f"ltm job {name}: launches B1/B2a/B2b/B3/"
-                                         f"B1(D=64) {n}, expected ({per_job}, 0, "
-                                         f"0, 0, 0)")
+                if not _only(n, B1=per_job):
+                    raise AssertionError(f"ltm job {name}: launches {COUNTED} "
+                                         f"{n}, expected B1 {per_job} and "
+                                         f"nothing else")
                 if peak >= PEAK_LIMIT:
                     raise AssertionError(f"ltm job {name}: peak {peak} bytes")
                 if fill["branch"] == want:
@@ -1751,6 +2114,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     records.append(check_flash_attention_d64(attn, torch,
                                              usage["flash_fwd_kernel<64>"]))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    records += check_flash_backward_d64(attn, torch, usage)
     time_w8a8(torch)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -1760,17 +2126,15 @@ def main() -> int:
     run_matting(torch)
     torch.cuda.synchronize()
     matting = _counts(attn)
-    if matting != (0, 0, 0, 0, 0):
-        return fail(f"launches B1/B2a/B2b/B3/B1(D=64) {matting} in the matting "
-                    f"models")
+    if matting != NONE:
+        return fail(f"launches {COUNTED} {matting} in the matting models")
 
     _reset(attn)
     launches, pipe = run_main_path(attn, torch)
     torch.cuda.synchronize()
     serve = _counts(attn)
-    if launches != serve[0] or launches == 0 or serve[1:] != (0, 0, 0, 0):
-        return fail(f"launches B1/B2a/B2b/B3/B1(D=64) {serve} on the serving "
-                    f"path")
+    if launches != serve[0] or not _only(serve, B1=-1):
+        return fail(f"launches {COUNTED} {serve} on the serving path")
     torch.cuda.empty_cache()
 
     # phase 13: the job server over HTTP on the resident phase-4 pipeline
@@ -1778,17 +2142,16 @@ def main() -> int:
     run_serving(attn, torch, pipe)
     torch.cuda.synchronize()
     http = _counts(attn)
-    if http[0] == 0 or http[1:] != (0, 0, 0, 0):
-        return fail(f"launches B1/B2a/B2b/B3/B1(D=64) {http} on the job server")
+    if not _only(http, B1=-1):
+        return fail(f"launches {COUNTED} {http} on the job server")
     torch.cuda.empty_cache()
 
     _reset(attn)
     run_training(attn, torch, pipe)
     torch.cuda.synchronize()
     train = _counts(attn)
-    if 0 in train[:3] or train[3:] != (0, 0):
-        return fail(f"launches B1/B2a/B2b/B3/B1(D=64) {train} on the training "
-                    f"path")
+    if not _only(train, B1=-1, B2a=-1, B2b=-1):
+        return fail(f"launches {COUNTED} {train} on the training path")
     print(f"[train] launches B1/B2a/B2b {train[0]}/{train[1]}/{train[2]} in "
           f"{TRAIN_STEPS} steps", flush=True)
     torch.cuda.empty_cache()
@@ -1798,8 +2161,8 @@ def main() -> int:
     run_ltm_path(attn, torch, pipe)
     torch.cuda.synchronize()
     ltm = _counts(attn)
-    if ltm[0] == 0 or ltm[1:] != (0, 0, 0, 0):
-        return fail(f"launches B1/B2a/B2b/B3/B1(D=64) {ltm} on the LTM path")
+    if not _only(ltm, B1=-1):
+        return fail(f"launches {COUNTED} {ltm} on the LTM path")
     torch.cuda.empty_cache()
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
@@ -1817,15 +2180,27 @@ def main() -> int:
         # RMBG-2.0 weights for the CLI: its pipeline mattes with BiRefNet
         write_matting_checkpoint(models, "birefnet",
                                  matting_model(torch, "birefnet")[1])
-        if _counts(attn) != (0, 0, 0, 0, 0):
+        if _counts(attn) != NONE:
             return fail(f"launches {_counts(attn)} while writing the checkpoint")
 
         _reset(attn)
         run_cli(attn, torch, models)
         torch.cuda.synchronize()
         cli = _counts(attn)
-        if cli[0] == 0 or cli[4] == 0 or cli[1:4] != (0, 0, 0):
-            return fail(f"launches B1/B2a/B2b/B3/B1(D=64) {cli} on the CLI path")
+        if not _only(cli, B1=-1, B1_d64=-1):
+            return fail(f"launches {COUNTED} {cli} on the CLI path")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # phase 15: the FLUX launcher's Prodigy, preconditioning loss and
+        # --pretrain-models, from the same checkpoint
+        _reset(attn)
+        run_flux_launcher(attn, torch, models)
+        torch.cuda.synchronize()
+        flux_launcher = _counts(attn)
+        if not _only(flux_launcher, B1=-1, B2a=-1, B2b=-1):
+            return fail(f"launches {COUNTED} {flux_launcher} on the FLUX "
+                        f"launcher")
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -1836,9 +2211,8 @@ def main() -> int:
         run_int8_path(attn, torch, models)
         torch.cuda.synchronize()
         int8 = _counts(attn)
-        if int8[3] == 0 or int8[:3] != (0, 0, 0) or int8[4]:
-            return fail(f"launches B1/B2a/B2b/B3/B1(D=64) {int8} on the int8 "
-                        f"serving path")
+        if not _only(int8, B3=-1):
+            return fail(f"launches {COUNTED} {int8} on the int8 serving path")
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -1846,9 +2220,18 @@ def main() -> int:
         run_sr_options(attn, torch, models)
         torch.cuda.synchronize()
         sr_options = _counts(attn)
-        if sr_options[4] == 0 or sr_options[:4] != (0, 0, 0, 0):
-            return fail(f"launches B1/B2a/B2b/B3/B1(D=64) {sr_options} on the "
-                        f"SR options")
+        if not _only(sr_options, B1_d64=-1):
+            return fail(f"launches {COUNTED} {sr_options} on the SR options")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # phase 14: the TSD-SR trainer from the SD3 checkpoint
+        _reset(attn)
+        run_tsdsr_training(attn, torch, models)
+        torch.cuda.synchronize()
+        tsdsr = _counts(attn)
+        if not _only(tsdsr, B1_d64=-1, B2a_d64=-1, B2b_d64=-1):
+            return fail(f"launches {COUNTED} {tsdsr} on the TSD-SR trainer")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     gc.collect()
@@ -1858,14 +2241,14 @@ def main() -> int:
     run_oracle(torch)
     torch.cuda.synchronize()
     oracle = _counts(attn)
-    if oracle != (0, 0, 0, 0, 0):
-        return fail(f"launches B1/B2a/B2b/B3/B1(D=64) {oracle} on the oracle "
-                    f"bakes")
+    if oracle != NONE:
+        return fail(f"launches {COUNTED} {oracle} on the oracle bakes")
 
     paths = ("matting", "serve", "http_serve", "train", "ltm", "cli",
-             "int8_serve", "sr_options", "oracle")
-    for rec, *n in zip(records, matting, serve, http, train, ltm, cli, int8,
-                       sr_options, oracle):
+             "flux_launcher", "int8_serve", "sr_options", "tsdsr_train",
+             "oracle")
+    for rec, *n in zip(records, matting, serve, http, train, ltm, cli,
+                       flux_launcher, int8, sr_options, tsdsr, oracle):
         rec["launches"] = sum(n)
         rec["launches_by_path"] = dict(zip(paths, n))
     keys = ("ms", "plain_ms", "bound_ms", "max_abs_err", "library_ms")

@@ -3,7 +3,9 @@ package's: the plain ``attention_reference`` (out and lse) against JAX
 ``attention_reference`` and against the Pallas ``_flash_forward`` run in
 interpret mode, at S = 512 and at a ragged S = 200 (and at D = 64, the SD3
 transformer's head width, at S = 256 and 200); the plain backward
-against JAX's chunked ``_flash_core_bwd_xla`` on the same residuals; the
+against JAX's chunked ``_flash_core_bwd_xla`` on the same residuals, at
+D = 128 and 64, and at D = 64 against the Pallas backward (B2a/B2b) in
+interpret mode; the
 CPU autograd of ``attention`` against ``jax.vjp``; the int8-QK path
 (``quant_rows`` and B3's plain version) against ``flash_attention_qk8`` in
 interpret mode; plus the wrappers' checks.  The CUDA kernels themselves
@@ -77,11 +79,14 @@ def _check_interpret_flash(S, block, D):
     np.testing.assert_allclose(lse.numpy(), np.asarray(jl), atol=LSE_ATOL)
 
 
+@pytest.mark.parametrize("D", [128, 64])
 @pytest.mark.parametrize("S,bk", [(512, 256), (384, 128)])
-def test_backward_reference_matches_xla_backward(S, bk):
+def test_backward_reference_matches_xla_backward(S, bk, D):
     """The plain backward against the JAX package's chunked recompute on
-    the same residuals (q, k, v, out, lse) and cotangent, f32, D = 128."""
-    B, H, D = 1, 2, 128
+    the same residuals (q, k, v, out, lse) and cotangent, f32, at FLUX's
+    D = 128 and the SD3 transformer's D = 64 (B2a/B2b's two
+    instantiations)."""
+    B, H = 1, 2
     q, k, v = _inputs(B, S, H, D, 11 + S)
     g = np.random.default_rng(S).normal(size=(B, S, H, D)).astype(np.float32)
     tq, tk, tv, tg = map(torch.from_numpy, (q, k, v, g))
@@ -95,6 +100,30 @@ def test_backward_reference_matches_xla_backward(S, bk):
                  jnp.asarray(lse.numpy()))
     want = jattn._flash_core_bwd_xla(1.0 / math.sqrt(D), bk, bk, residuals,
                                      bhsd(g))
+    for x, w in zip(got, want):
+        w = np.moveaxis(np.asarray(w).reshape(B, H, S, D), 1, 2)
+        np.testing.assert_allclose(x.numpy(), w, atol=GRAD_ATOL)
+
+
+def test_d64_backward_reference_matches_interpret_pallas_backward():
+    """At D = 64 against the Pallas kernels B2a/B2b replace
+    (``_flash_backward_pallas``, interpret mode, blocks of 128 at S = 256:
+    two query and two key blocks), on the residuals of the plain forward,
+    f32: within the XLA backward's limit."""
+    B, S, H, D = 1, 256, 2, 64
+    q, k, v = _inputs(B, S, H, D, 31)
+    g = np.random.default_rng(32).normal(size=(B, S, H, D)).astype(np.float32)
+    tq, tk, tv, tg = map(torch.from_numpy, (q, k, v, g))
+    out, lse = tattn.attention_reference(tq, tk, tv)
+    got = tattn.attention_backward_reference(tq, tk, tv, out, lse, tg)
+
+    def bhsd(x):
+        return jnp.moveaxis(jnp.asarray(x), 2, 1).reshape(B * H, S, D)
+
+    with pltpu.force_tpu_interpret_mode():
+        want = jattn._flash_backward_pallas(
+            bhsd(q), bhsd(k), bhsd(v), bhsd(out.numpy()),
+            jnp.asarray(lse.numpy()), bhsd(g), 1.0 / math.sqrt(D), 128, 128)
     for x, w in zip(got, want):
         w = np.moveaxis(np.asarray(w).reshape(B, H, S, D), 1, 2)
         np.testing.assert_allclose(x.numpy(), w, atol=GRAD_ATOL)
@@ -165,8 +194,9 @@ def test_cpu_tensor_takes_plain_version():
 
 
 def test_b1_takes_both_head_widths():
-    """B1's check takes D = 128 and 64 (its two instantiations) and
-    nothing else; the backward kernels' default takes 128 only."""
+    """The kernels' check takes D = 128 and 64 where the wrapper names
+    both (B1, B2a and B2b are instantiated for both) and nothing else; its
+    default (B3) takes 128 only."""
     for D in (128, 64):
         x = torch.zeros((1, 64, 2, D), dtype=torch.bfloat16)
         tattn._check(x, x, x, head_dims=(128, 64))
@@ -175,14 +205,20 @@ def test_b1_takes_both_head_widths():
         tattn._check(x, x, x, head_dims=(128, 64))
 
 
-def test_d64_backward_names_the_missing_trainer():
-    """``FlashAttention``'s backward at D = 64 raises, naming the TSD-SR
-    trainer, instead of running a plain backward."""
-    q, k, v = (torch.from_numpy(x).requires_grad_()
-               for x in _inputs(1, 40, 2, 64, 3))
-    out = tattn.FlashAttention.apply(q, k, v)
-    with pytest.raises(NotImplementedError, match="TSD-SR trainer"):
-        out.sum().backward()
+def test_d64_flash_function_backward_is_the_plain_one_on_the_cpu():
+    """``FlashAttention`` at D = 64 on a CPU tensor: its backward (B2a/B2b's
+    plain version from the saved lse) gives torch autograd's gradients
+    through the reference, and launches nothing."""
+    q, k, v = _inputs(1, 40, 2, 64, 3)
+    g = torch.from_numpy(_inputs(1, 40, 2, 64, 4)[0])
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    before = (tattn.launches_bwd_dkv_d64, tattn.launches_bwd_dq_d64)
+    tattn.FlashAttention.apply(tq, tk, tv).backward(g)
+    rq, rk, rv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    tattn.attention_reference(rq, rk, rv)[0].backward(g)
+    for got, want in ((tq, rq), (tk, rk), (tv, rv)):
+        torch.testing.assert_close(got.grad, want.grad, rtol=0, atol=GRAD_ATOL)
+    assert (tattn.launches_bwd_dkv_d64, tattn.launches_bwd_dq_d64) == before
 
 
 @pytest.mark.parametrize("case", ["d64", "f32", "shape", "stride"])

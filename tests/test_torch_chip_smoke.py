@@ -1,6 +1,6 @@
 """``chip_smoke.py``'s helpers on the CPU: the ptxas report parser (each
 kernel's line in the script's output carries its own registers and spill
-text, B1's two head-width instantiations apart), the tree -> diffusers
+text, the two head-width instantiations of B1, B2a and B2b apart), the tree -> diffusers
 names of the checkpoints it writes (FLUX, VAE, SD3), read back through
 the port's loaders at tiny size, the SR stage's derived launch count,
 phase 10's comparison with ORACLE_r05.json, phase 12 (matting) at tiny
@@ -26,7 +26,7 @@ def _chip_smoke():
 
 def _mangled(name, lib):
     """A kernel's mangled name; ``name<N>`` is an instantiation of a
-    template on the int N (B1's head widths)."""
+    template on the int N (the head widths of B1, B2a and B2b)."""
     base, _, arg = name.partition("<")
     inst = f"ILi{arg[:-1]}EEEv" if arg else "E"
     return (f"_ZN50_GLOBAL__N__5c148451_17_{lib}_cu_b137d46c{len(base)}{base}"
@@ -41,6 +41,10 @@ KERNELS = [
     ("flash_qk8_kernel", "flash_attn_qk8", 226, 0, 0, False),
     ("flash_fwd_kernel<128>", "flash_attn_fwd", 168, 0, 0, False),
     ("flash_fwd_kernel<64>", "flash_attn_fwd", 154, 8, 8, True),
+    ("flash_bwd_dkv_kernel<128>", "flash_attn_bwd", 168, 0, 0, False),
+    ("flash_bwd_dkv_kernel<64>", "flash_attn_bwd", 168, 4, 4, True),
+    ("flash_bwd_dq_kernel<128>", "flash_attn_bwd", 168, 0, 0, False),
+    ("flash_bwd_dq_kernel<64>", "flash_attn_bwd", 160, 0, 0, False),
 ]
 
 

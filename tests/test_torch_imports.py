@@ -132,3 +132,25 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device("cuda:0")
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_tsdsr_trainer_defaults_to_cuda_and_raises_without_a_card(tmp_path):
+    """The TSD-SR trainer's entry points run on the card unless asked for
+    the CPU: its launcher without ``--cpu``, ``create_tsd_state``, the
+    LPIPS and LoRA inits; without a card the launcher raises."""
+    import inspect
+
+    from unitex_torch.models.sd3.lora import init_sd3_lora
+    from unitex_torch.scripts import train_tsdsr
+    from unitex_torch.training.tsdsr import create_tsd_state
+    from unitex_torch.utils.lpips import init_lpips_params, load_torch_lpips
+
+    for fn in (create_tsd_state, init_sd3_lora, init_lpips_params,
+               load_torch_lpips):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    argv = ["--lr-dir", str(tmp_path), "--hr-dir", str(tmp_path), "--tiny"]
+    assert not train_tsdsr.parse_args(argv).cpu
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: nothing to refuse")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_tsdsr.main(argv)

@@ -113,25 +113,19 @@ def test_flash_kernel_d64_reads_strided_heads(card):
     _check_against_plain(q, k, v)
 
 
-@pytest.mark.cuda
-def test_d64_backward_is_refused(card):
-    """No backward at D = 64 (B2a/B2b take D = 128): the error names the
-    TSD-SR trainer, and no plain backward runs on the card."""
-    q, k, v = (t.requires_grad_() for t in _qkv(130, 2, 0, card, D=64))
-    out = attn.attention(q, k, v)
-    before = (attn.launches_bwd_dkv, attn.launches_bwd_dq)
-    with pytest.raises(NotImplementedError, match="TSD-SR trainer"):
-        out.float().sum().backward()
-    assert (attn.launches_bwd_dkv, attn.launches_bwd_dq) == before
+def _bwd_counts():
+    return (attn.launches_bwd_dkv, attn.launches_bwd_dq,
+            attn.launches_bwd_dkv_d64, attn.launches_bwd_dq_d64)
 
 
 def _check_backward_against_plain(q, k, v, g):
     out, lse = attn.flash_attention(q, k, v)
-    before = (attn.launches_bwd_dkv, attn.launches_bwd_dq)
+    before = _bwd_counts()
     grads = attn.flash_attention_backward(q, k, v, out, lse, g)
     torch.cuda.synchronize()
-    assert (attn.launches_bwd_dkv, attn.launches_bwd_dq) == (before[0] + 1,
-                                                             before[1] + 1)
+    d64 = q.shape[-1] == 64
+    assert _bwd_counts() == (before[0] + (not d64), before[1] + (not d64),
+                             before[2] + d64, before[3] + d64)
     refs = attn.attention_backward_reference(
         q.float(), k.float(), v.float(), out.float(), lse, g.float())
     for name, got, ref in zip(("dq", "dk", "dv"), grads, refs):
@@ -162,11 +156,44 @@ def test_flash_backward_two_batches(card):
 
 
 @pytest.mark.cuda
-def test_flash_backward_is_bit_identical_across_calls(card):
+@pytest.mark.parametrize(
+    "S", [1, 63, 64, 65, 127, 129, 191, 257, 385, 1000, 1178])
+def test_flash_backward_d64_matches_plain(card, S):
+    """B2a/B2b at D = 64 (the SD3 transformer's heads, the TSD-SR
+    trainer): one TMA box a tile, whole and ragged tiles on both sides of
+    64 and 128 rows, both rings wrapped at both parities; S = 1178 is the
+    trainer's 512² crop (1024 + 154 tokens), 26 rows in its last tile."""
+    q, k, v = _qkv(S, 4, S, card, D=64)
+    g = _qkv(S, 4, S + 1, card, D=64)[0]
+    _check_backward_against_plain(q, k, v, g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 8])
+def test_flash_backward_d64_at_the_trainer_shape(card, B):
+    """The TSD-SR trainer's backward, [1, 1178, 24, 64], and a batch of 8."""
+    q, k, v = _qkv(1178, 24, 20 + B, card, B=B, D=64)
+    g = _qkv(1178, 24, 30 + B, card, B=B, D=64)[0]
+    _check_backward_against_plain(q, k, v, g)
+
+
+@pytest.mark.cuda
+def test_flash_backward_d64_reads_strided_heads(card):
+    """q/k/v and dO at D = 64 as views into fused [B, S, n, H, D] tensors."""
+    qkv = torch.randn((2, 300, 3, 4, 64), device=card).bfloat16()
+    q, k, v = qkv.unbind(2)
+    g = torch.randn((2, 300, 2, 4, 64), device=card).bfloat16()[:, :, 1]
+    assert not q.is_contiguous() and not g.is_contiguous()
+    _check_backward_against_plain(q, k, v, g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [128, 64])
+def test_flash_backward_is_bit_identical_across_calls(card, D):
     """Each block owns its rows of dq, dk and dv and sums in a fixed order
     (no atomics), so two calls on the same inputs agree bit for bit."""
-    q, k, v = _qkv(1000, 4, 13, card)
-    g = _qkv(1000, 4, 14, card)[0]
+    q, k, v = _qkv(1000, 4, 13, card, D=D)
+    g = _qkv(1000, 4, 14, card, D=D)[0]
     out, lse = attn.flash_attention(q, k, v)
     first = attn.flash_attention_backward(q, k, v, out, lse, g)
     second = attn.flash_attention_backward(q, k, v, out, lse, g)
@@ -192,22 +219,25 @@ def test_flash_backward_refuses_what_it_does_not_take(card):
     with pytest.raises(TypeError):
         attn.flash_attention_backward(q, k, v, out, lse, out.float())
     with pytest.raises(ValueError):
-        x = q[..., :64]
+        x = q[..., :32]
         attn.flash_attention_backward(x, x, x, x, lse, x)
 
 
 @pytest.mark.cuda
-def test_flash_attention_function_gradients(card):
+@pytest.mark.parametrize("D", [128, 64])
+def test_flash_attention_function_gradients(card, D):
     """``attention`` on the card is a ``torch.autograd.Function`` whose
-    backward launches B2a/B2b: its gradients against torch autograd through
-    the f32 plain version."""
-    q, k, v = (x.requires_grad_(True) for x in _qkv(256, 3, 7, card))
-    g = _qkv(256, 3, 8, card)[0]
-    before = (attn.launches, attn.launches_bwd_dkv, attn.launches_bwd_dq)
+    backward launches B2a/B2b (at D = 64 too, their second instantiation):
+    its gradients against torch autograd through the f32 plain version."""
+    q, k, v = (x.requires_grad_(True) for x in _qkv(256, 3, 7, card, D=D))
+    g = _qkv(256, 3, 8, card, D=D)[0]
+    before = (attn.launches + attn.launches_d64, *_bwd_counts())
     attn.attention(q, k, v).backward(g)
     torch.cuda.synchronize()
-    assert (attn.launches, attn.launches_bwd_dkv, attn.launches_bwd_dq) == (
-        before[0] + 1, before[1] + 1, before[2] + 1)
+    d64 = D == 64
+    assert (attn.launches + attn.launches_d64, *_bwd_counts()) == (
+        before[0] + 1, before[1] + (not d64), before[2] + (not d64),
+        before[3] + d64, before[4] + d64)
     qf, kf, vf = (x.detach().float().requires_grad_(True) for x in (q, k, v))
     attn.attention_reference(qf, kf, vf)[0].backward(g.float())
     for got, ref in ((q.grad, qf.grad), (k.grad, kf.grad), (v.grad, vf.grad)):

@@ -355,8 +355,7 @@ def test_launcher_trains_checkpoints_and_resumes(tmp_path, monkeypatch, capsys):
 
 @pytest.mark.parametrize("flag", [
     ["--pipe", "2"], ["--data-mesh", "2"], ["--full-finetune"],
-    ["--bf16-compute"], ["--optimizer", "prodigy"], ["--preconditioning-loss"],
-    ["--pretrain-models", "weights"],
+    ["--bf16-compute"],
 ])
 def test_launcher_refuses_deferred_flags(flag):
     with pytest.raises(NotImplementedError, match="not ported"):
@@ -364,8 +363,7 @@ def test_launcher_refuses_deferred_flags(flag):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--prompt", "[MVFLUX]"], ["--preconditioning-loss-weight", "0.5"],
-    ["--pipe-n-micro", "4"],
+    ["--prompt", "[MVFLUX]"], ["--pipe-n-micro", "4"],
 ])
 def test_launcher_rejects_options_it_does_not_take(flag):
     """Options whose branch is not ported are not parsed at all, so they
@@ -374,9 +372,7 @@ def test_launcher_rejects_options_it_does_not_take(flag):
         launcher.parse_args(["--tiny", "--device", "cpu"] + flag)
 
 
-@pytest.mark.parametrize("field", [{"optimizer": "prodigy"},
-                                   {"preconditioning_loss": True},
-                                   {"pipe_axis": "pipe"}])
+@pytest.mark.parametrize("field", [{"pipe_axis": "pipe"}])
 def test_deferred_training_branches_raise(trees, field):
     base, lora = trees
     tt = tfl.FluxLoraTrainConfig(rank=RANK, **field)
@@ -385,3 +381,170 @@ def test_deferred_training_branches_raise(trees, field):
         tfl.flow_match_loss(_torch_lora(lora), params_from_jax(base, "cpu"),
                             TFluxConfig.tiny(), tt,
                             params_from_jax(_batch(0), "cpu"))
+
+
+@pytest.mark.parametrize("clip", [True, False], ids=["clipped", "unclipped"])
+@pytest.mark.parametrize("schedule,lr,wd", [("constant", 1.0, 0.0),
+                                            ("cosine", 0.5, 0.1)])
+def test_prodigy_matches_optax(schedule, lr, wd, clip):
+    """Four Prodigy steps behind the global-norm clip on a toy tree, against
+    ``make_optimizer``'s ``optax.contrib.prodigy`` chain: the parameters
+    after each step (within 1e-6 of max|param|) and the d-estimate, which
+    at lr 1 grows from 1e-6 once the gradients line up with the distance
+    travelled (a gradient with a steady part).  No warmup: a first step at
+    lr 0 gives both packages d = 0 / 0."""
+    kw = dict(optimizer="prodigy", learning_rate=lr, lr_scheduler=schedule,
+              warmup_steps=0, max_train_steps=6, weight_decay=wd,
+              max_grad_norm=0.5 if clip else 1e3)
+    jt, tt = _configs(**kw)
+    rng = np.random.default_rng(21)
+    params = {"a": {"w": rng.normal(size=(3, 4)).astype(np.float32)},
+              "b": rng.normal(size=(5,)).astype(np.float32)}
+    steady = jax.tree.map(lambda x: rng.normal(size=x.shape).astype(np.float32),
+                          params)
+    jx = jfl.make_optimizer(jt)
+    jp = jax.tree.map(jnp.asarray, params)
+    jstate = jx.init(jp)
+    tx = tfl.make_optimizer(tt)
+    assert isinstance(tx, tfl.ClippedProdigy)
+    tp = params_from_jax(params, "cpu")
+    tstate = tx.init(tp)
+    for step in range(4):
+        grads = jax.tree.map(
+            lambda s: (s + 0.3 * rng.normal(size=s.shape)).astype(np.float32),
+            steady)
+        updates, jstate = jx.update(jax.tree.map(jnp.asarray, grads), jstate, jp)
+        jp = optax.apply_updates(jp, updates)
+        tx.step(tp, params_from_jax(grads, "cpu"), tstate)
+        assert _max_rel(_leaves_np(tp), _leaves_np(jp)) <= OPT_REL, step
+        d_j = float(jstate[1].estim_lr)
+        assert abs(float(tstate["estim_lr"]) - d_j) <= 1e-5 * d_j, step
+    assert tstate["count"] == 4
+    if schedule == "constant":  # the estimate has grown
+        assert float(tstate["estim_lr"]) > np.float32(1e-6)
+
+
+def _vae_trees():
+    from unitex_torch.models.flux.vae import VAEConfig as TVAEConfig
+    from unitex_torch.models.flux.vae import init_vae_params
+
+    vae = init_vae_params(torch.Generator().manual_seed(22), TVAEConfig.tiny(),
+                          device="cpu")
+    return jax.tree.map(lambda t: t.numpy(), vae)
+
+
+def test_preconditioning_loss_and_lora_grads_match_jax(trees):
+    """``preconditioning_loss=True`` (weight 0.7) with half the noise
+    tokens dropped: the x0 prediction zt − σ·v, the kept predictions
+    scattered back to the full grid (zero velocity elsewhere), decoded
+    through the frozen tiny VAE under autograd (its blocks checkpointed),
+    and its pixel MSE against ``pixel_values`` added to the flow loss: the
+    loss and every LoRA gradient against JAX's ``flow_match_loss`` with
+    the VAE.  (Without a drop the scatter is skipped and the rest is the
+    same code.)"""
+    from unitex_tpu.models.flux.vae import VAEConfig as JVAEConfig
+    from unitex_torch.models.flux.vae import VAEConfig as TVAEConfig
+
+    base, lora = trees
+    jt, tt = _configs(drop_rate=0.5, preconditioning_loss=True,
+                      preconditioning_loss_weight=0.7)
+    vae = _vae_trees()
+    batch = _batch(23)
+    batch["pixel_values"] = np.random.default_rng(24).random(
+        (B, 2 * HL, 2 * WL, 3)).astype(np.float32)
+    key = jax.random.key(25)
+
+    def jloss(lora, base, batch, vae):
+        return jfl.flow_match_loss(lora, base, JFluxConfig.tiny(), jt, batch,
+                                   key, vae_params=vae,
+                                   vae_cfg=JVAEConfig.tiny())
+
+    loss_j, grads_j = jax.jit(jax.value_and_grad(jloss))(
+        *(jax.tree.map(jnp.asarray, x) for x in (lora, base, batch, vae)))
+    lora_t = _torch_lora(lora)
+    loss_t = tfl.flow_match_loss(
+        lora_t, params_from_jax(base, "cpu"), TFluxConfig.tiny(), tt,
+        params_from_jax(batch, "cpu"), None, **_jax_draws(key, jt),
+        vae_params=params_from_jax(vae, "cpu"), vae_cfg=TVAEConfig.tiny())
+    loss_t.backward()
+    assert abs(float(loss_t.detach()) - float(loss_j)) <= LOSS_REL * abs(float(loss_j))
+    got = _leaves_np(tfl._map(lambda p: p.grad, lora_t))
+    for k, want in _leaves_np(grads_j).items():
+        assert np.abs(got[k] - want).max() <= GRAD_REL * np.abs(want).max(), k
+    with pytest.raises(ValueError, match="frozen VAE"):
+        tfl.flow_match_loss(lora_t, params_from_jax(base, "cpu"),
+                            TFluxConfig.tiny(), tt, params_from_jax(batch, "cpu"),
+                            None, **_jax_draws(key, jt))
+
+
+def test_vae_decode_with_grad_equals_plain(trees):
+    """The checkpointed decode gives ``vae_decode``'s images bit for bit,
+    and the same input gradient as the decode without checkpoints."""
+    from unitex_torch.models.flux.vae import (VAEConfig, _decode, vae_decode,
+                                              vae_decode_with_grad)
+
+    vae = params_from_jax(_vae_trees(), "cpu")
+    z0 = torch.from_numpy(np.random.default_rng(26).normal(
+        size=(1, 8, 12, 4)).astype(np.float32))
+    w = torch.from_numpy(np.random.default_rng(27).normal(
+        size=(1, 16, 24, 3)).astype(np.float32))
+    grads = []
+    for decode in (vae_decode_with_grad, _decode):  # checkpointed, plain
+        z = z0.clone().requires_grad_(True)
+        img = decode(vae, VAEConfig.tiny(), z)
+        assert torch.equal(img.detach(), vae_decode(vae, VAEConfig.tiny(), z0))
+        (img * w).sum().backward()
+        grads.append(z.grad)
+    torch.testing.assert_close(grads[0], grads[1], rtol=0, atol=1e-6)
+
+
+def test_launcher_trains_from_pretrain_models(tmp_path, monkeypatch):
+    """``--pretrain-models`` (the full model's path, its config cut to the
+    tiny one) with ``--optimizer prodigy --preconditioning-loss
+    --preconditioning-loss-weight 0.5``: the launcher reads a seeded
+    checkpoint written under the diffusers names into
+    ``<root>/flux/{transformer,vae}`` (the trees it trains on are the
+    written ones, leaf for leaf), trains 2 steps with finite losses and
+    writes the adapter."""
+    import importlib.util
+
+    from unitex_torch.models.flux import loader
+    from unitex_torch.models.flux.vae import VAEConfig as TVAEConfig
+    from unitex_torch.models.flux.vae import init_vae_params
+
+    monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    cfg = dataclasses.replace(TFluxConfig.tiny(), remat=True)
+    vcfg = TVAEConfig.tiny()
+    monkeypatch.setattr(launcher, "full_size", lambda: (cfg, vcfg, 32))
+    gen = torch.Generator()
+    written = (tmodel.init_flux_params(gen.manual_seed(28), cfg, device="cpu"),
+               init_vae_params(gen.manual_seed(29), vcfg, device="cpu"))
+    root = str(tmp_path / "models")
+    cs.write_checkpoint(root, *written, {})
+    loaded = {}
+    for name in ("load_flux_transformer", "load_vae"):
+        fn = getattr(loader, name)
+        monkeypatch.setattr(loader, name, lambda *a, _fn=fn, _n=name, **k:
+                            loaded.setdefault(_n, _fn(*a, **k)))
+    out = str(tmp_path / "run")
+    losses = []
+    state = launcher.main(
+        ["--pretrain-models", root, "--device", "cpu", "--optimizer",
+         "prodigy", "--preconditioning-loss", "--preconditioning-loss-weight",
+         "0.5", "--learning-rate", "1.0", "--lr-scheduler", "constant",
+         "--max-train-steps", "2", "--output-dir", out],
+        on_step=lambda step, st, loss: losses.append(float(loss)))
+    assert len(losses) == 2 and all(np.isfinite(losses))
+    for tree, name in zip(written, ("load_flux_transformer", "load_vae")):
+        got = dict(cs._named_leaves(loaded[name]))
+        for path, leaf in cs._named_leaves(tree):
+            assert torch.equal(got[path], leaf), (name, path)
+    assert float(state.opt_state["estim_lr"]) >= np.float32(1e-6)
+    saved = torch.load(os.path.join(out, "checkpoint-2", tckpt.FILE),
+                       weights_only=True)
+    assert float(saved["dual_blocks"]["ff"]["in"]["b"].abs().max()) > 0

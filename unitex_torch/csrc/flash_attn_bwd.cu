@@ -55,9 +55,20 @@
 //     dS = 0 and adds nothing to dK and dV; B2b sets P of keys past S to
 //     0; rows past S are computed and not stored.
 //
+// Head width: both kernels are templates on D, instantiated for D = 128
+// (FLUX) and D = 64 (the SD3 transformer of the TSD-SR trainer), as the
+// Pallas kernels are generic in D.  At D = 64 a row of q/k/v/dO is one
+// 128-byte swizzle row, so every tile is a single TMA box (D = 128 needs
+// two, kBox bytes apart); the products that contract over D (S, dP, Sᵀ,
+// dPᵀ) take four k16 steps instead of eight; the products whose N is D
+// (dQ += dS·K, dK += dSᵀ·Q, dV += Pᵀ·dO) are wgmma m64n64k16 into 32
+// accumulator registers a thread instead of 64.  The rings keep their
+// depth; tuning at D = 64 (deeper rings, 128-query B2a tiles, which the
+// halved accumulators would allow) is left for later.
+//
 // Layout: q/k/v/dO/dq/dk/dv are [B, S, H, D] read through their strides
 // (D contiguous, rows 16-byte aligned, as TMA requires); lse (natural
-// log) and Drow are [B·H, S] f32.  D = 128 only.
+// log) and Drow are [B·H, S] f32.
 
 #include <math.h>
 
@@ -66,33 +77,57 @@
 namespace {
 
 using namespace hop;
-using fa::kD;
 using fa::kLog2e;
 
 constexpr int kThreads = 3 * 128;
 constexpr int kOwn = 128;                         // rows a block owns
-constexpr uint32_t kOwnBytes = kOwn * kD * 2;     // one 128-row tile
-constexpr uint32_t kOwnBox = kOwnBytes / 2;       // its [128][64] half
+constexpr uint32_t kOwnBox = kOwn * 128;          // a [128][64] box, 16 KB
+constexpr int kStream = 64;                       // B2a's streamed queries
+constexpr uint32_t kStreamBox = kStream * 128;    // a [64][64] box, 8 KB
+
+// The sizes that follow from the head width D (128 or 64).
+template <int D>
+struct Shape {
+  static constexpr int kBoxes = D / 64;  // 64-column boxes a tile
+  static constexpr uint32_t kOwnBytes = kBoxes * kOwnBox;
+  static constexpr uint32_t kStreamBytes = kBoxes * kStreamBox;
+  static constexpr int kAcc = D / 2;  // dQ / dK / dV accumulators a thread
+};
 
 // B2b: Q, dO, the K and V rings, both consumers' dS ([64][128] bf16 as two
 // [64][64] boxes), the barriers, and slack to align the base to 1024.
 constexpr int kDqStages = 2;
 constexpr uint32_t kDsBytes = 64 * 128 * 2;
-constexpr uint32_t kDqSmem = kOwnBytes * (2 + 2 * kDqStages) + 2 * kDsBytes +
-                             8 * (2 + 4 * kDqStages) + 1024;
+template <int D>
+constexpr uint32_t dq_smem() {
+  return Shape<D>::kOwnBytes * (2 + 2 * kDqStages) + 2 * kDsBytes +
+         8 * (2 + 4 * kDqStages) + 1024;
+}
 
 // B2a: K, V, the Q and dO rings of 64-query tiles, both consumers' Pᵀ and
 // dSᵀ ([64 keys][64 queries] bf16, one box each), each stage's lse and
 // Drow, the barriers, and the alignment slack.
-constexpr int kStream = 64;
-constexpr uint32_t kStreamBytes = kStream * kD * 2;
-constexpr uint32_t kStreamBox = kStreamBytes / 2;
 constexpr int kDkvStages = 3;
 constexpr uint32_t kTBytes = 64 * 64 * 2;
 constexpr uint32_t kRowsBytes = 2 * kStream * 4;  // lse | Drow of a stage
-constexpr uint32_t kDkvSmem = 2 * kOwnBytes + 2 * kDkvStages * kStreamBytes +
-                              4 * kTBytes + kDkvStages * kRowsBytes +
-                              8 * (2 + 2 * kDkvStages) + 1024;
+template <int D>
+constexpr uint32_t dkv_smem() {
+  return 2 * Shape<D>::kOwnBytes + 2 * kDkvStages * Shape<D>::kStreamBytes +
+         4 * kTBytes + kDkvStages * kRowsBytes + 8 * (2 + 2 * kDkvStages) +
+         1024;
+}
+
+// d (64 x D) += a·b with b MN-major (kTransB = 1): the product whose N is
+// the head width, m64n128k16 at D = 128 and m64n64k16 at D = 64.
+template <int D>
+__device__ __forceinline__ void wgmma_nd(float (&d)[D / 2], uint64_t da,
+                                         uint64_t db) {
+  if constexpr (D == 128) {
+    wgmma_m64n128_ss<1>(d, da, db);
+  } else {
+    wgmma_m64n64_ss<1>(d, da, db);
+  }
+}
 
 // x, which the compiler must take as a new value here: an address or
 // descriptor derived from an opaque base is computed where it is used
@@ -142,11 +177,12 @@ __device__ __forceinline__ void store_tile(const float (&x)[N / 2],
   }
 }
 
-// Store 64 rows of an f32 [64][128] accumulator as bf16, times `scale`,
+// Store 64 rows of an f32 [64][D] accumulator as bf16, times `scale`,
 // guarding rows at or past S; row0 is this warpgroup's first row.
+template <int D>
 __device__ __forceinline__ void store_rows(__nv_bfloat16* base,
                                            long long row_stride, int row0,
-                                           int S, const float (&acc)[64],
+                                           int S, const float (&acc)[D / 2],
                                            float scale, int warp, int g,
                                            int t) {
 #pragma unroll
@@ -155,7 +191,7 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* base,
     if (row >= S) continue;
     __nv_bfloat16* p = base + row * row_stride + 2 * t;
 #pragma unroll
-    for (int dt = 0; dt < kD / 8; ++dt) {
+    for (int dt = 0; dt < D / 8; ++dt) {
       *reinterpret_cast<__nv_bfloat162*>(p + dt * 8) = __floats2bfloat162_rn(
           acc[4 * dt + 2 * half] * scale, acc[4 * dt + 2 * half + 1] * scale);
     }
@@ -164,30 +200,33 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* base,
 
 // ---- B2b ----------------------------------------------------------------
 
-// x (64 x 128) = rows (64 of a 128-row tile) · tileᵀ (128 rows), 8 k-steps
-// of 16 over D, both K-major: S = Q·Kᵀ and dP = dO·Vᵀ.
+// x (64 x 128) = rows (64 of a 128-row tile) · tileᵀ (128 rows), D/16
+// k-steps of 16 over D, both K-major: S = Q·Kᵀ and dP = dO·Vᵀ.
+template <int D>
 __device__ __forceinline__ void issue_scores(float (&x)[64], uint32_t rows,
                                              uint32_t tile) {
   const uint64_t da = opaque(desc_sw128(rows, 16, 1024));
   const uint64_t db = opaque(desc_sw128(tile, 16, 1024));
   wgmma_m64n128_ss_zero(x, da, db);
 #pragma unroll
-  for (int kk = 1; kk < kD / 16; ++kk) {
+  for (int kk = 1; kk < D / 16; ++kk) {
     const uint32_t off = (kk / 4) * kOwnBox + (kk % 4) * 32;
     wgmma_m64n128_ss(x, desc_add(da, off), desc_add(db, off));
   }
 }
 
-// dQ (64 x 128) += dS (shared memory, K-major) · K tile (MN-major), 8
+// dQ (64 x D) += dS (shared memory, K-major) · K tile (MN-major; the
+// leading offset steps between its 64-column boxes, unused at D = 64), 8
 // k-steps of 16 keys.
-__device__ __forceinline__ void issue_dq(float (&dq)[64], uint32_t ds_tile,
+template <int D>
+__device__ __forceinline__ void issue_dq(float (&dq)[D / 2], uint32_t ds_tile,
                                          uint32_t k_tile) {
   const uint64_t da = opaque(desc_sw128(ds_tile, 16, 1024));
   const uint64_t db = opaque(desc_sw128(k_tile, kOwnBox, 1024));
 #pragma unroll
   for (int kk = 0; kk < kOwn / 16; ++kk) {
     const uint32_t off = (kk / 4) * (kDsBytes / 2) + (kk % 4) * 32;
-    wgmma_m64n128_ss<1>(dq, desc_add(da, off), desc_add(db, kk * 16 * 128));
+    wgmma_nd<D>(dq, desc_add(da, off), desc_add(db, kk * 16 * 128));
   }
 }
 
@@ -209,6 +248,7 @@ struct DqBars {
   }
 };
 
+template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
                         const __grid_constant__ CUtensorMap tg,
@@ -219,6 +259,8 @@ __global__ void __launch_bounds__(kThreads, 1)
                         __nv_bfloat16* __restrict__ dq, int S, int H,
                         long long ob, long long os, long long oh, float scale,
                         float scale_log2) {
+  constexpr uint32_t kOwnBytes = Shape<D>::kOwnBytes;
+  constexpr int kBoxes = Shape<D>::kBoxes;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t sQ = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t sG = sQ + kOwnBytes;
@@ -258,10 +300,11 @@ __global__ void __launch_bounds__(kThreads, 1)
     reg_dealloc<24>();
     if (tid == 0) {
       mbar_expect_tx(bar.own(), 2 * kOwnBytes);
-      tma_load_4d(sQ, &tq, bar.own(), 0, h, m0, b);
-      tma_load_4d(sQ + kOwnBox, &tq, bar.own(), 64, h, m0, b);
-      tma_load_4d(sG, &tg, bar.own(), 0, h, m0, b);
-      tma_load_4d(sG + kOwnBox, &tg, bar.own(), 64, h, m0, b);
+#pragma unroll
+      for (int x = 0; x < kBoxes; ++x) {
+        tma_load_4d(sQ + x * kOwnBox, &tq, bar.own(), 64 * x, h, m0, b);
+        tma_load_4d(sG + x * kOwnBox, &tg, bar.own(), 64 * x, h, m0, b);
+      }
       for (int j = 0; j < n_tiles; ++j) {
         const int s = j % kDqStages;
         const uint32_t free_parity = ((j / kDqStages) & 1) ^ 1;
@@ -270,14 +313,18 @@ __global__ void __launch_bounds__(kThreads, 1)
         // first and never waits behind K's slot
         mbar_wait(bar.vempty(s), free_parity);
         mbar_expect_tx(bar.vfull(s), kOwnBytes);
-        tma_load_4d(sV + s * kOwnBytes, &tv, bar.vfull(s), 0, h, key0, b);
-        tma_load_4d(sV + s * kOwnBytes + kOwnBox, &tv, bar.vfull(s), 64, h,
-                    key0, b);
+#pragma unroll
+        for (int x = 0; x < kBoxes; ++x) {
+          tma_load_4d(sV + s * kOwnBytes + x * kOwnBox, &tv, bar.vfull(s),
+                      64 * x, h, key0, b);
+        }
         mbar_wait(bar.kempty(s), free_parity);
         mbar_expect_tx(bar.kfull(s), kOwnBytes);
-        tma_load_4d(sK + s * kOwnBytes, &tk, bar.kfull(s), 0, h, key0, b);
-        tma_load_4d(sK + s * kOwnBytes + kOwnBox, &tk, bar.kfull(s), 64, h,
-                    key0, b);
+#pragma unroll
+        for (int x = 0; x < kBoxes; ++x) {
+          tma_load_4d(sK + s * kOwnBytes + x * kOwnBox, &tk, bar.kfull(s),
+                      64 * x, h, key0, b);
+        }
       }
       // the consumers spin without a trap (see mbar_wait_spin): a fault
       // in their bookkeeping traps here
@@ -307,9 +354,9 @@ __global__ void __launch_bounds__(kThreads, 1)
       drw[half] = row < S ? drow[idx] : 0.f;
     }
 
-    float dqacc[64];
+    float dqacc[Shape<D>::kAcc];
 #pragma unroll
-    for (int i = 0; i < 64; ++i) dqacc[i] = 0.f;
+    for (int i = 0; i < Shape<D>::kAcc; ++i) dqacc[i] = 0.f;
     float sacc[64];
     float dpacc[64];
 
@@ -328,10 +375,10 @@ __global__ void __launch_bounds__(kThreads, 1)
       mbar_wait_spin(bar.vfull(s), parity);
       bar_sync(1 + c, 256);
       wgmma_fence();
-      if (j > 0) issue_dq(dqacc, ds_tile, sK + sp * kOwnBytes);
+      if (j > 0) issue_dq<D>(dqacc, ds_tile, sK + sp * kOwnBytes);
       wgmma_commit();
-      issue_scores(sacc, q_rows, sK + s * kOwnBytes);
-      issue_scores(dpacc, g_rows, sV + s * kOwnBytes);
+      issue_scores<D>(sacc, q_rows, sK + s * kOwnBytes);
+      issue_scores<D>(dpacc, g_rows, sV + s * kOwnBytes);
       wgmma_commit();
       // the other warpgroup takes no turn after its last tile
       if (!(c == 1 && j == n_tiles - 1)) bar_arrive(2 - c, 256);
@@ -360,44 +407,46 @@ __global__ void __launch_bounds__(kThreads, 1)
       bar_sync(3 + c, 128);
     }
     wgmma_fence();
-    issue_dq(dqacc, ds_tile, sK + ((n_tiles - 1) % kDqStages) * kOwnBytes);
+    issue_dq<D>(dqacc, ds_tile,
+                sK + ((n_tiles - 1) % kDqStages) * kOwnBytes);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(dqacc);
     if (ltid == 0) mbar_arrive(bar.done());
-    store_rows(dq + b * ob + h * oh, os, m0 + c * 64, S, dqacc, scale, warp,
-               g, t);
+    store_rows<D>(dq + b * ob + h * oh, os, m0 + c * 64, S, dqacc, scale,
+                  warp, g, t);
   }
 }
 
 // ---- B2a ----------------------------------------------------------------
 
-// x (64 x 64) = rows (64 of a 128-row tile) · tileᵀ (64 rows), 8 k-steps
-// of 16 over D, both K-major: Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ.
+// x (64 x 64) = rows (64 of a 128-row tile) · tileᵀ (64 rows), D/16
+// k-steps of 16 over D, both K-major: Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ.
+template <int D>
 __device__ __forceinline__ void issue_scores_t(float (&x)[32], uint32_t rows,
                                                uint32_t tile) {
   const uint64_t da = opaque(desc_sw128(rows, 16, 1024));
   const uint64_t db = opaque(desc_sw128(tile, 16, 1024));
   wgmma_m64n64_ss_zero(x, da, db);
 #pragma unroll
-  for (int kk = 1; kk < kD / 16; ++kk) {
+  for (int kk = 1; kk < D / 16; ++kk) {
     const uint32_t col = (kk % 4) * 32;
     wgmma_m64n64_ss(x, desc_add(da, (kk / 4) * kOwnBox + col),
                     desc_add(db, (kk / 4) * kStreamBox + col));
   }
 }
 
-// acc (64 x 128) += t_tile ([64 keys][64 queries], K-major) · a 64-row
-// streamed tile (MN-major; its two 64-column boxes 8 KB apart), 4 k-steps
-// of 16 queries: dV += Pᵀ·dO and dK += dSᵀ·Q.
-__device__ __forceinline__ void issue_grad(float (&acc)[64], uint32_t t_tile,
-                                           uint32_t tile) {
+// acc (64 x D) += t_tile ([64 keys][64 queries], K-major) · a 64-row
+// streamed tile (MN-major; at D = 128 its two 64-column boxes 8 KB apart),
+// 4 k-steps of 16 queries: dV += Pᵀ·dO and dK += dSᵀ·Q.
+template <int D>
+__device__ __forceinline__ void issue_grad(float (&acc)[D / 2],
+                                           uint32_t t_tile, uint32_t tile) {
   const uint64_t da = opaque(desc_sw128(t_tile, 16, 1024));
   const uint64_t db = opaque(desc_sw128(tile, kStreamBox, 1024));
 #pragma unroll
   for (int kk = 0; kk < kStream / 16; ++kk) {
-    wgmma_m64n128_ss<1>(acc, desc_add(da, kk * 32),
-                        desc_add(db, kk * 16 * 128));
+    wgmma_nd<D>(acc, desc_add(da, kk * 32), desc_add(db, kk * 16 * 128));
   }
 }
 
@@ -414,6 +463,7 @@ struct DkvBars {
   }
 };
 
+template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tk,
                          const __grid_constant__ CUtensorMap tv,
@@ -426,11 +476,14 @@ __global__ void __launch_bounds__(kThreads, 1)
                          long long dkb, long long dks, long long dkh,
                          long long dvb, long long dvs, long long dvh,
                          float scale, float scale_log2) {
+  constexpr uint32_t kOwnBytes = Shape<D>::kOwnBytes;
+  constexpr uint32_t kStreamBytes = Shape<D>::kStreamBytes;
+  constexpr int kBoxes = Shape<D>::kBoxes;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t sK = (raw + 1023u) & ~1023u;
   const uint32_t sV = sK + kOwnBytes;
-  const uint32_t sQ = sV + kOwnBytes;                   // stage s at + s·16 KB
+  const uint32_t sQ = sV + kOwnBytes;  // stage s at + s·kStreamBytes
   const uint32_t sG = sQ + kDkvStages * kStreamBytes;   // dO, likewise
   const uint32_t sT = sG + kDkvStages * kStreamBytes;   // Pᵀ, Pᵀ, dSᵀ, dSᵀ
   const uint32_t sRows = sT + 4 * kTBytes;              // [stage][lse | Drow]
@@ -466,10 +519,11 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int lane = tid % 32;
     if (tid == 0) {
       mbar_expect_tx(bar.own(), 2 * kOwnBytes);
-      tma_load_4d(sK, &tk, bar.own(), 0, h, n0, b);
-      tma_load_4d(sK + kOwnBox, &tk, bar.own(), 64, h, n0, b);
-      tma_load_4d(sV, &tv, bar.own(), 0, h, n0, b);
-      tma_load_4d(sV + kOwnBox, &tv, bar.own(), 64, h, n0, b);
+#pragma unroll
+      for (int x = 0; x < kBoxes; ++x) {
+        tma_load_4d(sK + x * kOwnBox, &tk, bar.own(), 64 * x, h, n0, b);
+        tma_load_4d(sV + x * kOwnBox, &tv, bar.own(), 64 * x, h, n0, b);
+      }
       for (int i = 0; i < n_tiles; ++i) {
         const int s = i % kDkvStages;
         const int m0 = i * kStream;
@@ -477,10 +531,13 @@ __global__ void __launch_bounds__(kThreads, 1)
         mbar_expect_tx(bar.full(s), 2 * kStreamBytes);
         const uint32_t q_st = sQ + s * kStreamBytes;
         const uint32_t g_st = sG + s * kStreamBytes;
-        tma_load_4d(q_st, &tq, bar.full(s), 0, h, m0, b);
-        tma_load_4d(q_st + kStreamBox, &tq, bar.full(s), 64, h, m0, b);
-        tma_load_4d(g_st, &tg, bar.full(s), 0, h, m0, b);
-        tma_load_4d(g_st + kStreamBox, &tg, bar.full(s), 64, h, m0, b);
+#pragma unroll
+        for (int x = 0; x < kBoxes; ++x) {
+          tma_load_4d(q_st + x * kStreamBox, &tq, bar.full(s), 64 * x, h, m0,
+                      b);
+          tma_load_4d(g_st + x * kStreamBox, &tg, bar.full(s), 64 * x, h, m0,
+                      b);
+        }
       }
       mbar_wait(bar.done(), 0);  // as in B2b
     } else if (warp == 1) {
@@ -515,9 +572,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     const uint32_t pt_tile = sT + c * kTBytes;
     const uint32_t dst_tile = sT + (2 + c) * kTBytes;
 
-    float dkacc[64], dvacc[64];
+    float dkacc[Shape<D>::kAcc], dvacc[Shape<D>::kAcc];
 #pragma unroll
-    for (int i = 0; i < 64; ++i) dkacc[i] = dvacc[i] = 0.f;
+    for (int i = 0; i < Shape<D>::kAcc; ++i) dkacc[i] = dvacc[i] = 0.f;
     float st[32];
     float dpt[32];
 
@@ -534,12 +591,12 @@ __global__ void __launch_bounds__(kThreads, 1)
       bar_sync(1 + c, 256);
       wgmma_fence();
       if (i > 0) {
-        issue_grad(dvacc, pt_tile, sG + sp * kStreamBytes);
-        issue_grad(dkacc, dst_tile, sQ + sp * kStreamBytes);
+        issue_grad<D>(dvacc, pt_tile, sG + sp * kStreamBytes);
+        issue_grad<D>(dkacc, dst_tile, sQ + sp * kStreamBytes);
       }
       wgmma_commit();
-      issue_scores_t(st, k_rows, sQ + s * kStreamBytes);
-      issue_scores_t(dpt, v_rows, sG + s * kStreamBytes);
+      issue_scores_t<D>(st, k_rows, sQ + s * kStreamBytes);
+      issue_scores_t<D>(dpt, v_rows, sG + s * kStreamBytes);
       wgmma_commit();
       if (!(c == 1 && i == n_tiles - 1)) bar_arrive(2 - c, 256);
       wgmma_wait<1>();  // the products of tile i - 1 are done
@@ -574,27 +631,78 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     const int s = (n_tiles - 1) % kDkvStages;
     wgmma_fence();
-    issue_grad(dvacc, pt_tile, sG + s * kStreamBytes);
-    issue_grad(dkacc, dst_tile, sQ + s * kStreamBytes);
+    issue_grad<D>(dvacc, pt_tile, sG + s * kStreamBytes);
+    issue_grad<D>(dkacc, dst_tile, sQ + s * kStreamBytes);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(dkacc);
     fence_regs(dvacc);
     if (ltid == 0) mbar_arrive(bar.done());
-    store_rows(dk + b * dkb + h * dkh, dks, n0 + c * 64, S, dkacc, scale,
-               warp, g, t);
-    store_rows(dv + b * dvb + h * dvh, dvs, n0 + c * 64, S, dvacc, 1.f, warp,
-               g, t);
+    store_rows<D>(dk + b * dkb + h * dkh, dks, n0 + c * 64, S, dkacc, scale,
+                  warp, g, t);
+    store_rows<D>(dv + b * dvb + h * dvh, dvs, n0 + c * 64, S, dvacc, 1.f,
+                  warp, g, t);
   }
 }
 
-bool bad_args(int B, int S, int H, int D) {
-  return D != kD || B <= 0 || S <= 0 || H <= 0;
+template <int D>
+int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
+               const float* lse, const float* drow, void* dk, void* dv, int B,
+               int S, int H, long long qb, long long qs, long long qh,
+               long long kb, long long ks, long long kh, long long vb,
+               long long vs, long long vh, long long gb, long long gs,
+               long long gh, long long dkb, long long dks, long long dkh,
+               long long dvb, long long dvs, long long dvh, float scale,
+               void* stream) {
+  CUtensorMap tk, tv, tq, tg;
+  int rc = make_map_bshd(&tk, k, B, S, H, kb, ks, kh, kOwn, D);
+  if (rc == 0) rc = make_map_bshd(&tv, v, B, S, H, vb, vs, vh, kOwn, D);
+  if (rc == 0) rc = make_map_bshd(&tq, q, B, S, H, qb, qs, qh, kStream, D);
+  if (rc == 0) rc = make_map_bshd(&tg, dout, B, S, H, gb, gs, gh, kStream, D);
+  if (rc != 0) return rc;
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      dkv_smem<D>());
+  if (err != cudaSuccess) return err;
+  const dim3 grid((S + kOwn - 1) / kOwn, B * H);
+  flash_bwd_dkv_kernel<D><<<grid, kThreads, dkv_smem<D>(),
+                            static_cast<cudaStream_t>(stream)>>>(
+      tk, tv, tq, tg, lse, drow, static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), S, H, dkb, dks, dkh, dvb, dvs, dvh,
+      scale, scale * kLog2e);
+  return cudaGetLastError();
+}
+
+template <int D>
+int launch_dq(const void* q, const void* k, const void* v, const void* dout,
+              const float* lse, const float* drow, void* dq, int B, int S,
+              int H, long long qb, long long qs, long long qh, long long kb,
+              long long ks, long long kh, long long vb, long long vs,
+              long long vh, long long gb, long long gs, long long gh,
+              long long dqb, long long dqs, long long dqh, float scale,
+              void* stream) {
+  CUtensorMap tq, tg, tk, tv;
+  int rc = make_map_bshd(&tq, q, B, S, H, qb, qs, qh, kOwn, D);
+  if (rc == 0) rc = make_map_bshd(&tg, dout, B, S, H, gb, gs, gh, kOwn, D);
+  if (rc == 0) rc = make_map_bshd(&tk, k, B, S, H, kb, ks, kh, kOwn, D);
+  if (rc == 0) rc = make_map_bshd(&tv, v, B, S, H, vb, vs, vh, kOwn, D);
+  if (rc != 0) return rc;
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      dq_smem<D>());
+  if (err != cudaSuccess) return err;
+  const dim3 grid((S + kOwn - 1) / kOwn, B * H);
+  flash_bwd_dq_kernel<D><<<grid, kThreads, dq_smem<D>(),
+                           static_cast<cudaStream_t>(stream)>>>(
+      tq, tg, tk, tv, lse, drow, static_cast<__nv_bfloat16*>(dq), S, H, dqb,
+      dqs, dqh, scale, scale * kLog2e);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// Plain C entry points (bound with ctypes).  Strides are in elements, three
+// Plain C entry points (bound with ctypes).  D is 128 or 64; any other D
+// returns cudaErrorInvalidValue.  Strides are in elements, three
 // (batch, sequence, head) per [B, S, H, D] tensor; the innermost D stride
 // of every tensor must be 1 and the others multiples of 8 (16 bytes, for
 // TMA).  Each returns cudaGetLastError() after its launch (0 on success),
@@ -608,24 +716,18 @@ extern "C" int flash_attn_bwd_dkv_bf16(
     long long gb, long long gs, long long gh, long long dkb, long long dks,
     long long dkh, long long dvb, long long dvs, long long dvh, float scale,
     void* stream) {
-  if (bad_args(B, S, H, D)) return cudaErrorInvalidValue;
-  CUtensorMap tk, tv, tq, tg;
-  int rc = make_map_bshd(&tk, k, B, S, H, kb, ks, kh, kOwn);
-  if (rc == 0) rc = make_map_bshd(&tv, v, B, S, H, vb, vs, vh, kOwn);
-  if (rc == 0) rc = make_map_bshd(&tq, q, B, S, H, qb, qs, qh, kStream);
-  if (rc == 0) rc = make_map_bshd(&tg, dout, B, S, H, gb, gs, gh, kStream);
-  if (rc != 0) return rc;
-  const cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kDkvSmem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((S + kOwn - 1) / kOwn, B * H);
-  flash_bwd_dkv_kernel<<<grid, kThreads, kDkvSmem,
-                         static_cast<cudaStream_t>(stream)>>>(
-      tk, tv, tq, tg, lse, drow, static_cast<__nv_bfloat16*>(dk),
-      static_cast<__nv_bfloat16*>(dv), S, H, dkb, dks, dkh, dvb, dvs, dvh,
-      scale, scale * kLog2e);
-  return cudaGetLastError();
+  if (B <= 0 || S <= 0 || H <= 0) return cudaErrorInvalidValue;
+  if (D == 128) {
+    return launch_dkv<128>(q, k, v, dout, lse, drow, dk, dv, B, S, H, qb, qs,
+                           qh, kb, ks, kh, vb, vs, vh, gb, gs, gh, dkb, dks,
+                           dkh, dvb, dvs, dvh, scale, stream);
+  }
+  if (D == 64) {
+    return launch_dkv<64>(q, k, v, dout, lse, drow, dk, dv, B, S, H, qb, qs,
+                          qh, kb, ks, kh, vb, vs, vh, gb, gs, gh, dkb, dks,
+                          dkh, dvb, dvs, dvh, scale, stream);
+  }
+  return cudaErrorInvalidValue;
 }
 
 extern "C" int flash_attn_bwd_dq_bf16(
@@ -635,21 +737,16 @@ extern "C" int flash_attn_bwd_dq_bf16(
     long long kh, long long vb, long long vs, long long vh, long long gb,
     long long gs, long long gh, long long dqb, long long dqs, long long dqh,
     float scale, void* stream) {
-  if (bad_args(B, S, H, D)) return cudaErrorInvalidValue;
-  CUtensorMap tq, tg, tk, tv;
-  int rc = make_map_bshd(&tq, q, B, S, H, qb, qs, qh, kOwn);
-  if (rc == 0) rc = make_map_bshd(&tg, dout, B, S, H, gb, gs, gh, kOwn);
-  if (rc == 0) rc = make_map_bshd(&tk, k, B, S, H, kb, ks, kh, kOwn);
-  if (rc == 0) rc = make_map_bshd(&tv, v, B, S, H, vb, vs, vh, kOwn);
-  if (rc != 0) return rc;
-  const cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kDqSmem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((S + kOwn - 1) / kOwn, B * H);
-  flash_bwd_dq_kernel<<<grid, kThreads, kDqSmem,
-                        static_cast<cudaStream_t>(stream)>>>(
-      tq, tg, tk, tv, lse, drow, static_cast<__nv_bfloat16*>(dq), S, H, dqb,
-      dqs, dqh, scale, scale * kLog2e);
-  return cudaGetLastError();
+  if (B <= 0 || S <= 0 || H <= 0) return cudaErrorInvalidValue;
+  if (D == 128) {
+    return launch_dq<128>(q, k, v, dout, lse, drow, dq, B, S, H, qb, qs, qh,
+                          kb, ks, kh, vb, vs, vh, gb, gs, gh, dqb, dqs, dqh,
+                          scale, stream);
+  }
+  if (D == 64) {
+    return launch_dq<64>(q, k, v, dout, lse, drow, dq, B, S, H, qb, qs, qh,
+                         kb, ks, kh, vb, vs, vh, gb, gs, gh, dqb, dqs, dqh,
+                         scale, stream);
+  }
+  return cudaErrorInvalidValue;
 }

@@ -7,9 +7,10 @@
 // 128-byte row each, 16-byte chunks XOR-swizzled by row within 1024-byte
 // groups of 8 rows, as TMA's CU_TENSOR_MAP_SWIZZLE_128B writes them); the
 // box holding columns 64..127 follows the first at R * 128 bytes.  A tile
-// of D = 64 bf16 (B1 at SD3's head width) is one such box.  A tile
-// of R rows of D = 128 int8 is a single [R][128] box: one row is 128 bytes.
-// Every box starts on a 1024-byte boundary, which the swizzle requires.
+// of D = 64 bf16 (SD3's head width, in B1, B2a and B2b) is one such box.
+// A tile of R rows of D = 128 int8 is a single [R][128] box: one row is
+// 128 bytes.  Every box starts on a 1024-byte boundary, which the swizzle
+// requires.
 
 #pragma once
 

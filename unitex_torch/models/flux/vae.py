@@ -20,6 +20,7 @@ from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ...utils.params import Spec, init_from_spec
 from ...utils.precision import exact_f32, resolve_device
@@ -213,23 +214,53 @@ def vae_encode(params: Params, cfg: VAEConfig, images: torch.Tensor,
     return (mean - cfg.shift_factor) * cfg.scaling_factor
 
 
+def _decode(params: Params, cfg: VAEConfig, latents: torch.Tensor,
+            remat: bool = False) -> torch.Tensor:
+    g = cfg.norm_num_groups
+    dec = params["decoder"]
+
+    def run(fn, *args):
+        if remat:
+            # the recompute runs in the backward, outside this call's
+            # exact_f32: it takes its own
+            return checkpoint(exact_f32()(fn), *args, use_reentrant=False)
+        return fn(*args)
+
+    def up(level, x):
+        x = F.interpolate(x, scale_factor=2, mode="nearest")
+        return conv(level["upsample"], x)
+
+    z = latents / cfg.scaling_factor + cfg.shift_factor
+    x = conv(dec["conv_in"], z.permute(0, 3, 1, 2))
+    x = run(_resnet, dec["mid"]["res1"], x, g)
+    x = run(_attn, dec["mid"]["attn"], x, g)
+    x = run(_resnet, dec["mid"]["res2"], x, g)
+    for level in dec["up"]:
+        for rp in level["resnets"]:
+            x = run(_resnet, rp, x, g)
+        if "upsample" in level:
+            x = run(up, level, x)
+    x = run(lambda x: conv(dec["conv_out"],
+                           F.silu(group_norm(x, dec["norm_out"], g))), x)
+    return x.permute(0, 2, 3, 1)
+
+
 @torch.no_grad()
 @exact_f32()
 def vae_decode(params: Params, cfg: VAEConfig, latents: torch.Tensor) -> torch.Tensor:
     """Scaled latents [N, h, w, C] -> images [N, H, W, 3] in [-1, 1]
     (unclamped)."""
-    g = cfg.norm_num_groups
-    dec = params["decoder"]
-    z = latents / cfg.scaling_factor + cfg.shift_factor
-    x = conv(dec["conv_in"], z.permute(0, 3, 1, 2))
-    x = _resnet(dec["mid"]["res1"], x, g)
-    x = _attn(dec["mid"]["attn"], x, g)
-    x = _resnet(dec["mid"]["res2"], x, g)
-    for level in dec["up"]:
-        for rp in level["resnets"]:
-            x = _resnet(rp, x, g)
-        if "upsample" in level:
-            x = F.interpolate(x, scale_factor=2, mode="nearest")
-            x = conv(level["upsample"], x)
-    x = conv(dec["conv_out"], F.silu(group_norm(x, dec["norm_out"], g)))
-    return x.permute(0, 2, 3, 1)
+    return _decode(params, cfg, latents)
+
+
+@exact_f32()
+def vae_decode_with_grad(params: Params, cfg: VAEConfig,
+                         latents: torch.Tensor) -> torch.Tensor:
+    """:func:`vae_decode` under autograd (the FLUX trainer's
+    preconditioning loss differentiates through the frozen decoder).
+    Each resnet, the attention, each upsample and the output head are
+    checkpointed: only their inputs are kept for the backward, which
+    recomputes one of them at a time (the same arithmetic), instead of
+    every intermediate of a decode at full resolution (1024 x 1536 in
+    the FLUX trainer)."""
+    return _decode(params, cfg, latents, remat=True)

@@ -16,7 +16,7 @@ D = 64 on the card, its plain version on the CPU.  The sequence-parallel
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -32,6 +32,7 @@ from ..flux.layers import (
     sdpa,
     sinusoidal_embedding,
 )
+from ..flux.lora import merge_lora_layer
 from ..flux.model import layer
 from .config import SD3Config
 
@@ -186,10 +187,16 @@ def sd3_forward(
     encoder_hidden_states: torch.Tensor,
     timestep: torch.Tensor,
     pooled_projections: torch.Tensor,
+    lora: Optional[Dict[str, Any]] = None,
 ) -> torch.Tensor:
     """latents [B, H, W, C] (VAE latent space), encoder_hidden_states
     [B, S_txt, joint_attention_dim], timestep [B] in [0, 1000], pooled
-    [B, pooled_projection_dim].  Returns the velocity [B, H, W, C] f32."""
+    [B, pooled_projection_dim].  ``lora``: an adapter tree (``blocks``
+    stacked, ``final_block``; ``models/sd3/lora.init_sd3_lora``) merged
+    with weight 1 into each block's kernels inside the block, under
+    autograd, so its gradients reach the adapters (the JAX TSD-SR
+    trainer's ``merge_lora`` of the whole tree before the forward, one
+    layer at a time).  Returns the velocity [B, H, W, C] f32."""
     dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
     B, H, W, C = latents.shape
     ps = cfg.patch_size
@@ -217,9 +224,15 @@ def sd3_forward(
                                pooled_projections.to(dtype))
 
     for i in range(cfg.num_layers - 1):
-        hidden, context = _joint_block(layer(params["blocks"], i), cfg, hidden,
-                                       context, temb, context_pre_only=False)
-    hidden, _ = _joint_block(params["final_block"], cfg, hidden, context, temb,
+        p = layer(params["blocks"], i)
+        if lora is not None:
+            p = merge_lora_layer(p, layer(lora["blocks"], i))
+        hidden, context = _joint_block(p, cfg, hidden, context, temb,
+                                       context_pre_only=False)
+    p = params["final_block"]
+    if lora is not None:
+        p = merge_lora_layer(p, lora["final_block"])
+    hidden, _ = _joint_block(p, cfg, hidden, context, temb,
                              context_pre_only=True)
     sc, sh = _mods(params["norm_out"], temb, 2)
     hidden = layer_norm(hidden) * (1 + sc) + sh

@@ -14,7 +14,8 @@ returns ``(out [B, S, H, D] bf16, lse [B·H, S] f32)``.
 (``csrc/flash_attn_bwd.cu``, on the same TMA/wgmma design): kernel B2a for
 dK/dV (``flash_attention_bwd_dkv``) and B2b for dQ
 (``flash_attention_bwd_dq``), the counterparts of ``_flash_bwd_dkv_kernel``
-and ``_flash_bwd_dq_kernel``.
+and ``_flash_bwd_dq_kernel``, at D = 128 (the FLUX trainer) and D = 64 (the
+TSD-SR trainer's SD3 transformer): templates on D, as B1 is.
 ``FlashAttention`` ties the two into a ``torch.autograd.Function``, so
 ``attention`` on a CUDA tensor is differentiable through the kernels.
 
@@ -54,8 +55,10 @@ KERNEL_QK8 = "flash_attn_qk8"
 #: launches of each kernel since import; callers may reset them to 0
 launches = 0            # B1 at D = 128
 launches_d64 = 0        # B1 at D = 64
-launches_bwd_dkv = 0    # B2a
-launches_bwd_dq = 0     # B2b
+launches_bwd_dkv = 0    # B2a at D = 128
+launches_bwd_dq = 0     # B2b at D = 128
+launches_bwd_dkv_d64 = 0  # B2a at D = 64
+launches_bwd_dq_d64 = 0   # B2b at D = 64
 launches_qk8 = 0        # B3
 
 _fns: Dict[str, object] = {}  # bound ctypes functions by name
@@ -238,12 +241,12 @@ def flash_attention_bwd_dkv(
     lse: torch.Tensor, drow: torch.Tensor,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """dK and dV of :func:`flash_attention` (kernel B2a): q/k/v and the
-    output gradient g [B, S, H, D], lse and Drow = rowsum(g ∘ out) [B·H, S]
-    f32 -> (dk, dv) [B, S, H, D] bf16."""
-    global launches_bwd_dkv
+    output gradient g [B, S, H, D] with D = 128 or 64, lse and Drow =
+    rowsum(g ∘ out) [B·H, S] f32 -> (dk, dv) [B, S, H, D] bf16."""
+    global launches_bwd_dkv, launches_bwd_dkv_d64
     if not _on_card(q):
         return _backward_plain(q, k, v, g, lse, drow)[1:]
-    _check(q, k, v, g=g)
+    _check(q, k, v, head_dims=(128, 64), g=g)
     _check_rows(q, lse=lse, drow=drow)
     B, S, H, D = q.shape
     fn = _kernel(KERNEL_BWD, "flash_attn_bwd_dkv_bf16", 8, 4, 18)
@@ -255,7 +258,10 @@ def flash_attention_bwd_dkv(
             *g.stride()[:3], *dk.stride()[:3], *dv.stride()[:3],
             1.0 / math.sqrt(D), _stream(q.device))
     _raise_on(rc, "flash_attn_bwd_dkv_bf16")
-    launches_bwd_dkv += 1
+    if D == 64:
+        launches_bwd_dkv_d64 += 1
+    else:
+        launches_bwd_dkv += 1
     return dk, dv
 
 
@@ -265,10 +271,10 @@ def flash_attention_bwd_dq(
 ) -> torch.Tensor:
     """dQ of :func:`flash_attention` (kernel B2b); arguments as for
     :func:`flash_attention_bwd_dkv`.  Returns dq [B, S, H, D] bf16."""
-    global launches_bwd_dq
+    global launches_bwd_dq, launches_bwd_dq_d64
     if not _on_card(q):
         return _backward_plain(q, k, v, g, lse, drow)[0]
-    _check(q, k, v, g=g)
+    _check(q, k, v, head_dims=(128, 64), g=g)
     _check_rows(q, lse=lse, drow=drow)
     B, S, H, D = q.shape
     fn = _kernel(KERNEL_BWD, "flash_attn_bwd_dq_bf16", 7, 4, 15)
@@ -278,7 +284,10 @@ def flash_attention_bwd_dq(
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *g.stride()[:3],
             *dq.stride()[:3], 1.0 / math.sqrt(D), _stream(q.device))
     _raise_on(rc, "flash_attn_bwd_dq_bf16")
-    launches_bwd_dq += 1
+    if D == 64:
+        launches_bwd_dq_d64 += 1
+    else:
+        launches_bwd_dq += 1
     return dq
 
 
@@ -317,11 +326,6 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, k, v, out, lse = ctx.saved_tensors
-        if q.shape[-1] != 128:
-            raise NotImplementedError(
-                f"the flash-attention backward (B2a/B2b) takes D = 128, got "
-                f"D = {q.shape[-1]}: a backward through the SD3 transformer "
-                "waits for the TSD-SR trainer, which is not ported")
         return flash_attention_backward(q, k, v, out, lse, g.contiguous())
 
 

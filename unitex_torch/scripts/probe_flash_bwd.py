@@ -46,21 +46,21 @@ def _replace(src: str, old: str, new: str) -> str:
 
 
 def no_stream_copies(src: str) -> str:
-    for ring, stages, tx in (("vfull", "kDqStages", "kOwnBytes"),
-                             ("kfull", "kDqStages", "kOwnBytes")):
-        src = _replace(src, f"mbar_expect_tx(bar.{ring}(s), {tx});",
-                       f"mbar_expect_tx(bar.{ring}(s), j < {stages} ? {tx} : 0);")
-    for load in ("tma_load_4d(sV + s * kOwnBytes, ",
-                 "tma_load_4d(sV + s * kOwnBytes + kOwnBox, ",
-                 "tma_load_4d(sK + s * kOwnBytes, ",
-                 "tma_load_4d(sK + s * kOwnBytes + kOwnBox, "):
-        src = _replace(src, "        " + load, "        if (j < kDqStages) " + load)
+    for ring in ("vfull", "kfull"):
+        src = _replace(src, f"mbar_expect_tx(bar.{ring}(s), kOwnBytes);",
+                       f"mbar_expect_tx(bar.{ring}(s), j < kDqStages ? "
+                       "kOwnBytes : 0);")
+    for load in ("tma_load_4d(sV + s * kOwnBytes + x * kOwnBox, ",
+                 "tma_load_4d(sK + s * kOwnBytes + x * kOwnBox, "):
+        src = _replace(src, "          " + load,
+                       "          if (j < kDqStages) " + load)
     src = _replace(src, "mbar_expect_tx(bar.full(s), 2 * kStreamBytes);",
                    "mbar_expect_tx(bar.full(s), i < kDkvStages ? "
                    "2 * kStreamBytes : 0);")
-    for load in ("tma_load_4d(q_st, ", "tma_load_4d(q_st + kStreamBox, ",
-                 "tma_load_4d(g_st, ", "tma_load_4d(g_st + kStreamBox, "):
-        src = _replace(src, "        " + load, "        if (i < kDkvStages) " + load)
+    for load in ("tma_load_4d(q_st + x * kStreamBox, ",
+                 "tma_load_4d(g_st + x * kStreamBox, "):
+        src = _replace(src, "          " + load,
+                       "          if (i < kDkvStages) " + load)
     return src
 
 
@@ -83,9 +83,9 @@ def _move(src: str, block: str, after: str) -> str:
 
 
 def scores_first(src: str) -> str:
-    dq_grad = ("      if (j > 0) issue_dq(dqacc, ds_tile, sK + sp * kOwnBytes);\n"
+    dq_grad = ("      if (j > 0) issue_dq<D>(dqacc, ds_tile, sK + sp * kOwnBytes);\n"
                "      wgmma_commit();\n")
-    dq_scores = ("      issue_scores(dpacc, g_rows, sV + s * kOwnBytes);\n"
+    dq_scores = ("      issue_scores<D>(dpacc, g_rows, sV + s * kOwnBytes);\n"
                  "      wgmma_commit();\n")
     dq_release = ("      wgmma_wait<1>();  // dS_{j-1}·K_{j-1} is done\n"
                   "      fence_regs(dqacc);\n"
@@ -98,10 +98,10 @@ def scores_first(src: str) -> str:
                    "      if (j > 0 && ltid == 0) mbar_arrive(bar.kempty(sp));\n"
                    "      store_tile<128>(dpacc, ds_tile, warp, g, t);")
     dkv_grad = ("      if (i > 0) {\n"
-                "        issue_grad(dvacc, pt_tile, sG + sp * kStreamBytes);\n"
-                "        issue_grad(dkacc, dst_tile, sQ + sp * kStreamBytes);\n"
+                "        issue_grad<D>(dvacc, pt_tile, sG + sp * kStreamBytes);\n"
+                "        issue_grad<D>(dkacc, dst_tile, sQ + sp * kStreamBytes);\n"
                 "      }\n      wgmma_commit();\n")
-    dkv_scores = ("      issue_scores_t(dpt, v_rows, sG + s * kStreamBytes);\n"
+    dkv_scores = ("      issue_scores_t<D>(dpt, v_rows, sG + s * kStreamBytes);\n"
                   "      wgmma_commit();\n")
     dkv_release = ("      wgmma_wait<1>();  // the products of tile i - 1 are done\n"
                    "      fence_regs(dkacc);\n      fence_regs(dvacc);\n"

@@ -5,19 +5,20 @@ scripts/train_flux_lora.py).
     python -m unitex_torch.scripts.train_flux_lora --output-dir lora_out
 
 Flow-match LoRA training of the texture/delight adapters with
-checkpointing, LR schedules and JSONL logging, on the synthetic
+checkpointing, LR schedules, AdamW or Prodigy, the optional
+preconditioning pixel loss (``--preconditioning-loss``, weighted by
+``--preconditioning-loss-weight``) and JSONL logging, on the synthetic
 geometry-rendered stream or a pre-rendered dataset directory.  The full
-model is FLUX.1-dev with ``remat=True``; its weights are random, made on
-the device from ``--seed`` (loading checkpoints is not ported).  With no
-text-encoder weights the prompt embeddings are zeros, as in the JAX
-launcher.
+model is FLUX.1-dev with ``remat=True``, read from
+``<--pretrain-models>/flux/{transformer,vae}`` (diffusers safetensors)
+or, without that flag, random trees made on the device from ``--seed``.
+With no text-encoder weights the prompt embeddings are zeros, as in the
+JAX launcher.
 
-Not ported, and refused with a message: ``--pretrain-models`` (weight
-loading), ``--pipe`` and ``--data-mesh`` > 1 (multi-GPU),
-``--full-finetune`` and ``--bf16-compute``, ``--optimizer prodigy`` and
-``--preconditioning-loss``.  Options that only those branches read
-(``--prompt``, ``--preconditioning-loss-weight``, ``--pipe-n-micro``) are
-not taken.
+Not ported, and refused with a message: ``--pipe`` and ``--data-mesh`` >
+1 (multi-GPU), ``--full-finetune`` and ``--bf16-compute``.  Options that
+only those branches or the text encoders read (``--prompt``,
+``--pipe-n-micro``) are not taken.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import os
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -38,22 +39,26 @@ def build_batch(
     prompt_embeds: torch.Tensor,
     pooled_embeds: torch.Tensor,
     grad_accum: int = 1,
+    pixel_values: bool = False,
 ) -> Dict[str, torch.Tensor]:
     """One step's batch from dataset examples, on the device of
     ``prompt_embeds`` ([S_t, D] and [D_p], broadcast over the batch):
     VAE-encode target and control, pack the control tokens with ids offset
     past the noise grid (and the dual stream's, when every example has
-    one), as inference lays them out.  With ``grad_accum`` > 1 every leaf
-    gets a leading microbatch axis [A, B, ...]."""
+    one), as inference lays them out; ``pixel_values`` adds the target
+    images (the preconditioning loss's).  With ``grad_accum`` > 1 every
+    leaf gets a leading microbatch axis [A, B, ...]."""
     from ..models.flux.pipeline import latent_image_ids, pack_latents
     from ..models.flux.vae import vae_encode
 
     dev = prompt_embeds.device
 
+    def images(key):
+        return torch.as_tensor(np.stack([e[key] for e in examples]),
+                               dtype=torch.float32, device=dev)
+
     def encode(key):
-        x = torch.as_tensor(np.stack([e[key] for e in examples]),
-                            dtype=torch.float32, device=dev)
-        return vae_encode(vae_params, vae_cfg, x * 2.0 - 1.0)
+        return vae_encode(vae_params, vae_cfg, images(key) * 2.0 - 1.0)
 
     latents = encode("target")
     ctrl_lat = encode("control")
@@ -84,6 +89,8 @@ def build_batch(
         "prompt_embeds": prompt_embeds.expand(n, *prompt_embeds.shape),
         "pooled_embeds": pooled_embeds.expand(n, *pooled_embeds.shape),
     }
+    if pixel_values:
+        batch["pixel_values"] = images("target")
     if grad_accum > 1:
         # [A*B, ...] -> [A, B, ...]; cond_ids is per-sequence and broadcasts
         batch = {
@@ -96,13 +103,10 @@ def build_batch(
 
 def _refuse_deferred(args) -> None:
     deferred = {
-        "--pretrain-models (weight loading)": args.pretrain_models is not None,
         "--pipe (pipeline parallelism)": bool(args.pipe),
         "--data-mesh > 1 (data parallelism)": args.data_mesh > 1,
         "--full-finetune": args.full_finetune,
         "--bf16-compute": args.bf16_compute,
-        "--optimizer prodigy": args.optimizer == "prodigy",
-        "--preconditioning-loss": args.preconditioning_loss,
     }
     on = [k for k, v in deferred.items() if v]
     if on:
@@ -121,7 +125,10 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--max-train-steps", type=int, default=1000)
     ap.add_argument("--batch-size", type=int, default=1)
     ap.add_argument("--drop-rate", type=float, default=0.0)
-    ap.add_argument("--preconditioning-loss", action="store_true")
+    ap.add_argument("--preconditioning-loss", action="store_true",
+                    help="add a pixel-space MSE on the VAE-decoded x0 "
+                         "prediction")
+    ap.add_argument("--preconditioning-loss-weight", type=float, default=1.0)
     ap.add_argument("--prior-preservation", action="store_true",
                     help="batch halves are [instance; prior] (needs an even "
                          "--batch-size)")
@@ -146,7 +153,20 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
-def main(argv: Optional[List[str]] = None) -> None:
+def full_size():
+    """(config, VAE config, view size) of the full model: FLUX.1-dev with
+    ``remat=True``, its VAE, 512² views."""
+    from ..models.flux.config import FluxConfig
+    from ..models.flux.vae import VAEConfig
+
+    return (dataclasses.replace(FluxConfig.flux1_dev(), remat=True),
+            VAEConfig.flux(), 512)
+
+
+def main(argv: Optional[List[str]] = None,
+         on_step: Optional[Callable] = None):
+    """Train; ``on_step(step, state, loss)`` is called after each step (a
+    caller's hook for its own checks).  Returns the final train state."""
     args = parse_args(argv)
     _refuse_deferred(args)
     if args.prior_preservation and args.batch_size % 2:
@@ -173,12 +193,22 @@ def main(argv: Optional[List[str]] = None) -> None:
         vae_cfg = VAEConfig.tiny()
         view_size = 32
     else:
-        cfg = dataclasses.replace(FluxConfig.flux1_dev(), remat=True)
-        vae_cfg = VAEConfig.flux()
-        view_size = 512
+        cfg, vae_cfg, view_size = full_size()
     gen = torch.Generator(device=dev)
-    tparams = init_flux_params(gen.manual_seed(args.seed), cfg, device=dev)
-    vparams = init_vae_params(gen.manual_seed(args.seed + 1), vae_cfg, device=dev)
+    if args.pretrain_models and not args.tiny:
+        # as the JAX launcher: --tiny trains the seeded tiny trees
+        from ..models.flux.loader import load_flux_transformer, load_vae
+
+        root = os.path.join(args.pretrain_models, "flux")
+        dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+        tparams = load_flux_transformer(os.path.join(root, "transformer"),
+                                        cfg, device=dev, dtype=dtype)
+        vparams = load_vae(os.path.join(root, "vae"), vae_cfg, device=dev,
+                           dtype=torch.float32)
+    else:
+        tparams = init_flux_params(gen.manual_seed(args.seed), cfg, device=dev)
+        vparams = init_vae_params(gen.manual_seed(args.seed + 1), vae_cfg,
+                                  device=dev)
 
     tcfg = FluxLoraTrainConfig(
         rank=args.rank,
@@ -190,7 +220,11 @@ def main(argv: Optional[List[str]] = None) -> None:
         drop_rate=args.drop_rate,
         prior_preservation=args.prior_preservation,
         prior_loss_weight=args.prior_loss_weight,
+        preconditioning_loss=args.preconditioning_loss,
+        preconditioning_loss_weight=args.preconditioning_loss_weight,
     )
+    loss_vae = ({"vae_params": vparams, "vae_cfg": vae_cfg}
+                if args.preconditioning_loss else {})
     mgr = CheckpointManager(args.output_dir, args.checkpoint_every,
                             args.checkpoints_total_limit)
     state, tx = create_train_state(gen.manual_seed(args.seed + 2), tparams, tcfg,
@@ -218,14 +252,16 @@ def main(argv: Optional[List[str]] = None) -> None:
     for step in range(state.step, args.max_train_steps):
         examples = [next(ds) for _ in range(args.batch_size * args.grad_accum)]
         batch = build_batch(examples, vparams, vae_cfg, seq_e, pooled_e,
-                            args.grad_accum)
+                            args.grad_accum, args.preconditioning_loss)
         step_gen = torch.Generator(device=dev).manual_seed(1000 + step)
         if args.grad_accum > 1:
             state, loss = train_step_accum(state, tparams, batch, step_gen,
-                                           cfg, tcfg, tx)
+                                           cfg, tcfg, tx, **loss_vae)
         else:
             state, loss = train_step(state, tparams, batch, step_gen, cfg,
-                                     tcfg, tx)
+                                     tcfg, tx, **loss_vae)
+        if on_step is not None:
+            on_step(step, state, loss)
         logger.log(step, {"loss": float(loss)})
         if step % 10 == 0:
             print(f"step {step}: loss {float(loss):.4f}")
@@ -236,6 +272,7 @@ def main(argv: Optional[List[str]] = None) -> None:
                       examples[0]["control"], dev)
     mgr.save(args.max_train_steps, state.lora)
     logger.close()
+    return state
 
 
 def _pairs(a, b):

@@ -11,15 +11,18 @@ frozen.  The LoRA of each block is merged inside the block
 so at most one layer's merged kernels are alive; attention gradients go
 through kernels B2a/B2b on the card.
 
-The optimizer is AdamW behind a global-norm clip with optax's semantics
-(``optax.chain(clip_by_global_norm, adamw)``), updating the LoRA tree in
-place.  Randomness comes from a ``torch.Generator``; ``flow_match_loss``
-also takes the draws themselves (``u``, ``noise``, ``keep_idx``), so a
-test can feed it the JAX package's.
+The optimizer is AdamW or Prodigy behind a global-norm clip with optax's
+semantics (``optax.chain(clip_by_global_norm, adamw |
+contrib.prodigy)``), updating the LoRA tree in place.  The
+preconditioning pixel loss decodes the x0 prediction through the frozen
+VAE under autograd (``vae_decode_with_grad``, its blocks checkpointed)
+and adds a weighted MSE against the target pixels.  Randomness comes from
+a ``torch.Generator``; ``flow_match_loss`` also takes the draws
+themselves (``u``, ``noise``, ``keep_idx``), so a test can feed it the
+JAX package's.
 
-Deferred (raise ``NotImplementedError``): the Prodigy optimizer, the
-preconditioning pixel loss (a VAE decode under autograd) and pipeline
-parallelism (the ``pipe_*`` fields).
+Deferred (raises ``NotImplementedError``): pipeline parallelism (the
+``pipe_axis`` field).
 """
 
 from __future__ import annotations
@@ -33,7 +36,9 @@ import torch
 from ..models.flux.config import FluxConfig
 from ..models.flux.lora import init_lora_params
 from ..models.flux.model import flux_forward
-from ..models.flux.pipeline import latent_image_ids, pack_latents
+from ..models.flux.pipeline import latent_image_ids, pack_latents, unpack_latents
+from ..models.flux.vae import vae_decode_with_grad
+from ..utils.precision import exact_f32
 from .checkpoint import _detached, _like
 
 
@@ -46,7 +51,7 @@ class FluxLoraTrainConfig:
     adam_b2: float = 0.999
     adam_eps: float = 1e-8
     max_grad_norm: float = 1.0
-    optimizer: str = "adamw"             # adamw (prodigy is deferred)
+    optimizer: str = "adamw"             # adamw | prodigy
     lr_scheduler: str = "constant"       # constant | constant_with_warmup |
                                          # cosine | linear
     warmup_steps: int = 0
@@ -60,7 +65,9 @@ class FluxLoraTrainConfig:
     # the batch carries [instance; prior] halves along B
     prior_preservation: bool = False
     prior_loss_weight: float = 1.0
-    preconditioning_loss: bool = False   # deferred
+    # a pixel-space MSE of the VAE-decoded x0 prediction
+    preconditioning_loss: bool = False
+    preconditioning_loss_weight: float = 1.0
     pipe_axis: Optional[str] = None      # deferred (pipeline parallelism)
 
 
@@ -117,18 +124,21 @@ def flow_match_loss(
     u=None,
     noise=None,
     keep_idx=None,
+    vae_params: Optional[Dict[str, Any]] = None,
+    vae_cfg=None,
 ) -> torch.Tensor:
     """One flow-matching loss evaluation (a scalar f32 tensor).
 
     batch: 'latents' [B, H, W, C] clean VAE latents of the target;
     optional 'cond_tokens' [B, S_c, C*4] with 'cond_ids' [S_c, 3];
-    'prompt_embeds' [B, S_t, D]; 'pooled_embeds' [B, D_p].  The timestep
-    draw ``u`` [B], the noise [B, H, W, C] and the kept token indices
-    ``keep_idx`` are drawn from ``generator`` unless given."""
-    if tcfg.preconditioning_loss:
-        raise NotImplementedError(
-            "the preconditioning pixel loss (a VAE decode under autograd) is "
-            "not ported")
+    'prompt_embeds' [B, S_t, D]; 'pooled_embeds' [B, D_p]; 'pixel_values'
+    [B, Hp, Wp, 3] in [0, 1], read only under ``preconditioning_loss``
+    (with the frozen ``vae_params``/``vae_cfg``).  The timestep draw ``u``
+    [B], the noise [B, H, W, C] and the kept token indices ``keep_idx``
+    are drawn from ``generator`` unless given."""
+    if tcfg.preconditioning_loss and (vae_params is None or vae_cfg is None):
+        raise ValueError("preconditioning_loss needs the frozen VAE "
+                         "(vae_params, vae_cfg)")
     if tcfg.pipe_axis is not None:
         raise NotImplementedError("pipeline parallelism is not ported")
     x = batch["latents"]
@@ -153,7 +163,7 @@ def flow_match_loss(
 
     tokens = pack_latents(zt)
     noise_ids = latent_image_ids(H // 2, W // 2, device=dev)
-    S_noise = tokens.shape[1]
+    S_noise = S_full = tokens.shape[1]
     target = pack_latents(noise - x)
 
     if tcfg.drop_rate > 0.0:
@@ -195,9 +205,27 @@ def flow_match_loss(
                 f"[instance; prior] halves, got batch size {B}")
         e_main, e_prior = torch.chunk(err, 2, dim=0)
         w_main, w_prior = torch.chunk(w, 2, dim=0)
-        return torch.mean(w_main * e_main) + tcfg.prior_loss_weight * torch.mean(
+        loss = torch.mean(w_main * e_main) + tcfg.prior_loss_weight * torch.mean(
             w_prior * e_prior)
-    return torch.mean(w * err)
+    else:
+        loss = torch.mean(w * err)
+
+    if tcfg.preconditioning_loss:
+        if keep_idx is not None:
+            # kept predictions back on the full grid; dropped positions
+            # predict zero velocity (x0 falls back to zt there)
+            pred_noise = torch.zeros(
+                (B, S_full, pred_noise.shape[-1]), dtype=pred_noise.dtype,
+                device=dev).index_copy(1, keep_idx, pred_noise)
+        # the x0 prediction zt − σ·v, in the scaled latent space the
+        # decoder takes
+        latents_pred = zt - sig * unpack_latents(pred_noise, H, W)
+        img_pred = vae_decode_with_grad(vae_params, vae_cfg,
+                                        latents_pred) * 0.5 + 0.5
+        pix = batch["pixel_values"].float()
+        loss = loss + tcfg.preconditioning_loss_weight * torch.mean(
+            (img_pred.float() - pix) ** 2)
+    return loss
 
 
 # ------------------------------------------------------------ optimizer
@@ -258,14 +286,26 @@ def make_lr_schedule(tcfg: FluxLoraTrainConfig) -> Callable[[int], float]:
     raise ValueError(f"unknown lr_scheduler {tcfg.lr_scheduler!r}")
 
 
+def _f32(x) -> torch.Tensor:
+    return torch.tensor(x, dtype=torch.float32)
+
+
+def _clipped(g_leaves: List[torch.Tensor],
+             max_norm: float) -> List[torch.Tensor]:
+    """optax ``clip_by_global_norm``: g · max_norm / ‖g‖ (as ``(g / ‖g‖) ·
+    max_norm``) when ‖g‖ >= max_norm, with no epsilon."""
+    g_norm = torch.sqrt(sum(torch.sum(g.float() ** 2) for g in g_leaves))
+    if bool(g_norm < max_norm):
+        return g_leaves
+    return [(g / g_norm) * max_norm for g in g_leaves]
+
+
 class ClippedAdamW:
     """``optax.chain(clip_by_global_norm(max_norm), adamw(...))`` on a tree
     of f32 tensors, updating the parameters in place.
 
-    Clip: g · max_norm / ‖g‖ (as ``(g / ‖g‖) · max_norm``) when
-    ‖g‖ >= max_norm, with no epsilon.  AdamW: bias-corrected moments,
-    ``m̂ / (√v̂ + eps)``, plus the decoupled weight decay of the old
-    parameter, times −lr(count)."""
+    AdamW: bias-corrected moments, ``m̂ / (√v̂ + eps)``, plus the decoupled
+    weight decay of the old parameter, times −lr(count)."""
 
     def __init__(self, lr: Callable[[int], float], b1: float, b2: float,
                  eps: float, weight_decay: float, max_grad_norm: float):
@@ -279,20 +319,15 @@ class ClippedAdamW:
     @torch.no_grad()
     def step(self, params, grads, state: Dict[str, Any]) -> None:
         """One update of ``params`` (and ``state``) in place from ``grads``."""
-        g_leaves = _leaves(grads)
-        g_norm = torch.sqrt(sum(torch.sum(g.float() ** 2) for g in g_leaves))
-        clip = not bool(g_norm < self.max_grad_norm)
+        g_leaves = _clipped(_leaves(grads), self.max_grad_norm)
         count = state["count"]
         # the bias corrections and the step size are f32 numbers, as optax
         # computes them; each is exact as a Python float
-        f32 = lambda x: torch.tensor(x, dtype=torch.float32)
-        c1 = float(1 - f32(self.b1) ** (count + 1))
-        c2 = float(1 - f32(self.b2) ** (count + 1))
-        lr = float(f32(-self.lr(count)))
+        c1 = float(1 - _f32(self.b1) ** (count + 1))
+        c2 = float(1 - _f32(self.b2) ** (count + 1))
+        lr = float(_f32(-self.lr(count)))
         for p, g, m, v in zip(_leaves(params), g_leaves, _leaves(state["mu"]),
                               _leaves(state["nu"])):
-            if clip:
-                g = (g / g_norm) * self.max_grad_norm
             m.mul_(self.b1).add_(g * (1 - self.b1))
             v.mul_(self.b2).add_(g ** 2 * (1 - self.b2))
             u = (m / c1) / (torch.sqrt(v / c2) + self.eps)
@@ -300,9 +335,76 @@ class ClippedAdamW:
         state["count"] = count + 1
 
 
-def make_optimizer(tcfg: FluxLoraTrainConfig) -> ClippedAdamW:
+class ClippedProdigy:
+    """``optax.chain(clip_by_global_norm(max_norm), contrib.prodigy(lr,
+    betas=(b1, b2), eps=eps, weight_decay=weight_decay))`` on a tree of f32
+    tensors, updating the parameters in place (Mishchenko and Defazio
+    2023: D-Adapted AdamW whose step size d grows from ``D0``).
+
+    Per update, with d the estimate before it and s = lr(count):
+      bc = √(1 − b2^(n+1)) / (1 − b1^(n+1));  dlr = d·s·bc
+      m ← b1·m + (1 − b1)·d·g;  v ← b2·v + (1 − b2)·(d·g)²
+      r ← b3·r + dlr·d·g / d0;  N ← b3·N + (d / d0)·dlr·⟨g, x0 − x⟩
+      d ← max(d, coef · N / Σ|r|)
+      x ← x − wd·dlr·x − dlr·m / (√v + d·eps)   (the new d)
+    with b3 = √b2, d0 = 1e-6 and coef = 1 (optax's defaults, which the
+    JAX package keeps), as optax's update computes it in f32."""
+
+    D0 = 1e-6     # optax's estim_lr0: the first d
+    COEF = 1.0    # optax's estim_lr_coef
+
+    def __init__(self, lr: Callable[[int], float], b1: float, b2: float,
+                 eps: float, weight_decay: float, max_grad_norm: float):
+        self.lr, self.b1, self.b2, self.eps = lr, b1, b2, eps
+        self.b3 = b2 ** 0.5
+        self.weight_decay, self.max_grad_norm = weight_decay, max_grad_norm
+
+    def init(self, params) -> Dict[str, Any]:
+        dev = _leaves(params)[0].device
+        return {"count": 0, "exp_avg": _map(torch.zeros_like, params),
+                "exp_avg_sq": _map(torch.zeros_like, params),
+                "grad_sum": _map(torch.zeros_like, params),
+                "params0": _map(lambda p: p.detach().clone(), params),
+                "estim_lr": _f32(self.D0).to(dev),
+                "numerator_weighted": torch.zeros((), device=dev)}
+
+    @torch.no_grad()
+    def step(self, params, grads, state: Dict[str, Any]) -> None:
+        """One update of ``params`` (and ``state``) in place from ``grads``."""
+        g_leaves = _clipped(_leaves(grads), self.max_grad_norm)
+        p_leaves = _leaves(params)
+        count = state["count"]
+        b1, b2, b3, d0 = self.b1, self.b2, self.b3, self.D0
+        bc = float((1 - _f32(b2) ** (count + 1)) ** 0.5
+                   / (1 - _f32(b1) ** (count + 1)))
+        d = state["estim_lr"]
+        dlr = d * float(_f32(self.lr(count))) * bc
+        numerator = sum(torch.sum(g * (p0 - p)) for g, p0, p in zip(
+            g_leaves, _leaves(state["params0"]), p_leaves))
+        denominator = 0.0
+        for g, m, v, r in zip(g_leaves, _leaves(state["exp_avg"]),
+                              _leaves(state["exp_avg_sq"]),
+                              _leaves(state["grad_sum"])):
+            dg = d * g
+            m.mul_(b1).add_((1 - b1) * dg)
+            v.mul_(b2).add_((1 - b2) * dg * dg)
+            r.mul_(b3).add_(dlr * dg / d0)
+            denominator = denominator + torch.sum(torch.abs(r))
+        nw = b3 * state["numerator_weighted"] + (d / d0) * dlr * numerator
+        d_new = torch.maximum(d, self.COEF * nw / denominator)
+        for p, m, v in zip(p_leaves, _leaves(state["exp_avg"]),
+                           _leaves(state["exp_avg_sq"])):
+            p.add_(-self.weight_decay * dlr * p
+                   - dlr * m / (torch.sqrt(v) + d_new * self.eps))
+        state.update(count=count + 1, estim_lr=d_new, numerator_weighted=nw)
+
+
+def make_optimizer(tcfg: FluxLoraTrainConfig):
+    """The clipped AdamW or Prodigy of ``tcfg.optimizer``."""
     if tcfg.optimizer == "prodigy":
-        raise NotImplementedError("the Prodigy optimizer is not ported")
+        return ClippedProdigy(make_lr_schedule(tcfg), tcfg.adam_b1,
+                              tcfg.adam_b2, tcfg.adam_eps, tcfg.weight_decay,
+                              tcfg.max_grad_norm)
     if tcfg.optimizer != "adamw":
         raise ValueError(f"unknown optimizer {tcfg.optimizer!r}")
     return ClippedAdamW(make_lr_schedule(tcfg), tcfg.adam_b1, tcfg.adam_b2,
@@ -314,7 +416,7 @@ def create_train_state(
     base_params: Dict[str, Any],
     tcfg: FluxLoraTrainConfig,
     device="cuda",
-) -> Tuple[TrainState, ClippedAdamW]:
+) -> Tuple[TrainState, Any]:
     """A fresh LoRA tree (a ~ N(0, 1/r), b = 0) on ``device`` with its
     optimizer state."""
     lora = init_lora_params(generator, base_params, rank=tcfg.rank, device=device)
@@ -333,6 +435,14 @@ def _zero_grads(lora) -> None:
         leaf.grad = None
 
 
+def _backward(loss: torch.Tensor) -> None:
+    """``loss.backward()`` without TF32: the preconditioning loss's f32
+    VAE decode takes its gradients at the forward's precision (the bf16
+    transformer is unaffected)."""
+    with exact_f32():
+        loss.backward()
+
+
 def train_step(
     state: TrainState,
     base_params: Dict[str, Any],
@@ -340,15 +450,19 @@ def train_step(
     generator: Optional[torch.Generator],
     cfg: FluxConfig,
     tcfg: FluxLoraTrainConfig,
-    tx: ClippedAdamW,
+    tx,
     draws: Optional[Dict[str, Any]] = None,
+    vae_params: Optional[Dict[str, Any]] = None,
+    vae_cfg=None,
 ) -> Tuple[TrainState, torch.Tensor]:
     """One optimizer step on one batch; returns (state, loss).  ``draws``
-    passes ``u``/``noise``/``keep_idx`` to ``flow_match_loss``."""
+    passes ``u``/``noise``/``keep_idx`` to ``flow_match_loss``; the frozen
+    VAE feeds the preconditioning loss."""
     _zero_grads(state.lora)
     loss = flow_match_loss(state.lora, base_params, cfg, tcfg, batch,
-                           generator, **(draws or {}))
-    loss.backward()
+                           generator, **(draws or {}), vae_params=vae_params,
+                           vae_cfg=vae_cfg)
+    _backward(loss)
     tx.step(state.lora, _grads(state.lora), state.opt_state)
     _zero_grads(state.lora)
     state.step += 1
@@ -362,8 +476,10 @@ def train_step_accum(
     generator: Optional[torch.Generator],
     cfg: FluxConfig,
     tcfg: FluxLoraTrainConfig,
-    tx: ClippedAdamW,
+    tx,
     draws: Optional[List[Dict[str, Any]]] = None,
+    vae_params: Optional[Dict[str, Any]] = None,
+    vae_cfg=None,
 ) -> Tuple[TrainState, torch.Tensor]:
     """Gradient-accumulated step: ``batches`` leaves carry a leading
     microbatch axis [A, B, ...]; the A gradients are summed in order and
@@ -375,8 +491,9 @@ def train_step_accum(
     for a in range(A):
         mb = {k: v[a] for k, v in batches.items()}
         loss = flow_match_loss(state.lora, base_params, cfg, tcfg, mb,
-                               generator, **(draws[a] if draws else {}))
-        loss.backward()  # sums into .grad
+                               generator, **(draws[a] if draws else {}),
+                               vae_params=vae_params, vae_cfg=vae_cfg)
+        _backward(loss)  # sums into .grad
         loss_sum = loss_sum + loss.detach()
     grads = _map(lambda g: g / A, _grads(state.lora))
     tx.step(state.lora, grads, state.opt_state)
