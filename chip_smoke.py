@@ -152,7 +152,25 @@ non-zero:
    must beat the k=8 set in ``texture_psnr_all`` on both meshes.  On the
    cup also the priority k=1 bake with ``low_hbm=True`` (its texture
    within 1e-6 of the plain bake's) and one ``reproject_blending`` and one
-   ``kdtree`` bake (a finite texture, their seconds).
+   ``kdtree`` bake (a finite texture, their seconds);
+16. LTM trainer (after phase 10): ``unitex_torch.scripts.train_ltm.main``
+   in process at the recipe's width (``--config large``, a bank of 40 x
+   16384 points, 4096 queries) for 500 of its 20000 steps, logged every
+   100: finite losses, 8 fixed batches' loss below the seeded initial
+   tree's, the npz read back leaf for leaf and taken by
+   ``RGBTextureFullPipeline(ltm_params=...)``; the
+   bank's host seconds, seconds a step, the peak and each eval's hole
+   PSNR beside the k=8 IDW fill's (printed, not gated); one more step
+   traced by ``utils/profiling.profiled`` under ``annotate``: the trace's
+   bytes, its CUDA kernel events (at least one), their busy time over
+   their span (the device's idle share in the step) and the annotation;
+   ``device_memory_stats()``; no attention kernel launches;
+17. text encoders: seeded CLIP-L and T5-XXL (4.7 B parameters, f32) on
+   the card: finite forwards on [2, 77] and [2, 512] ids (seconds, peak),
+   depth-2 copies on [1, 64] ids within 1e-4 of the CPU's largest value
+   (TF32 off), the HF-named state dicts converted back leaf for leaf
+   equal, and the backend ``build_text_encoders`` picks here; no
+   attention kernel launches.
 
 The output ends with three lines: the kernels' JSON record
 (``{"kernels": [...]}``), the card's name and power limit as
@@ -2057,6 +2075,338 @@ def run_oracle(torch, view_size: int = 512, uv_size: int = 2048,
                                      f"{uv_size}²")
 
 
+LTM_TRAIN_ARGS = ("--config", "large", "--bank-meshes", "40", "--bank-points",
+                  "16384", "--n-query", "4096", "--steps", "500",
+                  "--log-every", "100")
+
+
+LTM_FIXED_BATCHES = 8
+
+
+def run_ltm_training(torch, device: str = "cuda",
+                     args=LTM_TRAIN_ARGS) -> None:
+    """Phase 16: ``unitex_torch.scripts.train_ltm.main`` in process at the
+    recipe's full width (``LTMConfig.large()``, a bank of 40 meshes x 16384
+    points, 4096 queries), 500 steps logged every 100 to fit the time
+    limit (the recipe runs 20000).  Every logged loss must be finite.  A
+    logged loss is one batch's, and batches' losses differ several-fold
+    while 500 steps move a fixed batch's by a few per cent, so learning
+    is gated on ``LTM_FIXED_BATCHES`` fixed batches of the training
+    meshes: their summed loss (the encoder's mean, no noise) under the
+    final tree must be below the seeded initial tree's.  The npz must read
+    back through ``load_params`` leaf for leaf equal to the best state and
+    be taken by ``RGBTextureFullPipeline(ltm_params=...)`` (no FLUX tree:
+    its LTM loader only).  One more train step runs inside
+    ``profiled(...)`` under ``annotate("ltm_train_step")``: the trace must
+    hold the annotation and, on the card, at least one kernel event.  The
+    hole PSNRs are printed beside the k=8 IDW fill's, not gated."""
+    from unitex_torch.models.ltm import init_ltm_params, ltm_vae_loss
+    from unitex_torch.pipeline import RGBTextureFullPipeline
+    from unitex_torch.scripts import train_ltm
+    from unitex_torch.training.ltm import ltm_train_step, sample_device_batch
+    from unitex_torch.utils.param_cache import load_params
+    from unitex_torch.utils.profiling import (
+        annotate, device_memory_stats, profiled,
+    )
+
+    cuda = device == "cuda"
+    d = tempfile.mkdtemp(prefix="chip_smoke_ltm_train_")
+    try:
+        npz = os.path.join(d, "ltm.npz")
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = train_ltm.main(list(args) + ["--out", npz, "--report",
+                                           os.path.join(d, "report.json"),
+                                           "--device", device])
+        if cuda:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() if cuda else 0
+        log, elapsed = out["log"], out["elapsed"]
+        for rec in log:
+            print(f"[ltm_train] step {rec['step']}: loss {rec['loss']} hole "
+                  f"PSNR {rec['holdout_hole_psnr_db']} dB, IDW k=8 "
+                  f"{rec['idw_k8_hole_psnr_db']} dB", flush=True)
+        per_step = ((elapsed[-1] - elapsed[0])
+                    / max(1, log[-1]["step"] - log[0]["step"]))
+        print(f"[ltm_train] {out['cfg']}: bank {tuple(out['bank'].shape)} "
+              f"built in {out['bank_seconds']:.3f}s on the host; "
+              f"{log[-1]['step']} steps in {wall:.2f}s with set-up; "
+              f"{per_step:.5f}s a step after the first eval (evals "
+              f"included); best hole PSNR {out['best_psnr']:.2f} dB at step "
+              f"{out['best_step']}; peak {peak / 2**30:.2f} GiB", flush=True)
+        losses = [rec["loss"] for rec in log]
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"ltm_train: losses {losses}")
+        state, cfg, tcfg = out["state"], out["cfg"], out["tcfg"]
+        fgen = torch.Generator(device=device).manual_seed(99)
+        n_train = out["bank"].shape[0] - 1      # the last mesh is held out
+        fixed = [sample_device_batch(out["bank"][i % n_train], tcfg.n_query,
+                                     out["curriculum"], generator=fgen)
+                 for i in range(LTM_FIXED_BATCHES)]
+        # the seeded tree ``main`` started from
+        init = init_ltm_params(torch.Generator(device=device).manual_seed(0),
+                               cfg, device=device)
+
+        def fixed_loss(params):
+            with torch.no_grad():
+                return sum(float(ltm_vae_loss(
+                    params, cfg, b["points"], b["colors"], b["valid"],
+                    b["query_points"], b["query_colors"],
+                    kl_weight=tcfg.kl_weight)) for b in fixed)
+
+        before, after = fixed_loss(init), fixed_loss(state.params)
+        print(f"[ltm_train] logged loss first {losses[0]}, last {losses[-1]} "
+              f"(one batch each); {LTM_FIXED_BATCHES} fixed batches' summed "
+              f"loss {before:.6e} at init, {after:.6e} after "
+              f"{log[-1]['step']} steps ({100 * (after / before - 1):+.2f} %)",
+              flush=True)
+        if not (math.isfinite(after) and after < before):
+            raise AssertionError(f"ltm_train: the fixed batches' loss {after} "
+                                 f"is not below the initial {before}")
+        saved = dict(_named_leaves(load_params(npz)))
+        best = dict(_named_leaves(out["best_params"]))
+        same = saved.keys() == best.keys() and all(
+            torch.equal(saved[k], best[k]) for k in best)
+        pipe = RGBTextureFullPipeline(ltm_params=npz, device=device)
+        taken = (pipe.ltm_cfg == out["cfg"] and all(
+            torch.equal(leaf.cpu(), best[k])
+            for k, leaf in _named_leaves(pipe.ltm_params)))
+        print(f"[ltm_train] {os.path.getsize(npz)} bytes, {len(best)} leaves: "
+              f"read back {'equal' if same else 'DIFFERENT'}; the pipeline's "
+              f"LTM loader {'took it' if taken else 'DIFFERS'}", flush=True)
+        if not (same and taken):
+            raise AssertionError("ltm_train: the checkpoint does not read back")
+        del pipe
+
+        gen = torch.Generator(device=device).manual_seed(7)
+        batch = sample_device_batch(out["bank"][0], tcfg.n_query,
+                                    out["curriculum"], generator=gen)
+        trace_dir = os.path.join(d, "trace")
+        with profiled(trace_dir, "ltm_train_step"):
+            with annotate("ltm_train_step"):
+                ltm_train_step(state, batch, cfg, tcfg, out["tx"], generator=gen)
+        path = os.path.join(trace_dir, "ltm_train_step.json")
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        names = {e.get("name") for e in events}
+        kern = [e for e in events if e.get("cat") == "kernel"]
+        kernels = len(kern)
+        idle = ""
+        if kern:
+            # the card's busy time (kernels may overlap: an upper bound)
+            # over the span from the first kernel's start to the last's end
+            busy = sum(e["dur"] for e in kern)
+            span = (max(e["ts"] + e["dur"] for e in kern)
+                    - min(e["ts"] for e in kern))
+            idle = (f" (kernels {busy / 1e3:.3f} ms busy in a {span / 1e3:.3f} ms "
+                    f"span: idle share {max(0.0, 1 - busy / span):.3f})")
+        print(f"[ltm_train] trace of one step: {os.path.getsize(path)} bytes, "
+              f"{len(events)} events, {kernels} CUDA kernel events{idle}, "
+              f"annotation {'present' if 'ltm_train_step' in names else 'MISSING'}; "
+              f"device_memory_stats {device_memory_stats()}", flush=True)
+        if "ltm_train_step" not in names or (cuda and kernels < 1):
+            raise AssertionError("ltm_train: the trace lacks the annotation "
+                                 "or a kernel event")
+        if peak >= PEAK_LIMIT:
+            raise AssertionError(f"ltm_train: peak {peak} bytes")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
+# the CLIP text tower's and the T5 encoder's HF names of the tree's leaves
+_CLIP_BLOCK = {"ln1": "layer_norm1", "q": "self_attn.q_proj",
+               "k": "self_attn.k_proj", "v": "self_attn.v_proj",
+               "out": "self_attn.out_proj", "ln2": "layer_norm2",
+               "fc1": "mlp.fc1", "fc2": "mlp.fc2"}
+_CLIP_TOP = {"token_embedding": "embeddings.token_embedding",
+             "position_embedding": "embeddings.position_embedding",
+             "final_ln": "final_layer_norm"}
+_T5_BLOCK = {"ln_attn": "layer.0.layer_norm", "q": "layer.0.SelfAttention.q",
+             "k": "layer.0.SelfAttention.k", "v": "layer.0.SelfAttention.v",
+             "o": "layer.0.SelfAttention.o", "ln_ff": "layer.1.layer_norm",
+             "wo": "layer.1.DenseReluDense.wo",
+             "wi_0": "layer.1.DenseReluDense.wi_0",
+             "wi_1": "layer.1.DenseReluDense.wi_1",
+             "wi": "layer.1.DenseReluDense.wi"}
+_T5_TOP = {"embedding": "shared",
+           "relative_bias": "encoder.block.0.layer.0.SelfAttention."
+                            "relative_attention_bias",
+           "final_ln": "encoder.final_layer_norm"}
+
+
+def text_state_dict(params, kind: str) -> dict:
+    """The HF state dict (``CLIPTextModel`` for ``kind="clip"``,
+    ``T5EncoderModel`` for ``"t5"``) of a text-encoder tree, the inverse
+    of ``models/text.convert_*``: linear kernels [d_in, d_out] ->
+    ``.weight`` [d_out, d_in], stacked blocks -> one entry a layer.  The
+    tensors are views of the tree's."""
+    block, top, pre, blocks = (
+        (_CLIP_BLOCK, _CLIP_TOP, "text_model.", "text_model.encoder.layers")
+        if kind == "clip" else (_T5_BLOCK, _T5_TOP, "", "encoder.block"))
+    sd = {}
+    for path, leaf in _named_leaves(params):
+        parts = path.strip("/").split("/")
+        field = "bias" if parts[-1] == "bias" else "weight"
+        if parts[-1] == "kernel":
+            leaf = leaf.transpose(-1, -2)
+        if parts[0] == "blocks":
+            for i in range(leaf.shape[0]):
+                sd[f"{blocks}.{i}.{block[parts[1]]}.{field}"] = leaf[i]
+        else:
+            sd[f"{pre}{top[parts[0]]}.{field}"] = leaf
+    return sd
+
+
+def _depth(tree, n: int):
+    """The first ``n`` layers of a text-encoder tree (views)."""
+    return {k: ({b: ({f: x[:n] for f, x in v.items()} if isinstance(v, dict)
+                     else v[:n]) for b, v in tree[k].items()}
+                if k == "blocks" else tree[k]) for k in tree}
+
+
+TEXT_TOL = 1e-4   # depth-2 trees, the card against the CPU, of max|ref|
+_TEXT_SHAPE_FIELDS = {
+    "clip": ("vocab_size", "hidden_size", "mlp_dim", "num_layers"),
+    "t5": ("vocab_size", "d_model", "d_kv", "d_ff", "num_layers", "num_heads",
+           "relative_buckets", "gated_act")}
+
+
+def run_text(torch, device: str = "cuda", clip_cfg=None, t5_cfg=None) -> None:
+    """Phase 17: the seeded CLIP-L (``CLIPTextConfig.clip_l()``) and T5
+    v1.1 XXL (``T5EncoderConfig.t5_v1_1_xxl()``, 4.7 B parameters, f32,
+    about 19 GB) trees on the card.  Forwards on fixed ids, [2, 77] with
+    an EOS and [2, 512], must be finite (seconds and peak printed).  A
+    depth-2 copy of each tree on [1, 64] ids is held between the card and
+    the CPU, TF32 off: max|Δ| <= ``TEXT_TOL`` (1e-4) of the largest CPU
+    value, for CLIP's hidden states and pooled output and T5's hidden
+    states (both f32; the sums run in other orders, about 1e-6 of a value,
+    while a wrong mask, bias or scale moves them by tens of per cent).
+    The HF-named state dicts of the seeded trees must convert back through
+    ``convert_*`` and ``*_config_from_sd`` leaf for leaf equal; the line
+    says which backend ``build_text_encoders`` picks on this machine."""
+    import numpy as np
+
+    from unitex_torch.models.text import (
+        CLIPTextConfig, T5EncoderConfig, clip_config_from_sd,
+        clip_text_forward, convert_clip_text, convert_t5_encoder,
+        init_clip_text_params, init_t5_encoder_params, t5_config_from_sd,
+        t5_encoder_forward,
+    )
+    from unitex_torch.models.text_encoders import build_text_encoders
+    from unitex_torch.utils.params import tree_to
+
+    cuda = device == "cuda"
+    clip_cfg = clip_cfg or CLIPTextConfig.clip_l()
+    t5_cfg = t5_cfg or T5EncoderConfig.t5_v1_1_xxl()
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    rng = np.random.default_rng(17)
+
+    def ids(shape, vocab, eos=None):
+        a = rng.integers(0, vocab - 1 if eos is not None else vocab, shape)
+        if eos is not None:
+            a[:, shape[1] // 2:] = eos          # the padding is EOS too
+            a[0, 3] = eos                       # an early EOS: pooled there
+        return torch.as_tensor(a, device=device)
+
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=device)
+    t0 = time.perf_counter()
+    clip = init_clip_text_params(gen.manual_seed(31), clip_cfg, device=device)
+    t5 = init_t5_encoder_params(gen.manual_seed(32), t5_cfg, device=device)
+    sync()
+    init_s = time.perf_counter() - t0
+    n_t5 = sum(x.numel() for _, x in _named_leaves(t5))
+    clip_ids = ids((2, clip_cfg.max_positions), clip_cfg.vocab_size,
+                   clip_cfg.eos_token_id)
+    t5_ids = ids((2, 512), t5_cfg.vocab_size)
+    times = {}
+    with torch.no_grad():
+        for name, fn in (("clip", lambda: clip_text_forward(clip, clip_cfg,
+                                                             clip_ids)),
+                         ("t5", lambda: (t5_encoder_forward(t5, t5_cfg,
+                                                            t5_ids),))):
+            for call in ("first", "second"):
+                t0 = time.perf_counter()
+                outs = fn()
+                sync()
+                times[f"{name} {call}"] = time.perf_counter() - t0
+            shapes = [tuple(o.shape) for o in outs]
+            finite = all(bool(torch.isfinite(o).all()) for o in outs)
+            print(f"[text] {name} forward {shapes}: first "
+                  f"{times[f'{name} first']:.4f}s, second "
+                  f"{times[f'{name} second']:.4f}s, finite {finite}", flush=True)
+            if not finite:
+                raise AssertionError(f"text: {name} forward not finite")
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    print(f"[text] seeded trees: CLIP-L {clip_cfg.num_layers} layers, T5 "
+          f"{t5_cfg.num_layers} layers ({n_t5 / 1e9:.3f} B parameters, "
+          f"{4 * n_t5 / 1e9:.2f} GB f32) made in {init_s:.3f}s; peak "
+          f"{peak / 2**30:.2f} GiB", flush=True)
+
+    # depth 2, the card against the CPU
+    small = {"clip": _depth(clip, 2), "t5": _depth(t5, 2)}
+    x_ids = ids((1, 64), clip_cfg.vocab_size, clip_cfg.eos_token_id)
+    t_ids = ids((1, 64), t5_cfg.vocab_size)
+    with torch.no_grad():
+        dev_out = {"clip": clip_text_forward(small["clip"], clip_cfg, x_ids),
+                   "t5": (t5_encoder_forward(small["t5"], t5_cfg, t_ids),)}
+        cpu_out = {"clip": clip_text_forward(tree_to(small["clip"], "cpu"),
+                                             clip_cfg, x_ids.cpu()),
+                   "t5": (t5_encoder_forward(tree_to(small["t5"], "cpu"),
+                                             t5_cfg, t_ids.cpu()),)}
+    for name in ("clip", "t5"):
+        for got, want in zip(dev_out[name], cpu_out[name]):
+            err = float((got.cpu() - want).abs().max())
+            ref = float(want.abs().max())
+            print(f"[text] {name} depth 2 {tuple(want.shape)}: max|Δ| {err:.3e} "
+                  f"against max|ref| {ref:.3e} (limit {TEXT_TOL * ref:.3e})",
+                  flush=True)
+            if not err <= TEXT_TOL * ref:
+                raise AssertionError(f"text: {name} on {device} differs from "
+                                     f"the CPU by {err}")
+    del small, dev_out, cpu_out
+
+    # the HF names and back
+    for name, tree, cfg, conv, from_sd in (
+            ("clip", clip, clip_cfg, convert_clip_text, clip_config_from_sd),
+            ("t5", t5, t5_cfg, convert_t5_encoder, t5_config_from_sd)):
+        sd = text_state_dict(tree, name)
+        back_cfg = from_sd(sd)
+        back = conv(sd, back_cfg, device=device)
+        want, got = dict(_named_leaves(tree)), dict(_named_leaves(back))
+        same = want.keys() == got.keys() and all(
+            torch.equal(got[k], want[k]) for k in want)
+        # the fields a state dict's shapes define
+        cfg_same = all(getattr(back_cfg, f) == getattr(cfg, f)
+                       for f in _TEXT_SHAPE_FIELDS[name])
+        print(f"[text] {name}: {len(sd)} HF-named tensors -> {len(got)} leaves "
+              f"{'equal' if same else 'DIFFERENT'}; config from the shapes "
+              f"{'equal' if back_cfg == cfg else back_cfg}", flush=True)
+        if not (same and cfg_same):
+            raise AssertionError(f"text: the {name} state dict does not "
+                                 f"convert back")
+        del sd, back, want, got
+    del clip, t5
+    gc.collect()
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_text_")
+    try:
+        enc = build_text_encoders(root, device=device)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"[text] build_text_encoders on this machine (no tokenizer or "
+          f"weight files under the root): "
+          f"{type(enc).__name__ if enc is not None else 'None: zero embeddings'}",
+          flush=True)
+
+
 def _named_leaves(tree, prefix=""):
     """("/a/0/b", leaf) of a tree of dicts and lists (``None``, an absent
     branch, has no leaf)."""
@@ -2243,6 +2593,24 @@ def main() -> int:
     oracle = _counts(attn)
     if oracle != NONE:
         return fail(f"launches {COUNTED} {oracle} on the oracle bakes")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # phase 16: the LTM trainer at full width, with a profiled step
+    _reset(attn)
+    run_ltm_training(torch)
+    torch.cuda.synchronize()
+    if _counts(attn) != NONE:
+        return fail(f"launches {COUNTED} {_counts(attn)} in the LTM trainer")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # phase 17: CLIP-L and T5-XXL on the card
+    _reset(attn)
+    run_text(torch)
+    torch.cuda.synchronize()
+    if _counts(attn) != NONE:
+        return fail(f"launches {COUNTED} {_counts(attn)} in the text encoders")
 
     paths = ("matting", "serve", "http_serve", "train", "ltm", "cli",
              "flux_launcher", "int8_serve", "sr_options", "tsdsr_train",

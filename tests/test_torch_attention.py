@@ -155,8 +155,11 @@ def test_cpu_autograd_matches_jax_vjp():
     g = np.random.default_rng(14).normal(size=q.shape).astype(np.float32)
     tq, tk, tv = (torch.from_numpy(x).requires_grad_(True) for x in (q, k, v))
     tattn.attention(tq, tk, tv).backward(torch.from_numpy(g))
-    _, vjp = jax.vjp(jattn.attention_reference, *map(jnp.asarray, (q, k, v)))
-    for t, w in zip((tq, tk, tv), vjp(jnp.asarray(g))):
+    # the JAX vjp as one jitted program (eagerly, one compile an op)
+    grads = jax.jit(lambda q, k, v, g: jax.vjp(jattn.attention_reference,
+                                               q, k, v)[1](g))(
+        *map(jnp.asarray, (q, k, v, g)))
+    for t, w in zip((tq, tk, tv), grads):
         w = np.asarray(w)
         assert np.abs(t.grad.numpy() - w).max() <= VJP_REL * np.abs(w).max()
 
@@ -168,7 +171,7 @@ def test_bf16_reference_rounds_like_jax():
     tq = [torch.from_numpy(x).bfloat16() for x in (q, k, v)]
     jq = [jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)]
     out, _ = tattn.attention_reference(*tq)
-    ref = jattn.attention_reference(*jq)
+    ref = jax.jit(jattn.attention_reference)(*jq)
     np.testing.assert_allclose(out.float().numpy(),
                                np.asarray(ref.astype(jnp.float32)), atol=2e-2)
 

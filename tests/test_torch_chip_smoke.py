@@ -258,3 +258,31 @@ def test_matting_phase_and_checkpoints_rehearse_on_the_cpu(tmp_path, monkeypatch
         sd = cs.matting_model(torch, name, "cpu", tiny[name])[1]
         assert cs.write_matting_checkpoint(root, name, sd) > 0
         assert isinstance(rembg.build_background_remover(root, device="cpu"), cls)
+
+
+def test_ltm_training_and_text_phases_rehearse_on_the_cpu(monkeypatch, capsys):
+    """Phases 16 and 17 on the CPU: the LTM trainer at ``--tiny`` (60
+    steps; the fixed batches' loss gate, the npz read back and taken by
+    the pipeline, the profiled step with its annotation) and the text
+    encoders at tiny configs (the forwards, the depth-2 copies against
+    themselves, the HF names and back, the backend's choice)."""
+    import torch
+
+    from unitex_torch.models.text import CLIPTextConfig, T5EncoderConfig
+
+    cs = _chip_smoke()
+    cs.run_ltm_training(torch, "cpu", args=("--tiny", "--steps", "60",
+                                            "--log-every", "30"))
+    out = capsys.readouterr().out
+    assert "fixed batches' summed loss" in out and "read back equal" in out
+    assert "the pipeline's LTM loader took it" in out
+    assert "annotation present" in out
+    clip = CLIPTextConfig(vocab_size=1000, hidden_size=48, num_layers=3,
+                          mlp_dim=64, eos_token_id=999)
+    t5 = T5EncoderConfig(vocab_size=500, d_model=32, d_kv=8, d_ff=64,
+                         num_layers=3, num_heads=4)
+    cs.run_text(torch, "cpu", clip, t5)
+    out = capsys.readouterr().out
+    assert "[text] clip: 52 HF-named tensors -> 20 leaves equal" in out
+    assert "[text] t5: 30 HF-named tensors -> 12 leaves equal" in out
+    assert "None: zero embeddings" in out

@@ -154,3 +154,32 @@ def test_tsdsr_trainer_defaults_to_cuda_and_raises_without_a_card(tmp_path):
         pytest.skip("a CUDA device is present: nothing to refuse")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_tsdsr.main(argv)
+
+
+def test_ltm_trainer_text_encoders_and_samplers_default_to_cuda(tmp_path):
+    """The LTM trainer's launcher and state, the text encoders' inits and
+    ``build_text_encoders``, the remap and the device samplers run on the
+    card unless asked for the CPU; without a card the launcher raises."""
+    import inspect
+
+    from unitex_torch.geometry.sampling import sample_near_surface, sample_spatial
+    from unitex_torch.models.text import init_clip_text_params, init_t5_encoder_params
+    from unitex_torch.models.text_encoders import (
+        DeviceFluxTextEncoders, FluxTextEncoders, build_text_encoders,
+    )
+    from unitex_torch.scripts import train_ltm
+    from unitex_torch.texture.remapping import color_transfer_v_uv, remap_texture
+    from unitex_torch.training.ltm import create_ltm_state, sample_ltm_batch
+
+    for fn in (sample_spatial, sample_near_surface, init_clip_text_params,
+               init_t5_encoder_params, build_text_encoders, remap_texture,
+               color_transfer_v_uv, create_ltm_state, sample_ltm_batch,
+               DeviceFluxTextEncoders.__init__, FluxTextEncoders.__init__):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn
+    assert train_ltm.parse_args([]).device == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: nothing to refuse")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_ltm.main(["--tiny", "--out", str(tmp_path / "ltm.npz")])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_text_encoders(str(tmp_path))

@@ -1,7 +1,7 @@
 """The LTM texture-function VAE in the port (unitex_torch/models/ltm.py)
 against the JAX package's, on the same numpy inputs and parameter trees,
-f32 on the CPU: a tiny tree from the JAX init (carried by
-``params_from_jax``) and the repo's trained ``ltm_params.npz``
+f32 on the CPU: a tiny tree from the port's seeded init (its layout held
+to the JAX init's) and the repo's trained ``ltm_params.npz``
 (``LTMConfig.large()``, read by each package's ``load_params``).  The JAX
 side runs under ``jax.jit`` (one compile instead of an eager compile per
 op); its fusions move the last bits, so colours are held to 1e-4.
@@ -23,7 +23,7 @@ from unitex_tpu.utils.param_cache import load_params as jload_params
 from unitex_torch.models import ltm as tltm
 from unitex_torch.utils.param_cache import load_meta as tload_meta
 from unitex_torch.utils.param_cache import load_params as tload_params
-from unitex_torch.utils.params import params_from_jax, tree_shapes
+from unitex_torch.utils.params import tree_shapes
 from torch_cpu_share import share_cpu
 
 share_cpu()
@@ -49,11 +49,14 @@ def _inputs(seed, n=2000, q=1000, valid_share=0.7):
 @pytest.fixture(scope="module")
 def tiny():
     """LTMConfig.tiny() with the kernel decoder, so both decode paths have
-    their leaves; the JAX init's tree in both packages."""
+    their leaves; the port's seeded tree in both packages (the JAX init
+    compiles for seconds; its layout is held by
+    ``test_init_has_the_jax_layout``)."""
     cfg = dataclasses.replace(jltm.LTMConfig.tiny(), kernel_decode=True)
-    jp = jax.jit(jltm.init_ltm_params, static_argnums=1)(jax.random.key(0), cfg)
-    tp = params_from_jax(jax.tree.map(np.asarray, jp), "cpu")
-    return cfg, tltm.LTMConfig(**dataclasses.asdict(cfg)), jp, tp
+    tcfg = tltm.LTMConfig(**dataclasses.asdict(cfg))
+    tp = tltm.init_ltm_params(torch.Generator().manual_seed(0), tcfg, device="cpu")
+    jp = jax.tree.map(lambda t: jnp.asarray(t.numpy()), tp)
+    return cfg, tcfg, jp, tp
 
 
 @pytest.fixture(scope="module")
@@ -80,11 +83,12 @@ def test_load_params_gives_the_jax_packages_leaves(large):
 
 
 def test_init_has_the_jax_layout(tiny):
-    jcfg, tcfg, jp, _ = tiny
-    tp = tltm.init_ltm_params(torch.Generator().manual_seed(0), tcfg, device="cpu")
+    jcfg, tcfg, _, tp = tiny
+    jp = jax.eval_shape(lambda: jltm.init_ltm_params(jax.random.key(0), jcfg))
     assert tree_shapes(tp) == tree_shapes(jp)
     assert float(tp["residual_gate"]) == 0.0
-    assert float(tp["kernel_log_tau"]) == float(jp["kernel_log_tau"])
+    assert float(tp["kernel_log_tau"]) == float(
+        jnp.log(jnp.asarray(jcfg.kernel_tau, jnp.float32)))
 
 
 def test_fourier_features_match_jax():

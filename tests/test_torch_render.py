@@ -12,6 +12,7 @@ compare barycentrics and depth only where ``tri`` agrees.
 
 import importlib
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -75,36 +76,43 @@ def _assert_rast_close(tr, jr):
 
 
 def test_cameras_and_mvp_match_jax():
-    """Box c2ws, intrinsics and mvp in exact f32."""
+    """Box c2ws, intrinsics and mvp in exact f32.  The JAX side runs as
+    one jitted program (eagerly it compiles each of its ops)."""
+
+    @jax.jit
+    def jax_side(c2ws):
+        intr = [jgen.generate_intrinsics(0.9, 0.9, fov=p) for p in (False, True)]
+        mvp = [jconv.get_mvp(c2ws, jnp.broadcast_to(i, (6, 3, 3)), perspective=p)
+               for i, p in zip(intr, (False, True))]
+        return (jgen.generate_box_views_c2ws(2.8), intr, mvp,
+                jcond.condition_cameras()[0])
+
     c2ws_t = tgen.generate_box_views_c2ws(2.8, device="cpu")
-    c2ws_j = np.asarray(jgen.generate_box_views_c2ws(2.8))
-    np.testing.assert_allclose(c2ws_t.numpy(), c2ws_j, atol=1e-6)
-    for persp in (False, True):
+    c2ws_j, intr_j, mvp_j, cond_j = jax_side(jnp.asarray(c2ws_t.numpy()))
+    np.testing.assert_allclose(c2ws_t.numpy(), np.asarray(c2ws_j), atol=1e-6)
+    for persp, ij, mj in zip((False, True), intr_j, mvp_j):
         intr_t = tgen.generate_intrinsics(0.9, 0.9, fov=persp, device="cpu")
-        intr_j = jgen.generate_intrinsics(0.9, 0.9, fov=persp)
-        np.testing.assert_allclose(intr_t.numpy(), np.asarray(intr_j), atol=1e-7)
-        mvp_t = tconv.get_mvp(_t(c2ws_j), intr_t.expand(6, 3, 3),
+        np.testing.assert_allclose(intr_t.numpy(), np.asarray(ij), atol=1e-7)
+        mvp_t = tconv.get_mvp(c2ws_t, intr_t.expand(6, 3, 3),
                               perspective=persp)
-        mvp_j = jconv.get_mvp(jnp.asarray(c2ws_j),
-                              jnp.broadcast_to(intr_j, (6, 3, 3)),
-                              perspective=persp)
-        np.testing.assert_allclose(mvp_t.numpy(), np.asarray(mvp_j),
+        np.testing.assert_allclose(mvp_t.numpy(), np.asarray(mj),
                                    rtol=1e-6, atol=1e-6)
     c, _ = tcond.condition_cameras(device="cpu")
-    np.testing.assert_allclose(c.numpy(), np.asarray(jcond.condition_cameras()[0]),
-                               atol=1e-6)
+    np.testing.assert_allclose(c.numpy(), np.asarray(cond_j), atol=1e-6)
 
 
 def test_mesh_normals_and_bucket_padding_match_jax(sphere):
     v, host = sphere
     f = host.faces.astype(np.int64)
+    # the JAX normals as one jitted program (eagerly, one compile an op)
+    fn_j, vn_j = jax.jit(lambda v, f: (jmesh.compute_face_normals(v, f),
+                                       jmesh.compute_vertex_normals(v, f)))(
+        jnp.asarray(v), jnp.asarray(f))
     np.testing.assert_allclose(
-        tmesh.compute_face_normals(_t(v), _t(f)).numpy(),
-        np.asarray(jmesh.compute_face_normals(jnp.asarray(v), jnp.asarray(f))),
+        tmesh.compute_face_normals(_t(v), _t(f)).numpy(), np.asarray(fn_j),
         atol=1e-6)
     np.testing.assert_allclose(
-        tmesh.compute_vertex_normals(_t(v), _t(f)).numpy(),
-        np.asarray(jmesh.compute_vertex_normals(jnp.asarray(v), jnp.asarray(f))),
+        tmesh.compute_vertex_normals(_t(v), _t(f)).numpy(), np.asarray(vn_j),
         atol=1e-5)
     tm = tmesh.pad_mesh_to_bucket(tmesh.Mesh(
         _t(v), _t(f), uv=_t(host.uv), faces_uv=_t(host.faces_uv, torch.int64)), 2048)
@@ -227,7 +235,8 @@ def test_rasterize_uv_and_interpolate_match_jax(sphere):
     # compared alone: the f32 blend of the three corners, background = fill
     shared = trast.Rast(_t(jr.bary), _t(jr.z), _t(jr.tri, torch.int64))
     got = trast.interpolate(_t(v), shared, _t(host.faces, torch.int64), fill=-1.0)
-    want = jrast.interpolate(jnp.asarray(v), jr, jnp.asarray(host.faces), fill=-1.0)
+    want = jax.jit(lambda v, r, f: jrast.interpolate(v, r, f, fill=-1.0))(
+        jnp.asarray(v), jr, jnp.asarray(host.faces))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6)
     assert (np.asarray(jr.tri) < 0).any() and (np.asarray(jr.tri) >= 0).mean() > 0.3
 

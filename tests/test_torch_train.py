@@ -362,9 +362,7 @@ def test_launcher_refuses_deferred_flags(flag):
         launcher.main(["--tiny", "--device", "cpu"] + flag)
 
 
-@pytest.mark.parametrize("flag", [
-    ["--prompt", "[MVFLUX]"], ["--pipe-n-micro", "4"],
-])
+@pytest.mark.parametrize("flag", [["--pipe-n-micro", "4"]])
 def test_launcher_rejects_options_it_does_not_take(flag):
     """Options whose branch is not ported are not parsed at all, so they
     cannot be ignored silently."""

@@ -12,6 +12,7 @@ level (measured: all 49,152 equal, for both video types).
 import dataclasses
 import os
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -42,7 +43,9 @@ LEVEL_AGREE = 0.999   # share of uint8 values within one level of JAX's
 @pytest.mark.parametrize("n,radius,height", [(121, 2.8, 0.0), (9, 2.8, 1.4),
                                              (4, 1.0, 0.0)])
 def test_orbit_cameras_match_jax(n, radius, height):
-    want = jgen.generate_orbit_views_c2ws(n, radius=radius, height=height)
+    # one jitted program (eagerly the JAX side compiles each of its ops)
+    want = jax.jit(lambda: jgen.generate_orbit_views_c2ws(
+        n, radius=radius, height=height))()
     got = tgen.generate_orbit_views_c2ws(n, radius=radius, height=height,
                                          device="cpu")
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,

@@ -9,7 +9,7 @@ in f32, GELU-tanh, interleaved-pair 3-axis RoPE computed in f32.
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -100,10 +100,22 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
 
 
 def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-         qk8: bool = False):
+         mask: Optional[torch.Tensor] = None, qk8: bool = False):
     """Attention over [B, S, H, D] (ops/attention.attention): kernel B1, or
     with ``qk8`` the int8-QK kernel B3, on a CUDA tensor; their plain
-    versions on a CPU tensor."""
+    versions on a CPU tensor.  With a boolean ``mask`` (broadcastable to
+    [B, H, S_q, S_k], True attends) a plain masked attention, as the JAX
+    package's ``jax.nn.dot_product_attention``: logits in f32, masked ones
+    set to -0.7 x the f32 maximum, the softmax in f32, its probabilities
+    in v's dtype; no kernel is launched."""
+    if mask is not None:
+        logits = torch.einsum("bthd,bshd->bhts", q.float(), k.float())
+        logits = logits * (1.0 / math.sqrt(q.shape[-1]))
+        logits = torch.where(mask, logits, torch.full_like(
+            logits, -0.7 * torch.finfo(torch.float32).max))
+        probs = torch.softmax(logits, dim=-1).to(v.dtype)
+        return torch.einsum("bhts,bshd->bthd", probs, v)
+
     from ...ops.attention import attention
 
     return attention(q, k, v, qk8=qk8)

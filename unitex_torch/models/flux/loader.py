@@ -50,6 +50,14 @@ class SafetensorsDict(Mapping):
     def __getitem__(self, name: str) -> torch.Tensor:
         return self._where[name].get_tensor(name)
 
+    def __contains__(self, name) -> bool:
+        # Mapping's default would read the tensor
+        return name in self._where
+
+    def shape(self, name: str) -> tuple:
+        """A tensor's shape, read from its shard's header."""
+        return tuple(self._where[name].get_slice(name).get_shape())
+
     def __iter__(self) -> Iterator[str]:
         return iter(self._where)
 

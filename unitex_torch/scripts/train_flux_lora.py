@@ -12,13 +12,16 @@ geometry-rendered stream or a pre-rendered dataset directory.  The full
 model is FLUX.1-dev with ``remat=True``, read from
 ``<--pretrain-models>/flux/{transformer,vae}`` (diffusers safetensors)
 or, without that flag, random trees made on the device from ``--seed``.
-With no text-encoder weights the prompt embeddings are zeros, as in the
-JAX launcher.
+With ``--pretrain-models`` the trigger prompt ``--prompt`` is embedded
+once by CLIP-L and T5-XXL on the device (``models/text_encoders``); with
+no text-encoder weights (or tokenizers), an empty prompt, or embeddings
+whose widths the model does not take, the prompt embeddings are zeros,
+as in the JAX launcher.
 
 Not ported, and refused with a message: ``--pipe`` and ``--data-mesh`` >
-1 (multi-GPU), ``--full-finetune`` and ``--bf16-compute``.  Options that
-only those branches or the text encoders read (``--prompt``,
-``--pipe-n-micro``) are not taken.
+1 (multi-GPU), ``--full-finetune`` and ``--bf16-compute``.  The option
+that only the pipeline-parallel branch reads (``--pipe-n-micro``) is not
+taken.
 """
 
 from __future__ import annotations
@@ -149,8 +152,33 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--validation-steps", type=int, default=0,
                     help="render a validation image every N steps")
+    ap.add_argument("--prompt", default="[MVFLUX]",
+                    help="trigger prompt embedded by the CLIP-L/T5 encoders "
+                         "when --pretrain-models holds their weights; '' or "
+                         "missing weights -> the zero embeddings inference "
+                         "runs with")
     ap.add_argument("--device", default="cuda")
     return ap.parse_args(argv)
+
+
+def prompt_embeddings(args, cfg, dev):
+    """(sequence [S_t, D], pooled [D_p]) on ``dev``: ``--prompt`` through
+    the text encoders of ``--pretrain-models``, or zeros (the encoders
+    freed once the prompt is embedded)."""
+    from ..models.text_encoders import build_text_encoders
+
+    if args.prompt and args.pretrain_models:
+        enc = build_text_encoders(args.pretrain_models, device=dev)
+        if enc is not None:
+            seq, pooled = enc([args.prompt])
+            del enc
+            if (seq.shape[-1] == cfg.joint_attention_dim
+                    and pooled.shape[-1] == cfg.pooled_projection_dim):
+                return seq[0], pooled[0]
+            print("[launcher] text-encoder dims do not match the model "
+                  "config; using zero embeddings")
+    return (torch.zeros((512, cfg.joint_attention_dim), device=dev),
+            torch.zeros((cfg.pooled_projection_dim,), device=dev))
 
 
 def full_size():
@@ -237,9 +265,8 @@ def main(argv: Optional[List[str]] = None,
                 dst.copy_(src)
         state.step = mgr.latest_step()
 
-    # null conditioning: the text encoders are not ported
-    seq_e = torch.zeros((512, cfg.joint_attention_dim), device=dev)
-    pooled_e = torch.zeros((cfg.pooled_projection_dim,), device=dev)
+    # fixed-prompt conditioning, computed once
+    seq_e, pooled_e = prompt_embeddings(args, cfg, dev)
 
     logger = MetricLogger(args.output_dir)
     if args.data_dir:

@@ -8,6 +8,9 @@ with the JAX package's cadence (``step % save_every == 0``, step > 0) and
 and read back with ``weights_only=True``.
 
 Deferred: reading or writing the JAX package's orbax checkpoints.
+``orbax`` imports JAX, which the port never imports, and the GPU machine
+has neither ``orbax`` nor ``tensorstore``, whose on-disk format a reader
+without JAX would have to parse.
 """
 
 from __future__ import annotations

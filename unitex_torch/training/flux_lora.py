@@ -82,14 +82,20 @@ class TrainState:
 
 
 def _leaves(tree) -> List[torch.Tensor]:
+    """The leaves of a tree of dicts and lists, in order."""
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
+    if isinstance(tree, list):
+        return [x for v in tree for x in _leaves(v)]
     return [tree]
 
 
 def _map(fn, *trees):
+    """``fn`` over the leaves of trees of one structure (dicts and lists)."""
     if isinstance(trees[0], dict):
         return {k: _map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    if isinstance(trees[0], list):
+        return [_map(fn, *(t[i] for t in trees)) for i in range(len(trees[0]))]
     return fn(*trees)
 
 
@@ -243,14 +249,17 @@ def _linear(init: float, end: float, steps: int) -> Callable[[int], float]:
     return schedule
 
 
-def _cosine(init: float, decay_steps: int) -> Callable[[int], float]:
-    """optax ``cosine_decay_schedule`` with alpha 0 and exponent 1."""
+def _cosine(init: float, decay_steps: int,
+            alpha: float = 0.0) -> Callable[[int], float]:
+    """optax ``cosine_decay_schedule`` with exponent 1: the decay falls
+    from 1 to ``alpha``."""
     if not decay_steps > 0:
         raise ValueError(f"cosine decay needs positive decay_steps, got {decay_steps}")
 
     def schedule(count):
         count = min(count, decay_steps)
-        return init * (0.5 * (1 + math.cos(math.pi * count / decay_steps)))
+        decay = 0.5 * (1 + math.cos(math.pi * count / decay_steps))
+        return init * ((1 - alpha) * decay + alpha)
 
     return schedule
 
@@ -267,6 +276,18 @@ def _join(schedules, boundaries) -> Callable[[int], float]:
         return out
 
     return schedule
+
+
+def warmup_cosine_decay_schedule(init: float, peak: float, warmup_steps: int,
+                                 decay_steps: int,
+                                 end: float = 0.0) -> Callable[[int], float]:
+    """optax ``warmup_cosine_decay_schedule`` with exponent 1: linear from
+    ``init`` to ``peak`` over ``warmup_steps``, then a cosine to ``end`` at
+    ``decay_steps`` (counted from 0, the warmup included)."""
+    alpha = 0.0 if peak == 0.0 else end / peak
+    return _join([_linear(init, peak, warmup_steps),
+                  _cosine(peak, decay_steps - warmup_steps, alpha)],
+                 [warmup_steps])
 
 
 def make_lr_schedule(tcfg: FluxLoraTrainConfig) -> Callable[[int], float]:
@@ -293,11 +314,11 @@ def _f32(x) -> torch.Tensor:
 def _clipped(g_leaves: List[torch.Tensor],
              max_norm: float) -> List[torch.Tensor]:
     """optax ``clip_by_global_norm``: g · max_norm / ‖g‖ (as ``(g / ‖g‖) ·
-    max_norm``) when ‖g‖ >= max_norm, with no epsilon."""
+    max_norm``) when ‖g‖ >= max_norm, with no epsilon.  The choice is made
+    on the device, so a step makes no host sync."""
     g_norm = torch.sqrt(sum(torch.sum(g.float() ** 2) for g in g_leaves))
-    if bool(g_norm < max_norm):
-        return g_leaves
-    return [(g / g_norm) * max_norm for g in g_leaves]
+    keep = g_norm < max_norm
+    return [torch.where(keep, g, (g / g_norm) * max_norm) for g in g_leaves]
 
 
 class ClippedAdamW:
