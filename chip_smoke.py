@@ -12,7 +12,9 @@ non-zero:
    and spill report of each kernel;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes the paths give it (q/k/v/dO [1, S, 24, 128] bf16 at
-   S = 13824 and 12800, plus a ragged S = 1000), with its time, the plain
+   S = 13824 and 12800, plus a ragged S = 1000; B1 also at FastTexture's
+   S = 4608 and 16896, its plain version a head at a time, as at every
+   S), with its time, the plain
    version's, one PyTorch library call's (a yardstick only) and the
    bound: flash attention B1 held to max|dout| <= min(2e-2, 2 % of
    max|ref|) and max|dlse| <= 1e-3, its line also giving the share of its
@@ -60,6 +62,28 @@ non-zero:
    finite 2048² textures, and the two must launch B1 exactly 2 x 456
    times and nothing else; the line gives their wall time beside the sum
    of their stage times;
+18. texture tools (after phase 13, on the resident phase-4 FLUX.1-dev
+   trees and the icosphere job's GLB): FastTexture's ``inpaint_texture``
+   on the job's texture halved to 1024², a centred disc of a quarter of
+   the texels regenerated at strength 1 in 4 steps (exactly 4 x 57 = 228
+   launches of B1, S = 4096 + 512; the kept texels bit for bit the input,
+   the output finite in [0, 1]) and ``upscale_texture`` to 2048² at
+   strength 0.3 of 28 steps (t_start 20: exactly 8 x 57 = 456 launches,
+   S = 16384 + 512; the VAE encodes and decodes 2048² untiled, the peak
+   printed and under 80 GB); then ``refine_texture`` (6 views of 512² of
+   the GLB on a ring, a 512² texture, 200 steps: the last loss below the
+   first) and ``refine_poses`` (a smooth texture, the estimates turned by
+   0.05 rad, 100 steps: the rotation error must fall), each with its ms a
+   step; ``ray_triangle_intersect`` of 512² pixel rays against
+   ``make_icosphere(5)`` held to the rasterizer's triangle ids (the same
+   triangle on at least 99.9 % of the pixels both hit), ``self_rt`` (2048
+   points x 32 rays: inside all inner, outside none) and
+   ``sphere_rt_views``, each with its seconds; ``unified_rgb_render`` and
+   ``unified_pbr_render`` of the GLB on the v1 and v2 sweeps (8 frames of
+   512² each), ``render_scene`` of the GLB and a moved icosphere (both
+   object ids seen) and ``export_turntable`` to a PNG grid (3 x 3 of 512²)
+   and a height-sweep GIF (9 frames); no attention launch outside
+   FastTexture;
 5. training path: three FLUX.1-dev LoRA ``train_step``s (rank 16, remat,
    constant lr 1e-4) on the serving pipeline's resident base tree, each on
    one ``SyntheticTextureDataset(view_size=512)`` batch built by the
@@ -203,6 +227,9 @@ PEAK_BYTES = 3.35e12           # H100 SXM HBM3 bandwidth
 # clock (a second bound for attention, beside the tensor cores)
 SFU_EXP_RATE = 132 * 16 * 1.98e9
 ATTN_SHAPES = (13824, 12800, 1000)
+# B1 also at FastTexture's S: the inpaint at 1024² and the upscale to
+# 2048² (image tokens + 512 prompt tokens)
+B1_SHAPES = ATTN_SHAPES + (4608, 16896)
 # B1 against its f32 plain version on unit-normal bf16 inputs.  The output
 # is held to 2 % of the largest reference value and never more than 2e-2:
 # the bf16 rounding of out and of P alone stays below 2**-8 of it, while a
@@ -301,7 +328,7 @@ def check_flash_attention(attn, torch, ptxas: str):
     record = None
     worst = 0.0
     ms_at = {}
-    for S in ATTN_SHAPES:
+    for S in B1_SHAPES:
         q, k, v = (torch.randn((B, S, H, D), generator=gen, device="cuda")
                    .to(torch.bfloat16) for _ in range(3))
         out, lse = attn.flash_attention(q, k, v)
@@ -771,8 +798,10 @@ def make_assets(d: str):
     return jobs
 
 
-def run_main_path(attn, torch):
-    """The serving path; returns (B1 launches, the pipeline)."""
+def run_main_path(attn, torch, keep_dir=None):
+    """The serving path; returns (B1 launches, the pipeline).  With
+    ``keep_dir`` the icosphere job's GLB is copied there as
+    ``icosphere.glb``."""
     from unitex_torch.config import DEFAULT_CONFIG
     from unitex_torch.pipeline import CustomRGBTextureFullPipeline
     from unitex_torch.utils.timer import CPUTimer
@@ -821,6 +850,8 @@ def run_main_path(attn, torch):
                   f" flash_attn_fwd launches {n}", flush=True)
             if not os.path.exists(glb):
                 raise AssertionError(f"job {name}: no GLB at {glb}")
+            if keep_dir is not None and name == "icosphere":
+                shutil.copy(glb, os.path.join(keep_dir, "icosphere.glb"))
             if tuple(tex.shape) != (2048, 2048, 3) or not bool(
                     torch.isfinite(tex).all()):
                 raise AssertionError(
@@ -2418,6 +2449,308 @@ def _named_leaves(tree, prefix=""):
         yield prefix, tree
 
 
+# phase 18: the texture tools on the serving phase's resident FLUX trees
+TOOLS_TEX = 1024          # FastTexture's texture side (the job's 2048² atlas halved)
+TOOLS_STEPS = 4           # the inpaint's steps (of 28 in serving), strength 1
+UPSCALE_STEPS, UPSCALE_STRENGTH = 28, 0.3   # t_start = 20: 8 steps run
+TOOLS_TXT = 512           # the zero prompt's tokens
+
+
+def view_rays(torch, c2w, intr, H: int, W: int):
+    """World-space rays [H·W, 3] (origins, unit directions) through the
+    pixel centres of a perspective camera, row-major, row 0 at the top:
+    the rasterizer's pixels (ndc = (p + 0.5) / size · 2 − 1, the y row of
+    the projection negated, the camera looking along −z)."""
+    dev = c2w.device
+    ys = ((torch.arange(H, device=dev) + 0.5) / H * 2 - 1)
+    xs = ((torch.arange(W, device=dev) + 0.5) / W * 2 - 1)
+    ndc_y, ndc_x = torch.meshgrid(ys, xs, indexing="ij")
+    d = torch.stack([(ndc_x + 2 * intr[0, 2] - 1) / (2 * intr[0, 0]),
+                     (2 * intr[1, 2] - 1 - ndc_y) / (2 * intr[1, 1]),
+                     -torch.ones_like(ndc_x)], -1).reshape(-1, 3)
+    d = d @ c2w[:3, :3].T
+    d = d / torch.linalg.norm(d, dim=-1, keepdim=True)
+    return c2w[:3, 3].expand_as(d).contiguous(), d
+
+
+def _rotation_error(torch, a, b) -> float:
+    """Sum over views of ‖R_a − R_b‖_F."""
+    return float(torch.linalg.norm(a[:, :3, :3] - b[:, :3, :3], dim=(1, 2)).sum())
+
+
+def run_texture_tools(attn, torch, pipe, glb: str, device: str = "cuda",
+                      tex_size: int = TOOLS_TEX, view: int = 512,
+                      refine_steps: int = 200, pose_steps: int = 100,
+                      rt_size: int = 512, ico: int = 5, frames: int = 8) -> None:
+    """Phase 18: the texture tools of the port on the resident FLUX trees
+    of ``pipe`` and the icosphere job's GLB ``glb``.  FastTexture inpaints
+    a disc of about a quarter of the job's texture (halved to
+    ``tex_size``²) at strength 1 in ``TOOLS_STEPS`` steps (B1 57 times a
+    step, S = (tex_size / 16)² + 512) and upscales it x2 at strength 0.3
+    of 28 steps (8 run, S = (tex_size / 8)² + 512); then texture and pose
+    refinement, ray tracing against the rasterizer, visibility, the
+    unified RGB / PBR renders, a two-object scene and the turntable
+    export, each with no attention launch."""
+    import numpy as np
+
+    from unitex_torch.camera.generator import (
+        generate_intrinsics, generate_orbit_views_c2ws,
+    )
+    from unitex_torch.geometry.io.mesh_io import load_mesh
+    from unitex_torch.geometry.mesh import Mesh
+    from unitex_torch.geometry.primitives import make_icosphere
+    from unitex_torch.ops.raytrace import ray_triangle_intersect
+    from unitex_torch.ops.visibility import self_rt, sphere_rt_views
+    from unitex_torch.render.renderer import render_views
+    from unitex_torch.render.scene import SceneObject, render_scene
+    from unitex_torch.render.unify import unified_pbr_render, unified_rgb_render
+    from unitex_torch.render.video import export_turntable
+    from unitex_torch.texture.fast_texture import inpaint_texture, upscale_texture
+    from unitex_torch.texture.refine import (
+        PoseRefineConfig, TextureRefineConfig, refine_poses, refine_texture,
+    )
+    from unitex_torch.utils.resize import resize_bilinear
+
+    dev = torch.device(device)
+    cfg = pipe.flux_cfg
+    blocks = cfg.num_layers + cfg.num_single_layers
+    gen = torch.Generator(device=dev).manual_seed(18)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def launches_since(before):
+        sync()
+        return tuple(a - b for a, b in zip(_counts(attn), before))
+
+    def put(x, dtype):
+        return None if x is None else torch.from_numpy(
+            np.ascontiguousarray(x, dtype)).to(dev)
+
+    host = load_mesh(glb)
+    mesh = Mesh(put(host.vertices, np.float32), put(host.faces, np.int64),
+                uv=put(host.uv, np.float32), faces_uv=put(host.faces_uv, np.int64))
+    atlas = put(host.texture[..., :3], np.float32) / 255.0
+    texture = torch.clamp(resize_bilinear(atlas, tex_size, tex_size), 0.0, 1.0)
+
+    # FastTexture, inpaint: a disc of a quarter of the texels, from noise
+    yy, xx = torch.meshgrid(torch.arange(tex_size, device=dev),
+                            torch.arange(tex_size, device=dev), indexing="ij")
+    r = tex_size * math.sqrt(0.25 / math.pi)
+    mask = ((yy - tex_size / 2 + 0.5) ** 2 + (xx - tex_size / 2 + 0.5) ** 2
+            < r * r).float()
+    tokens = (tex_size // (2 * pipe.vae_cfg.downscale)) ** 2 + TOOLS_TXT
+    before = _counts(attn)
+    t0 = time.perf_counter()
+    out = inpaint_texture(pipe.transformer_params, cfg, pipe.vae_params,
+                          pipe.vae_cfg, gen, texture, mask, strength=1.0,
+                          num_inference_steps=TOOLS_STEPS, device=dev)
+    n = launches_since(before)
+    secs = time.perf_counter() - t0
+    keep = mask == 0
+    print(f"[tools] inpaint {tex_size}² (mask {float(mask.mean()):.4f} of the "
+          f"texels, S = {tokens}): {secs:.3f}s, B1 launches {n[0]}", flush=True)
+    if not _only(n, B1=blocks * TOOLS_STEPS):
+        raise AssertionError(f"tools: inpaint launches {COUNTED} {n}, expected "
+                             f"B1 {blocks * TOOLS_STEPS}")
+    if tuple(out.shape) != (tex_size, tex_size, 3) or not bool(
+            torch.isfinite(out).all()) or float(out.min()) < 0 or float(out.max()) > 1:
+        raise AssertionError(f"tools: inpaint output {tuple(out.shape)} not a "
+                             f"finite image in [0, 1]")
+    if not torch.equal(out[keep], texture[keep]):
+        raise AssertionError("tools: inpaint changed a kept texel")
+
+    # FastTexture, upscale x2 at strength 0.3: t_start = 20 of 28
+    t_start = UPSCALE_STEPS - int(round(UPSCALE_STEPS * UPSCALE_STRENGTH))
+    runs = UPSCALE_STEPS - t_start
+    tokens_up = (2 * tex_size // (2 * pipe.vae_cfg.downscale)) ** 2 + TOOLS_TXT
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    before = _counts(attn)
+    t0 = time.perf_counter()
+    up = upscale_texture(pipe.transformer_params, cfg, pipe.vae_params,
+                         pipe.vae_cfg, gen, texture, scale=2,
+                         strength=UPSCALE_STRENGTH,
+                         num_inference_steps=UPSCALE_STEPS, device=dev)
+    n = launches_since(before)
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0
+    print(f"[tools] upscale {tex_size}² -> {2 * tex_size}² (strength "
+          f"{UPSCALE_STRENGTH}, {runs} of {UPSCALE_STEPS} steps, S = "
+          f"{tokens_up}, VAE untiled): {secs:.3f}s, peak "
+          f"{peak / 2**30:.2f} GiB, B1 launches {n[0]}", flush=True)
+    if not _only(n, B1=blocks * runs):
+        raise AssertionError(f"tools: upscale launches {COUNTED} {n}, expected "
+                             f"B1 {blocks * runs}")
+    if tuple(up.shape) != (2 * tex_size, 2 * tex_size, 3) or not bool(
+            torch.isfinite(up).all()):
+        raise AssertionError(f"tools: upscale output {tuple(up.shape)}")
+    if peak > PEAK_LIMIT:
+        raise AssertionError(f"tools: upscale peak {peak / 1e9:.1f} GB")
+    del out, up
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    before = _counts(attn)
+    intr = generate_intrinsics(49.1, 49.1, fov=True, degree=True, device=dev)
+    # a ring at height 0: its rotations are orthonormal (above or below it
+    # the generator's x axis is not unit, and the 6D pose parameters
+    # would start off the camera they describe)
+    c2ws = generate_orbit_views_c2ws(7, radius=2.8, height=0.0, device=dev)[:6]
+
+    def render_targets(tex, poses):
+        o = render_views(mesh, poses, intr, (view, view), perspective=True,
+                         map_attr=tex, render_uv=True, render_map_attr=True)
+        return o.map_attr * o.alpha + (1.0 - o.alpha)
+
+    # texture refinement: the job's texture seen from 6 views, from grey
+    targets = render_targets(atlas, c2ws)
+    sync()
+    t0 = time.perf_counter()
+    tex, losses = refine_texture(
+        mesh, c2ws, intr, targets, perspective=True,
+        cfg=TextureRefineConfig(texture_size=view, steps=refine_steps))
+    sync()
+    secs = time.perf_counter() - t0
+    first, last = float(losses[0]), float(losses[-1])
+    print(f"[tools] refine_texture 6 x {view}² views, {view}² texture, "
+          f"{refine_steps} steps: {secs / refine_steps * 1e3:.2f} ms a step, "
+          f"loss {first:.5f} -> {last:.5f}", flush=True)
+    if not (bool(torch.isfinite(losses).all()) and last < first
+            and bool(torch.isfinite(tex).all())):
+        raise AssertionError(f"tools: refine_texture loss {first} -> {last}")
+
+    # pose refinement: a smooth texture, targets from the true poses, the
+    # estimates turned by 0.05 rad about the vertical
+    u = torch.linspace(0, 1, view, device=dev)
+    gy, gx = torch.meshgrid(u, u, indexing="ij")
+    smooth = torch.stack([0.5 + 0.4 * torch.sin(6 * gx), 0.5 + 0.4 * torch.cos(5 * gy),
+                          0.5 + 0.4 * torch.sin(4 * (gx + gy))], -1)
+    targets = render_targets(smooth, c2ws)
+    a = 0.05
+    turn = torch.tensor([[math.cos(a), -math.sin(a), 0.0],
+                         [math.sin(a), math.cos(a), 0.0], [0.0, 0.0, 1.0]],
+                        device=dev)
+    start = c2ws.clone()
+    start[:, :3, :3] = turn @ c2ws[:, :3, :3]
+    sync()
+    t0 = time.perf_counter()
+    poses, losses = refine_poses(mesh, start, intr, targets, smooth,
+                                 perspective=True,
+                                 cfg=PoseRefineConfig(steps=pose_steps))
+    sync()
+    secs = time.perf_counter() - t0
+    err0, err1 = _rotation_error(torch, start, c2ws), _rotation_error(torch, poses, c2ws)
+    print(f"[tools] refine_poses 6 x {view}², {pose_steps} steps: "
+          f"{secs / pose_steps * 1e3:.2f} ms a step, loss {float(losses[0]):.5f}"
+          f" -> {float(losses[-1]):.5f}, rotation error {err0:.5f} -> "
+          f"{err1:.5f}", flush=True)
+    if not (bool(torch.isfinite(losses).all()) and err1 < err0):
+        raise AssertionError(f"tools: refine_poses rotation error {err0} -> {err1}")
+
+    # ray tracing against the rasterizer on the icosphere
+    sphere = make_icosphere(ico)
+    sv, sf = put(sphere.vertices, np.float32), put(sphere.faces, np.int64)
+    cam = generate_orbit_views_c2ws(1, radius=2.8, height=0.0, device=dev)
+    rays_o, rays_d = view_rays(torch, cam[0], intr, rt_size, rt_size)
+    sync()
+    t0 = time.perf_counter()
+    hits = ray_triangle_intersect(rays_o, rays_d, sv, sf)
+    sync()
+    secs = time.perf_counter() - t0
+    rast = render_views(Mesh(sv, sf), cam, intr, (rt_size, rt_size),
+                        perspective=True)
+    tri = rast.tri.reshape(-1)
+    both = hits.hit & (tri >= 0)
+    same = both & (hits.tri == tri)
+    either = hits.hit | (tri >= 0)
+    share = float(same.sum()) / max(float(both.sum()), 1.0)
+    print(f"[tools] ray_triangle_intersect {rt_size}² rays x {sf.shape[0]} "
+          f"faces: {secs:.3f}s; both hit {int(both.sum())} of "
+          f"{int(either.sum())} pixels hit by either, the same triangle on "
+          f"{share:.6f} of them ({int(both.sum() - same.sum())} differ)",
+          flush=True)
+    if share < 0.999 or float(both.sum()) < 0.99 * float(either.sum()):
+        raise AssertionError(f"tools: ray tracing agrees with the rasterizer "
+                             f"on {share} of the pixels both hit")
+
+    # visibility: points inside the sphere see it all round, outside not
+    d = torch.randn((2048, 3), generator=gen, device=dev)
+    d = d / torch.linalg.norm(d, dim=-1, keepdim=True)
+    pts = torch.cat([d[:1024] * 0.5, d[1024:] * 1.5])
+    sync()
+    t0 = time.perf_counter()
+    inner = self_rt(pts, sv, sf, n_rays=32, generator=gen)
+    sync()
+    t_self = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    views = sphere_rt_views(sv, sf, n_cameras=6)
+    sync()
+    t_views = time.perf_counter() - t0
+    print(f"[tools] self_rt 2048 points x 32 rays: {t_self:.3f}s, inner "
+          f"{int(inner[:1024].sum())}/1024 inside, {int(inner[1024:].sum())}"
+          f"/1024 outside; sphere_rt_views(6): {t_views:.4f}s, triangles "
+          f"{views.tolist()}", flush=True)
+    if not (bool(inner[:1024].all()) and not bool(inner[1024:].any())
+            and bool((views >= 0).all())):
+        raise AssertionError("tools: visibility")
+
+    # the renders of the GLB, a two-object scene and the turntable export
+    t0 = time.perf_counter()
+    for cams in ("v1", "v2"):
+        rgb = unified_rgb_render(glb, n_frames=frames, size=view, cameras=cams,
+                                 device=dev)
+        pbr = unified_pbr_render(glb, n_frames=frames, size=view, cameras=cams,
+                                 device=dev)
+        for k, x in [("rgb", rgb)] + [(f"pbr {k}", v) for k, v in pbr.items()]:
+            if x.shape != (frames, view, view, 3) or x.dtype != np.uint8:
+                raise AssertionError(f"tools: unified {cams} {k} {x.shape}")
+    sync()
+    t_unify = time.perf_counter() - t0
+    move = torch.eye(4, device=dev)
+    move[:3, :3] *= 0.4
+    move[:3, 3] = torch.tensor([0.0, 0.0, 1.2], device=dev)
+    ico3 = make_icosphere(3)
+    objects = [SceneObject(mesh, texture=atlas),
+               SceneObject(Mesh(put(ico3.vertices, np.float32),
+                                put(ico3.faces, np.int64)), transform=move)]
+    t0 = time.perf_counter()
+    scene = render_scene(objects, c2ws[:4], intr, (view, view))
+    sync()
+    t_scene = time.perf_counter() - t0
+    ids = set(torch.unique(scene["object_id"]).tolist())
+    if not (bool(torch.isfinite(scene["rgb"]).all()) and {0, 1} <= ids):
+        raise AssertionError(f"tools: scene object ids {ids}")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tools_") as tmp:
+        from PIL import Image
+
+        t0 = time.perf_counter()
+        grid = export_turntable(glb, os.path.join(tmp, "turntable.png"),
+                                n_frames=frames, size=view, device=dev)
+        t_grid = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sweep = export_turntable(glb, os.path.join(tmp, "sweep.gif"),
+                                 n_frames=9, size=view, height_sweep=True,
+                                 device=dev)
+        t_sweep = time.perf_counter() - t0
+        cols = int(math.ceil(math.sqrt(frames)))
+        rows = int(math.ceil(frames / cols))
+        with Image.open(grid) as im:
+            grid_size = im.size
+        with Image.open(sweep) as im:
+            sweep_frames = im.n_frames
+    print(f"[tools] renders: unified RGB + PBR, v1 and v2, {frames} x {view}² "
+          f"each {t_unify:.3f}s; scene of 2 objects x 4 views {t_scene:.3f}s "
+          f"(ids {sorted(ids)}); turntable grid {grid_size} {t_grid:.3f}s; "
+          f"height sweep GIF of {sweep_frames} frames {t_sweep:.3f}s", flush=True)
+    if grid_size != (cols * view, rows * view) or sweep_frames != 9:
+        raise AssertionError(f"tools: turntable {grid_size}, {sweep_frames} frames")
+    n = launches_since(before)
+    if n != NONE:
+        raise AssertionError(f"tools: launches {COUNTED} {n} outside FastTexture")
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "unitex_torch", "csrc")):
         return fail("run from a checkout of the repository (unitex_torch/ "
@@ -2479,8 +2812,9 @@ def main() -> int:
     if matting != NONE:
         return fail(f"launches {COUNTED} {matting} in the matting models")
 
+    tools_dir = tempfile.mkdtemp(prefix="chip_smoke_tools_")
     _reset(attn)
-    launches, pipe = run_main_path(attn, torch)
+    launches, pipe = run_main_path(attn, torch, keep_dir=tools_dir)
     torch.cuda.synchronize()
     serve = _counts(attn)
     if launches != serve[0] or not _only(serve, B1=-1):
@@ -2494,6 +2828,23 @@ def main() -> int:
     http = _counts(attn)
     if not _only(http, B1=-1):
         return fail(f"launches {COUNTED} {http} on the job server")
+    torch.cuda.empty_cache()
+
+    # phase 18: the texture tools on the resident FLUX trees and the
+    # icosphere job's GLB
+    _reset(attn)
+    t0 = time.perf_counter()
+    try:
+        run_texture_tools(attn, torch, pipe,
+                          os.path.join(tools_dir, "icosphere.glb"))
+    finally:
+        shutil.rmtree(tools_dir, ignore_errors=True)
+    torch.cuda.synchronize()
+    tools = _counts(attn)
+    print(f"[tools] phase 18 {time.perf_counter() - t0:.1f}s", flush=True)
+    if not _only(tools, B1=-1):
+        return fail(f"launches {COUNTED} {tools} in the texture tools")
+    gc.collect()
     torch.cuda.empty_cache()
 
     _reset(attn)
@@ -2612,10 +2963,10 @@ def main() -> int:
     if _counts(attn) != NONE:
         return fail(f"launches {COUNTED} {_counts(attn)} in the text encoders")
 
-    paths = ("matting", "serve", "http_serve", "train", "ltm", "cli",
-             "flux_launcher", "int8_serve", "sr_options", "tsdsr_train",
-             "oracle")
-    for rec, *n in zip(records, matting, serve, http, train, ltm, cli,
+    paths = ("matting", "serve", "http_serve", "texture_tools", "train",
+             "ltm", "cli", "flux_launcher", "int8_serve", "sr_options",
+             "tsdsr_train", "oracle")
+    for rec, *n in zip(records, matting, serve, http, tools, train, ltm, cli,
                        flux_launcher, int8, sr_options, tsdsr, oracle):
         rec["launches"] = sum(n)
         rec["launches_by_path"] = dict(zip(paths, n))

@@ -315,7 +315,8 @@ def test_run_flux_pipeline_matches_jax(flux_tree, vae_tree):
     jcfg = jpipe.FluxPipelineConfig(height=H, width=W, num_inference_steps=2,
                                     max_sequence_length=8)
     tcfg = tpipe.FluxPipelineConfig(**dataclasses.asdict(jcfg))
-    want = jpipe.run_flux_pipeline(
+    # one jitted program (eagerly its scan and each op compile apart)
+    want = jax.jit(jpipe.run_flux_pipeline, static_argnums=(1, 3, 5))(
         jax.tree.map(jnp.asarray, flux_tree), JFluxConfig.tiny(),
         jax.tree.map(jnp.asarray, vae_tree), jc, jax.random.key(0), jcfg,
         control_image=jnp.asarray(control), dual_image=jnp.asarray(dual),

@@ -52,6 +52,11 @@ def test_guard_sees_every_source():
     files = _sources()
     assert len(files) > 30
     assert os.path.join(REPO, "unitex_torch", "ops", "attention.py") in files
+    for module in ("texture/fast_texture.py", "texture/refine.py",
+                   "texture/pbr.py", "texture/envmap.py", "render/unify.py",
+                   "render/scene.py", "ops/raytrace.py", "ops/visibility.py",
+                   "geometry/topology.py", "camera/rotation.py"):
+        assert os.path.join(REPO, "unitex_torch", *module.split("/")) in files
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: os.path.relpath(p, REPO))
@@ -183,3 +188,28 @@ def test_ltm_trainer_text_encoders_and_samplers_default_to_cuda(tmp_path):
         train_ltm.main(["--tiny", "--out", str(tmp_path / "ltm.npz")])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_text_encoders(str(tmp_path))
+
+
+def test_texture_tools_default_to_cuda():
+    """FLUX img2img and inpainting, FastTexture, the unified renders, the
+    turntable export and the environment map's directions run on the card
+    unless asked for the CPU; without a card the inpainting raises."""
+    import inspect
+
+    from unitex_torch.models.flux.pipeline import run_flux_inpaint
+    from unitex_torch.render.unify import (
+        generate_cameras_v1, generate_cameras_v2, unified_pbr_render,
+        unified_rgb_render,
+    )
+    from unitex_torch.render.video import export_turntable
+    from unitex_torch.texture.envmap import equirect_dirs
+    from unitex_torch.texture.fast_texture import inpaint_texture, upscale_texture
+
+    for fn in (run_flux_inpaint, inpaint_texture, upscale_texture,
+               unified_rgb_render, unified_pbr_render, generate_cameras_v1,
+               generate_cameras_v2, export_turntable, equirect_dirs):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: nothing to refuse")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_flux_inpaint({}, None, {}, None, None, torch.zeros(16, 16, 3))

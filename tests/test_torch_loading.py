@@ -328,10 +328,13 @@ def test_denoise_with_reuse_matches_jax(monkeypatch):
     prompt = rng.normal(size=(1, 4, TINY.joint_attention_dim)).astype(np.float32)
     pooled = rng.normal(size=(1, TINY.pooled_projection_dim)).astype(np.float32)
     mask = tfpipe.make_reuse_mask(steps, reuse)
-    want = jfpipe.denoise(
-        jax.tree.map(jax.numpy.asarray, flux), TINY, noise, img_ids, txt_ids,
-        prompt, pooled, jsched.FlowMatchEulerScheduler.create(steps, S), 3.5,
-        condition_latents=cond, reuse_mask=jfpipe.make_reuse_mask(steps, reuse))
+    sched = jsched.FlowMatchEulerScheduler.create(steps, S)
+    jmask = jfpipe.make_reuse_mask(steps, reuse)
+    # one jitted program (eagerly the scan and each op compile apart)
+    want = jax.jit(lambda tree, x, c: jfpipe.denoise(
+        tree, TINY, x, img_ids, txt_ids, prompt, pooled, sched, 3.5,
+        condition_latents=c, reuse_mask=jmask))(
+        jax.tree.map(jax.numpy.asarray, flux), noise, cond)
     calls = []
 
     def counted(*args, **kwargs):

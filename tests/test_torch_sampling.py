@@ -106,9 +106,42 @@ def test_timeout_caps_the_main_thread_only():
     assert not th.is_alive() and box == ["off main"]
 
 
-def test_sample_pbr_mesh_is_refused():
-    with pytest.raises(NotImplementedError, match="texture/pbr.py"):
-        tsamp.sample_pbr_mesh(None)
+def test_sample_pbr_mesh_matches_jax(monkeypatch):
+    """All three attribute forms: an albedo map read through the UV
+    layer, a metallic vertex table and a roughness constant.  The samples
+    and their faces are the same arrays; the attributes within 1e-6.  The
+    JAX lookup runs jitted (eagerly it compiles each of its ops)."""
+    import unitex_tpu.geometry.mesh as jmesh
+    from unitex_tpu.geometry.mesh import PBRMesh as JPBRMesh
+    from unitex_torch.geometry.mesh import PBRMesh as TPBRMesh
+
+    monkeypatch.setattr(jmesh, "sample_pbr_attribute",
+                        jax.jit(jmesh.sample_pbr_attribute))
+
+    jm, _ = _meshes("icosphere")
+    rng = np.random.default_rng(4)
+    v = jm.vertices.astype(np.float32)
+    uv = np.stack([np.arctan2(v[:, 1], v[:, 0]) / (2 * np.pi) + 0.5,
+                   v[:, 2] * 0.5 + 0.5], axis=-1).astype(np.float32)
+    arrays = dict(vertices=v, faces=jm.faces.astype(np.int32), uv=uv,
+                  faces_uv=jm.faces.astype(np.int32),
+                  albedo=rng.uniform(0, 1, (16, 16, 3)).astype(np.float32),
+                  metallic=rng.uniform(0, 1, (len(v), 1)).astype(np.float32),
+                  roughness=np.asarray([0.4], np.float32))
+    want = jsamp.sample_pbr_mesh(
+        JPBRMesh(**{k: jax.numpy.asarray(a) for k, a in arrays.items()}),
+        n_samples=400, seed=3)
+    got = tsamp.sample_pbr_mesh(
+        TPBRMesh(**{k: torch.from_numpy(a.astype(np.int64) if k.startswith(
+            "faces") else a) for k, a in arrays.items()}), n_samples=400, seed=3)
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    assert sorted(got[2]) == sorted(want[2]) == ["albedo", "metallic",
+                                                 "roughness"]
+    for name, w in want[2].items():
+        assert tuple(got[2][name].shape) == w.shape
+        np.testing.assert_allclose(got[2][name].numpy(), np.asarray(w),
+                                   rtol=0, atol=1e-6)
 
 
 @pytest.fixture(scope="module")

@@ -246,11 +246,17 @@ def test_train_step_matches_jax(trees, accum):
     assert _max_rel(_leaves_np(state_t.lora), _leaves_np(jstate.lora)) <= PARAM_REL
 
 
-def test_synthetic_dataset_matches_jax():
+def test_synthetic_dataset_matches_jax(monkeypatch):
     """Two (target, control) samples at view 32.  Seed 11 draws two
     icospheres: the torus puts pixel centres of 32² views exactly on shared
     edges, where the two rasterizers break ties differently (see
-    tests/test_torch_render.py)."""
+    tests/test_torch_render.py).  The JAX dataset's geometry render runs
+    as one jitted program (eagerly it compiles each of its ops)."""
+    import unitex_tpu.render.conditioning as jcond
+
+    monkeypatch.setattr(jcond, "render_geometry_condition", jax.jit(
+        jcond.render_geometry_condition,
+        static_argnames=("view_size", "rows", "cols")))
     want = iter(jdata.SyntheticTextureDataset(view_size=32, seed=11))
     got = iter(tdata.SyntheticTextureDataset(view_size=32, seed=11, device="cpu"))
     for _ in range(2):

@@ -78,7 +78,8 @@ def generate_orbit_views_c2ws(
     with ``linspace``.  The angles are ``jnp.linspace``'s start·(1 − t) +
     stop·t in f32, with the product by 1/(n − 1) that XLA's CPU backend
     makes of its division, so a ring from 0 has the JAX package's angles
-    bit for bit."""
+    bit for bit.  One view sits at the start angle, as ``linspace``'s
+    single sample."""
     if degree:
         theta_0 = math.radians(theta_0)
     projected = math.sqrt(radius**2 - height**2)
@@ -87,7 +88,8 @@ def generate_orbit_views_c2ws(
     stop = torch.tensor(2.0 * math.pi + theta_0, **f32)
     inv = 1.0 / torch.tensor(num_views - 1, **f32)
     i = torch.arange(num_views - 1, **f32)
-    theta = torch.cat([start * (1 - i * inv) + (stop * inv) * i, stop[None]])
+    theta = torch.cat([start * (1 - i * inv) + (stop * inv) * i, stop[None]]) \
+        if num_views > 1 else start[None]
     xyz = torch.stack([
         projected * torch.cos(theta),
         projected * torch.sin(theta),

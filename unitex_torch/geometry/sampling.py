@@ -202,13 +202,30 @@ def sample_near_surface(
 
 
 def sample_pbr_mesh(pbr_mesh, n_samples: int = 100_000, seed: int = 666):
-    """Surface samples carrying interpolated PBR attributes: not ported.
-    It needs the PBR mesh of ``texture/pbr.py`` and
-    ``geometry/mesh.sample_pbr_attribute``, which come with the texturing
-    tools (ROADMAP Queue A, A17a)."""
-    raise NotImplementedError(
-        "sample_pbr_mesh is not ported: it needs texture/pbr.py and "
-        "geometry/mesh.sample_pbr_attribute (ROADMAP A17a)")
+    """Surface samples carrying interpolated PBR attributes (the LTM data
+    path's ``sample_pbr_mesh``).  ``pbr_mesh`` is a
+    :class:`~.mesh.PBRMesh` of tensors; the samples are drawn on the host
+    and each non-None attribute (a map, a vertex table or a constant) is
+    read on the mesh's device through :func:`~.mesh.sample_pbr_attribute`.
+    Returns (samples [N, 3], face_index [N], {attr: [N, C]})."""
+    import torch
+
+    from .mesh import sample_pbr_attribute
+
+    host = HostMesh(
+        vertices=pbr_mesh.vertices.detach().cpu().numpy().astype(np.float32),
+        faces=pbr_mesh.faces.detach().cpu().numpy().astype(np.int64),
+    )
+    pts, face_idx, uvw = sample_surface_with_faces(host, n_samples, seed=seed)
+    dev = pbr_mesh.vertices.device
+    fi = torch.from_numpy(face_idx).to(dev)
+    bary = torch.from_numpy(np.asarray(uvw, np.float32)).to(dev)
+    face_attr = {}
+    for name in ("albedo", "metallic", "roughness", "bump"):
+        attr = getattr(pbr_mesh, name, None)
+        if attr is not None:
+            face_attr[name] = sample_pbr_attribute(pbr_mesh, attr, fi, bary)
+    return pts, face_idx, face_attr
 
 
 def fps(points: np.ndarray, k: int, start: int = 0) -> np.ndarray:

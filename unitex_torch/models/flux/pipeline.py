@@ -11,8 +11,10 @@ CLIP-pooled embeddings).  ``velocity_reuse`` > 0 serves that many steps by
 extrapolating the velocity instead of calling the transformer
 (:func:`make_reuse_mask`).
 
-Deferred: ``denoise``'s ``t_start``, inpainting and ``forward_fn``, and the
-inpaint / img2img entry point.
+:func:`run_flux_inpaint` is FLUX img2img and inpainting (diffusers'
+FluxInpaintPipeline semantics): the image is encoded, noised to the
+schedule's ``t_start`` and denoised over the trailing steps, the kept
+region re-pinned after every step.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ...utils.precision import resolve_device
 from .config import FluxConfig
@@ -86,27 +89,48 @@ def denoise(
     scheduler: FlowMatchEulerScheduler,
     guidance_scale: float,
     condition_latents: Optional[torch.Tensor] = None,
+    t_start: int = 0,
+    known_tokens: Optional[torch.Tensor] = None,
+    inpaint_mask: Optional[torch.Tensor] = None,
+    fixed_noise: Optional[torch.Tensor] = None,
     reuse_mask: Optional[np.ndarray] = None,
+    forward_fn=None,
 ) -> torch.Tensor:
     """Flow-match Euler denoise loop over the packed sequence.
     noise [B, S_noise, C]; condition_latents [B, S_cond, C] appended and
     re-pinned every step.  Returns the denoised noise tokens.
+
+    ``t_start`` > 0 runs only steps ``t_start … num_steps-1`` (img2img:
+    the caller noises its input to sigma[t_start]).  ``known_tokens``
+    [B, S_noise, C] with ``fixed_noise`` inpaints: after every Euler step
+    the kept tokens are re-pinned to the clean tokens noised to the next
+    sigma, where ``inpaint_mask`` [S_noise, 1] is False (True = generate),
+    or everywhere without a mask.
 
     ``reuse_mask`` [num_steps] (host bool, :func:`make_reuse_mask`): on a
     masked step the transformer is not called; the velocity is
     extrapolated linearly in sigma from the last two steps' velocities,
     v = v₁ + (σᵢ − σᵢ₋₁)/(σᵢ₋₁ − σᵢ₋₂)·(v₁ − v₂), in the latents' dtype.
     The JAX package's ``lax.cond`` is a host ``if`` here, so a masked
-    step launches nothing but that sum."""
+    step launches nothing but that sum.  With ``t_start`` > 0 the first
+    two executed steps are never masked (the extrapolation needs two
+    velocities).
+
+    ``forward_fn`` replaces :func:`~.model.flux_forward` by a velocity
+    model with its call signature."""
+    fwd = flux_forward if forward_fn is None else forward_fn
     B, S_noise, C = noise.shape
     guidance = (
         torch.full((B,), guidance_scale, dtype=torch.float32, device=noise.device)
         if flux_cfg.guidance_embeds else None
     )
+    if reuse_mask is not None and t_start > 0:
+        reuse_mask = np.array(reuse_mask, bool)
+        reuse_mask[t_start:t_start + 2] = False
     sig = scheduler.sigmas
     latents = noise
     v1 = v2 = None  # the velocities of the last two steps
-    for i in range(scheduler.num_steps):
+    for i in range(t_start, scheduler.num_steps):
         if condition_latents is not None:
             latents = torch.cat([latents[:, :S_noise], condition_latents], dim=1)
         if reuse_mask is not None and reuse_mask[i]:
@@ -114,11 +138,17 @@ def denoise(
             v = (v1 + r * (v1 - v2)).to(latents.dtype)
         else:
             timestep = (scheduler.timesteps[i] / 1000.0).expand(B)
-            v = flux_forward(
+            v = fwd(
                 transformer_params, flux_cfg, latents, prompt_embeds, timestep,
                 pooled_embeds, img_ids, txt_ids, guidance=guidance,
             )
         latents = scheduler.step(v, i, latents)
+        if known_tokens is not None:
+            pinned = scheduler.scale_noise(known_tokens, i + 1, fixed_noise)
+            gen = latents[:, :S_noise]
+            repin = (torch.where(inpaint_mask, gen, pinned)
+                     if inpaint_mask is not None else pinned)
+            latents = torch.cat([repin, latents[:, S_noise:]], dim=1)
         v1, v2 = v, v1
     return latents[:, :S_noise]
 
@@ -236,6 +266,84 @@ def run_flux_pipeline(
     latents = unpack_latents(out_tokens, HL, WL)
     image = vae_decode(vae_params, vae_cfg, latents)[0]
     return torch.clamp(image * 0.5 + 0.5, 0.0, 1.0)
+
+
+@torch.no_grad()
+def run_flux_inpaint(
+    transformer_params,
+    flux_cfg: FluxConfig,
+    vae_params,
+    vae_cfg: VAEConfig,
+    generator: Optional[torch.Generator],
+    image: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+    strength: float = 1.0,
+    num_inference_steps: int = 28,
+    guidance_scale: float = 3.5,
+    max_sequence_length: int = 512,
+    prompt_embeds: Optional[torch.Tensor] = None,
+    pooled_embeds: Optional[torch.Tensor] = None,
+    noise=None,
+    device="cuda",
+) -> torch.Tensor:
+    """FLUX img2img / inpainting on ``device``: encode ``image`` [H, W, 3]
+    in [0, 1], noise it to sigma[t_start] with t_start = steps −
+    round(steps · strength), run the trailing Euler steps and re-pin the
+    region where ``mask`` is 0 after every step.  ``mask`` [H, W] (or
+    [H, W, 1]): 1 = regenerate, 0 = keep; a token is regenerated when any
+    of its pixels is.  ``mask=None`` is plain img2img.  ``noise`` [HL, WL,
+    C] or [1, HL, WL, C] overrides the draw from ``generator``.  Returns
+    [H, W, 3] in [0, 1]."""
+    dev = resolve_device(device)
+    image = torch.as_tensor(image, dtype=torch.float32).to(dev)
+    H, W = int(image.shape[0]), int(image.shape[1])
+    vs = vae_cfg.downscale
+    HL, WL = 2 * (H // (vs * 2)), 2 * (W // (vs * 2))
+    B = 1
+    x0_tokens = pack_latents(vae_encode(vae_params, vae_cfg,
+                                        image[None] * 2.0 - 1.0))
+    S = x0_tokens.shape[1]
+    if noise is None:
+        noise = torch.randn((B, HL, WL, vae_cfg.latent_channels),
+                            generator=generator, dtype=torch.float32, device=dev)
+    noise_tokens = pack_latents(_as_nhwc4(noise, dev))
+
+    token_mask = None
+    if mask is not None:
+        m = torch.as_tensor(mask, dtype=torch.float32).to(dev).reshape(1, 1, H, W)
+        # any regenerated pixel regenerates its token: a max-pool over each
+        # token's 2·downscale square, in the tokens' row-major order
+        m = F.max_pool2d(m, 2 * vs, stride=2 * vs)
+        token_mask = m.reshape(-1, 1) > 0.5
+
+    scheduler = FlowMatchEulerScheduler.create(num_inference_steps, S,
+                                               device=dev)
+    # Python's round (half to even), as in the JAX package
+    t_start = min(num_inference_steps,
+                  num_inference_steps - int(round(num_inference_steps * strength)))
+    latents0 = scheduler.scale_noise(x0_tokens, t_start, noise_tokens)
+
+    img_ids = latent_image_ids(HL // 2, WL // 2, device=dev)
+    if prompt_embeds is None:
+        prompt_embeds = torch.zeros(
+            (B, max_sequence_length, flux_cfg.joint_attention_dim),
+            dtype=torch.float32, device=dev)
+    if pooled_embeds is None:
+        pooled_embeds = torch.zeros((B, flux_cfg.pooled_projection_dim),
+                                    dtype=torch.float32, device=dev)
+    txt_ids = torch.zeros((prompt_embeds.shape[1], 3), dtype=torch.float32,
+                          device=dev)
+    out_tokens = denoise(
+        transformer_params, flux_cfg, latents0, img_ids, txt_ids,
+        prompt_embeds, pooled_embeds, scheduler, guidance_scale,
+        t_start=t_start,
+        known_tokens=x0_tokens if mask is not None else None,
+        inpaint_mask=token_mask,
+        fixed_noise=noise_tokens if mask is not None else None,
+    )
+    latents = unpack_latents(out_tokens, HL, WL)
+    out = vae_decode(vae_params, vae_cfg, latents)[0]
+    return torch.clamp(out * 0.5 + 0.5, 0.0, 1.0)
 
 
 def torch_reference_rng(

@@ -1,6 +1,7 @@
-"""Turntable video export (port of ``render_orbit_frames`` and
-``export_orbit_video`` of unitex_tpu/render/video.py): a 120-frame orbit
-at 1024², perspective fov 49.1°, radius 2.8, textured render, 15 fps.
+"""Turntable video export (port of unitex_tpu/render/video.py): a
+120-frame orbit at 1024², perspective fov 49.1°, radius 2.8, textured
+render, 15 fps; and the texture-check export :func:`export_turntable`,
+an orbit or a three-height sweep written as a video or a frame grid.
 
 Frames render on the mesh's device in batches, are composited on the
 background there and quantized to uint8 before the copy to the host.  The
@@ -10,6 +11,7 @@ a GIF (written with PIL), as the JAX package falls back to a GIF.
 
 from __future__ import annotations
 
+import math
 import os
 from typing import Optional
 
@@ -69,6 +71,44 @@ def render_orbit_frames(
     return torch.cat(frames).numpy()
 
 
+def render_height_sweep_frames(
+    mesh: Mesh,
+    texture: Optional[torch.Tensor],
+    n_frames: int = 9,
+    size: int = 512,
+    radius: float = 2.8,
+    video_type: str = "rgb",
+) -> np.ndarray:
+    """Three stacked orbits at heights r·cos 90°, r·cos 60° and r·cos 30°,
+    ``n_frames // 3`` frames each."""
+    per = n_frames // 3
+    return np.concatenate([
+        render_orbit_frames(mesh, texture, n_frames=per, size=size,
+                            radius=radius,
+                            height=radius * math.cos(math.radians(deg)),
+                            video_type=video_type)
+        for deg in (90.0, 60.0, 30.0)
+    ], axis=0)
+
+
+def _load_device_mesh(mesh_path: str, dev):
+    """A mesh file on ``dev``: (Mesh, its texture [H, W, 3] in [0, 1] or
+    None)."""
+    host = load_mesh(mesh_path)
+    tex = None
+    if host.texture is not None:
+        tex = torch.from_numpy(np.array(host.texture[..., :3])).to(
+            dev).float() / 255.0
+
+    def put(x, dtype):
+        return None if x is None else torch.from_numpy(
+            np.ascontiguousarray(x, dtype)).to(dev)
+
+    mesh = Mesh(put(host.vertices, np.float32), put(host.faces, np.int64),
+                uv=put(host.uv, np.float32), faces_uv=put(host.faces_uv, np.int64))
+    return mesh, tex
+
+
 def export_orbit_video(
     mesh_path: str,
     out_path: str,
@@ -84,19 +124,7 @@ def export_orbit_video(
     """Render the orbit of a mesh file (its texture, if it has one) on
     ``device`` and write it to ``out_path``; returns the path written,
     which ends in ``.gif`` where no mp4 writer imports."""
-    dev = resolve_device(device)
-    host = load_mesh(mesh_path)
-    tex = None
-    if host.texture is not None:
-        tex = torch.from_numpy(np.array(host.texture[..., :3])).to(
-            dev).float() / 255.0
-
-    def put(x, dtype):
-        return None if x is None else torch.from_numpy(
-            np.ascontiguousarray(x, dtype)).to(dev)
-
-    mesh = Mesh(put(host.vertices, np.float32), put(host.faces, np.int64),
-                uv=put(host.uv, np.float32), faces_uv=put(host.faces_uv, np.int64))
+    mesh, tex = _load_device_mesh(mesh_path, resolve_device(device))
     with CPUTimer("orbit_render"):
         frames = render_orbit_frames(
             mesh, tex, n_frames=n_frames, size=size, radius=radius,
@@ -132,3 +160,50 @@ def _write_video(out_path: str, frames: np.ndarray, fps: int) -> str:
         return out_path
     imageio.mimwrite(out_path, list(frames), fps=fps, quality=8)
     return out_path
+
+
+def export_turntable(
+    mesh_path: str,
+    save_path: str,
+    n_frames: int = 8,
+    size: int = 512,
+    fps: int = 15,
+    video_type: str = "rgb",
+    height_sweep: bool = False,
+    device="cuda",
+) -> str:
+    """Texture-check export, rendered on ``device``: the extension decides
+    the output (.mp4 / .gif a video, .png / .jpg / .webp a near-square
+    grid of the frames, padded with white); ``height_sweep`` renders the
+    three-height orbit stack instead of one orbit.  The videos go through
+    :func:`_write_video` (a GIF where no mp4 writer imports).  Returns the
+    path written."""
+    ext = os.path.splitext(save_path)[1].lower()
+    if ext not in (".png", ".jpg", ".webp", ".mp4", ".gif"):
+        raise ValueError(f"unknown turntable format {ext!r}")
+    if ext in (".mp4", ".gif") and not height_sweep:
+        return export_orbit_video(mesh_path, save_path, n_frames=n_frames,
+                                  size=size, fps=fps, video_type=video_type,
+                                  device=device)
+    mesh, tex = _load_device_mesh(mesh_path, resolve_device(device))
+    if height_sweep:
+        frames = render_height_sweep_frames(mesh, tex, n_frames=n_frames,
+                                            size=size, video_type=video_type)
+        n_frames = frames.shape[0]
+    else:
+        frames = render_orbit_frames(mesh, tex, n_frames=n_frames, size=size,
+                                     video_type=video_type)
+    if ext in (".mp4", ".gif"):
+        return _write_video(save_path, frames, fps)
+    cols = int(np.ceil(np.sqrt(n_frames)))
+    rows = int(np.ceil(n_frames / cols))
+    pad = rows * cols - n_frames
+    if pad:
+        frames = np.concatenate(
+            [frames, np.full((pad,) + frames.shape[1:], 255, np.uint8)])
+    grid = (frames.reshape(rows, cols, size, size, 3).transpose(0, 2, 1, 3, 4)
+            .reshape(rows * size, cols * size, 3))
+    from PIL import Image
+
+    Image.fromarray(grid).save(save_path)
+    return save_path

@@ -326,10 +326,12 @@ class ClippedAdamW:
     of f32 tensors, updating the parameters in place.
 
     AdamW: bias-corrected moments, ``m̂ / (√v̂ + eps)``, plus the decoupled
-    weight decay of the old parameter, times −lr(count)."""
+    weight decay of the old parameter, times −lr(count).  With
+    ``max_grad_norm=None`` and ``weight_decay=0`` it is ``optax.adam``."""
 
     def __init__(self, lr: Callable[[int], float], b1: float, b2: float,
-                 eps: float, weight_decay: float, max_grad_norm: float):
+                 eps: float, weight_decay: float,
+                 max_grad_norm: Optional[float]):
         self.lr, self.b1, self.b2, self.eps = lr, b1, b2, eps
         self.weight_decay, self.max_grad_norm = weight_decay, max_grad_norm
 
@@ -340,7 +342,9 @@ class ClippedAdamW:
     @torch.no_grad()
     def step(self, params, grads, state: Dict[str, Any]) -> None:
         """One update of ``params`` (and ``state``) in place from ``grads``."""
-        g_leaves = _clipped(_leaves(grads), self.max_grad_norm)
+        g_leaves = _leaves(grads)
+        if self.max_grad_norm is not None:
+            g_leaves = _clipped(g_leaves, self.max_grad_norm)
         count = state["count"]
         # the bias corrections and the step size are f32 numbers, as optax
         # computes them; each is exact as a Python float
