@@ -13,8 +13,8 @@ non-zero:
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes the paths give it (q/k/v/dO [1, S, 24, 128] bf16 at
    S = 13824 and 12800, plus a ragged S = 1000; B1 also at FastTexture's
-   S = 4608 and 16896, its plain version a head at a time, as at every
-   S), with its time, the plain
+   S = 4608 and 16896 and at a Redux job's S = 14041, its plain version a
+   head at a time, as at every S), with its time, the plain
    version's, one PyTorch library call's (a yardstick only) and the
    bound: flash attention B1 held to max|dout| <= min(2e-2, 2 % of
    max|ref|) and max|dlse| <= 1e-3, its line also giving the share of its
@@ -84,6 +84,32 @@ non-zero:
    object ids seen) and ``export_turntable`` to a PNG grid (3 x 3 of 512²)
    and a height-sweep GIF (9 frames); no attention launch outside
    FastTexture;
+19. Redux and the field tools (after phase 18, on the same trees and the
+   icosphere job's GLB, reference image and cache): SigLIP so400m (27
+   layers of 16 heads of 72, 384², f32) from a seeded tree on the job's
+   reference image (729 tokens of 1152, finite, seconds and peak, no
+   attention launch: its S = 729 takes the plain attention), a depth-2
+   copy on the card against the CPU (within ``SIGLIP_TOL`` of the largest
+   CPU value); the tree under HF names with a 16-head ``config.json`` in
+   ``<tmp>/siglip`` and a seeded Redux projection in ``<tmp>/flux/redux``,
+   read back by ``ReduxConditioner`` on the card leaf for leaf, its own
+   tower taken; the Redux job: the texture pass (adapters merged as the
+   pipeline merges them) on the job's control strip and dual image with
+   the [1, 729, 4096] Redux tokens as ``prompt_embeds``, 4 steps: exactly
+   4 x 57 = 228 launches of B1, each at S = 14041, a finite strip in
+   [0, 1]; then, each against the CPU on the card: ``knn`` with k = 16
+   over 65536 x 65536 points (2048 queries on the CPU, the same indices
+   where the distances are not tied within 1 ulp), ``query_ball`` (cap
+   32), ``grid_sample_3d``, ``triplane_query`` and
+   ``splat_points_to_grid`` (R = 128) within ``FIELD_TOL``; a field
+   evaluated on the card at 128³ exported as an isosurface GLB and read
+   back; ``uv_dilation`` and ``disk_blur`` on the job's 2048² texture;
+   ``get_visible_faces`` on the six condition views; the mesh viewer over
+   local HTTP on the card (a 512² PNG of each mode, ms a frame, 400 for a
+   bad mode); ``roundtrip_oracle`` with its defaults beside ORACLE_r05's
+   sphere, ``compare_golden`` of the job's cache against itself (the 120
+   dB cap, SSIM 1), ``check_meshes`` and ``merge_reports`` over the
+   phase's GLBs; the phase's wall as ``[redux] phase 19``;
 5. training path: three FLUX.1-dev LoRA ``train_step``s (rank 16, remat,
    constant lr 1e-4) on the serving pipeline's resident base tree, each on
    one ``SyntheticTextureDataset(view_size=512)`` batch built by the
@@ -206,9 +232,12 @@ result.
 
 from __future__ import annotations
 
+import contextlib
+import csv
 import dataclasses
 import gc
 import glob
+import io
 import json
 import math
 import os
@@ -228,8 +257,11 @@ PEAK_BYTES = 3.35e12           # H100 SXM HBM3 bandwidth
 SFU_EXP_RATE = 132 * 16 * 1.98e9
 ATTN_SHAPES = (13824, 12800, 1000)
 # B1 also at FastTexture's S: the inpaint at 1024² and the upscale to
-# 2048² (image tokens + 512 prompt tokens)
-B1_SHAPES = ATTN_SHAPES + (4608, 16896)
+# 2048² (image tokens + 512 prompt tokens), and at a Redux job's: 6144
+# noise + 6144 control + 1024 dual + 729 image-prompt tokens, the first
+# length that is no multiple of 64 (109 full key tiles of 128 and one of 89)
+REDUX_S = 6144 + 6144 + 1024 + 729
+B1_SHAPES = ATTN_SHAPES + (4608, 16896, REDUX_S)
 # B1 against its f32 plain version on unit-normal bf16 inputs.  The output
 # is held to 2 % of the largest reference value and never more than 2e-2:
 # the bf16 rounding of out and of P alone stays below 2**-8 of it, while a
@@ -320,12 +352,14 @@ def cuda_ms(fn, iters: int) -> float:
 def check_flash_attention(attn, torch, ptxas: str):
     """B1 against ``attention_reference`` (f32 on the same bf16 inputs);
     ``ptxas`` is its kernel's register and spill report, printed beside
-    each time.  Returns B1's record and its ms at each S."""
+    each time.  Returns B1's record (at S = 13824, its error the largest
+    over every S), its ms at each S, and its record at the Redux job's
+    ``REDUX_S``."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     B, H, D = 1, 24, 128
-    record = None
+    record = redux = None
     worst = 0.0
     ms_at = {}
     for S in B1_SHAPES:
@@ -369,19 +403,23 @@ def check_flash_attention(attn, torch, ptxas: str):
               f"bound, {ms / lib_ms:.3f}x the library's time) max|dout|="
               f"{err_o:.3e} (tol {out_tol:.3e}, max|ref|={ref_max:.3e}) "
               f"max|dlse|={err_l:.3e}; ptxas: {ptxas}", flush=True)
+        rec = {
+            "name": "flash_attn_fwd", "route": "cuda",
+            "source": "unitex_torch/csrc/flash_attn_fwd.cu",
+            "replaces": "unitex_tpu/ops/attention.py:49",
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "operations" if flops / PEAK_BF16_FLOPS
+            >= nbytes / PEAK_BYTES else "bytes",
+            "library_ms": lib_ms,
+        }
         if S == ATTN_SHAPES[0]:
-            record = {
-                "name": "flash_attn_fwd", "route": "cuda",
-                "source": "unitex_torch/csrc/flash_attn_fwd.cu",
-                "replaces": "unitex_tpu/ops/attention.py:49",
-                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                "bound_by": "operations" if flops / PEAK_BF16_FLOPS
-                >= nbytes / PEAK_BYTES else "bytes",
-                "library_ms": lib_ms,
-            }
+            record = rec
+        elif S == REDUX_S:
+            redux = dict(rec, name=f"flash_attn_fwd (S={S}, Redux)",
+                         max_abs_err=err_o)
         del q, k, v, out, lse
     record["max_abs_err"] = worst
-    return record, ms_at
+    return record, ms_at, redux
 
 
 def check_flash_attention_d64(attn, torch, ptxas: str) -> dict:
@@ -800,8 +838,9 @@ def make_assets(d: str):
 
 def run_main_path(attn, torch, keep_dir=None):
     """The serving path; returns (B1 launches, the pipeline).  With
-    ``keep_dir`` the icosphere job's GLB is copied there as
-    ``icosphere.glb``."""
+    ``keep_dir`` the icosphere job's GLB, reference image and cache are
+    copied there as ``icosphere.glb``, ``icosphere.png`` and
+    ``icosphere_cache/``."""
     from unitex_torch.config import DEFAULT_CONFIG
     from unitex_torch.pipeline import CustomRGBTextureFullPipeline
     from unitex_torch.utils.timer import CPUTimer
@@ -852,6 +891,9 @@ def run_main_path(attn, torch, keep_dir=None):
                 raise AssertionError(f"job {name}: no GLB at {glb}")
             if keep_dir is not None and name == "icosphere":
                 shutil.copy(glb, os.path.join(keep_dir, "icosphere.glb"))
+                shutil.copy(img_path, os.path.join(keep_dir, "icosphere.png"))
+                shutil.copytree(os.path.join(out_dir, "cache"),
+                                os.path.join(keep_dir, "icosphere_cache"))
             if tuple(tex.shape) != (2048, 2048, 3) or not bool(
                     torch.isfinite(tex).all()):
                 raise AssertionError(
@@ -2751,6 +2793,486 @@ def run_texture_tools(attn, torch, pipe, glb: str, device: str = "cuda",
         raise AssertionError(f"tools: launches {COUNTED} {n} outside FastTexture")
 
 
+
+# phase 19: Redux and the field tools, on the serving phase's resident FLUX
+# trees and the icosphere job's GLB, reference image and cache
+SIGLIP_TOL = 1e-4    # the depth-2 tower, the card against the CPU, of max|ref|
+SEARCH_N = 65536     # queries and references of the k = 16 search
+SEARCH_CPU = 2048    # of them held against the CPU
+FIELD_TOL = 1e-5     # volume queries and blurs, the card against the CPU, of max|ref|
+DILATE_ITERS = 8     # uv_dilation passes held against the CPU
+ORACLE_GAP_DB = 1.0  # the round trip against ORACLE_r05.json, else explained
+
+
+def siglip_state_dict(params) -> dict:
+    """The HF ``SiglipVisionModel`` state dict (``vision_model.*``) of a
+    SigLIP tree, the inverse of ``models/siglip.convert_siglip_vision``:
+    linear kernels -> ``.weight`` [d_out, d_in], the HWIO patch conv ->
+    OIHW, stacked blocks -> one entry a layer (views of the tree)."""
+    names = {"ln1": "layer_norm1", "q": "self_attn.q_proj",
+             "k": "self_attn.k_proj", "v": "self_attn.v_proj",
+             "out": "self_attn.out_proj", "ln2": "layer_norm2",
+             "fc1": "mlp.fc1", "fc2": "mlp.fc2"}
+    pe = params["patch_embedding"]
+    sd = {"vision_model.embeddings.patch_embedding.weight": pe["w"].permute(3, 2, 0, 1),
+          "vision_model.embeddings.patch_embedding.bias": pe["b"],
+          "vision_model.embeddings.position_embedding.weight":
+              params["position_embedding"],
+          "vision_model.post_layernorm.weight": params["post_layernorm"]["weight"],
+          "vision_model.post_layernorm.bias": params["post_layernorm"]["bias"]}
+    for path, leaf in _named_leaves(params["blocks"]):
+        block, field = path.strip("/").split("/")
+        if field == "kernel":
+            leaf = leaf.transpose(-1, -2)
+        for i in range(leaf.shape[0]):
+            sd[f"vision_model.encoder.layers.{i}.{names[block]}."
+               f"{'bias' if field == 'bias' else 'weight'}"] = leaf[i]
+    return sd
+
+
+def _rel(a, b) -> float:
+    """max|a - b| over max|b| (b the reference)."""
+    return float((a.float() - b.float()).abs().max()) / max(
+        float(b.float().abs().max()), 1e-30)
+
+
+def _search_agrees(torch, d_dev, i_dev, d_ref, i_ref) -> float:
+    """The share of (query, slot) pairs whose index matches the CPU's, a
+    mismatch forgiven where the CPU's squared distance there is tied,
+    within 1 ulp, with a neighbouring slot's or with the card's."""
+    d2, r2 = d_dev.double() ** 2, d_ref.double() ** 2
+    ulp = 2.0 ** -23 * torch.clamp(r2, min=1e-30)
+    tied = (r2 - d2).abs() <= 2 * ulp
+    near = torch.zeros_like(tied)
+    near[:, 1:] |= (r2[:, 1:] - r2[:, :-1]).abs() <= 2 * ulp[:, 1:]
+    near[:, :-1] |= (r2[:, 1:] - r2[:, :-1]).abs() <= 2 * ulp[:, :-1]
+    ok = (i_dev == i_ref) | (tied & near)
+    return float(ok.double().mean())
+
+
+def run_redux_tools(attn, torch, pipe, keep: str, device: str = "cuda",
+                    siglip_cfg=None, steps: int = STEPS,
+                    search_n: int = SEARCH_N, search_cpu: int = SEARCH_CPU,
+                    grid: int = 128, frame: int = 512, oracle=()) -> None:
+    """Phase 19: the Redux image prompt and the field, search and viewer
+    tools on the resident FLUX trees of ``pipe`` and the icosphere job's
+    files in ``keep`` (``icosphere.glb``, ``icosphere.png``, its
+    ``icosphere_cache/``).  SigLIP (``siglip_cfg``, so400m by default)
+    from a seeded tree: its forward on the job's reference image (729
+    tokens of 1152, finite, no attention kernel), its depth-2 copy on the
+    card against the CPU; the tree and a seeded Redux projection written
+    under HF names to ``<tmp>/siglip`` and ``<tmp>/flux/redux`` and read
+    back by ``ReduxConditioner`` on the card (leaf for leaf, the port's
+    own tower); then the Redux job: the texture pass of ``pipe`` (its
+    adapters merged as the pipeline merges them) on the job's control
+    strip and dual image with the Redux tokens as ``prompt_embeds``,
+    ``steps`` steps, exactly 57 launches of B1 a step, each at the job's S
+    (``REDUX_S`` at full size), a finite strip in [0, 1].  Then on the
+    card, each against the CPU: ``knn`` (k = 16) and ``query_ball`` (cap
+    32) over ``search_n`` points (``search_cpu`` queries on the CPU),
+    ``grid_sample_3d``, ``triplane_query``, ``splat_points_to_grid`` (R =
+    ``grid``), ``uv_dilation`` (``DILATE_ITERS`` passes; until full on the
+    card alone) and ``disk_blur`` on the job's texture, the isosurface of
+    a field evaluated on the card at ``grid``³ exported to a GLB and read
+    back, ``get_visible_faces`` on the six condition views; the viewer
+    over local HTTP (a ``frame``² PNG of each mode, 400 for a bad mode);
+    ``roundtrip_oracle`` (``oracle``: its arguments, the defaults at full
+    size) beside ORACLE_r05.json's sphere, ``compare_golden`` of the job's
+    cache against itself, ``check_meshes`` and ``merge_reports`` over the
+    phase's GLBs.  No attention launch outside the Redux job."""
+    import threading
+    import urllib.error
+    import urllib.request
+
+    import numpy as np
+    from PIL import Image
+    from safetensors.torch import save_file
+
+    from unitex_torch.geometry.io.mesh_io import load_mesh
+    from unitex_torch.geometry.mesh import Mesh
+    from unitex_torch.models.flux.lora import merge_lora
+    from unitex_torch.models.flux.pipeline import FluxPipelineConfig, run_flux_pipeline
+    from unitex_torch.models.flux.redux import ReduxConditioner, init_redux_params
+    from unitex_torch.models.siglip import (
+        SiglipVisionConfig, init_siglip_params, preprocess_siglip, siglip_forward,
+    )
+    from unitex_torch.ops.image_ops import disk_blur, uv_dilation
+    from unitex_torch.ops.knn import knn, query_ball
+    from unitex_torch.render.conditioning import condition_cameras, grid_to_strip
+    from unitex_torch.render.field_vis import create_grid, export_isosurface
+    from unitex_torch.render.renderer import get_visible_faces, get_visible_vertices
+    from unitex_torch.render.renderer_inverse import uv_render
+    from unitex_torch.render.viewer import MODES, serve
+    from unitex_torch.render.volume import (
+        grid_sample_3d, splat_points_to_grid, triplane_query,
+    )
+    from unitex_torch.scripts import (
+        check_meshes, compare_golden, merge_reports, roundtrip_oracle,
+    )
+    from unitex_torch.utils.image_io import load_image
+    from unitex_torch.utils.params import tree_to
+
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    cfg = siglip_cfg or SiglipVisionConfig.so400m_384()
+    gen = torch.Generator(device=dev).manual_seed(19)
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def peak():
+        return torch.cuda.max_memory_allocated() / 2**30 if cuda else 0.0
+
+    def launches_since(before):
+        sync()
+        return tuple(a - b for a, b in zip(_counts(attn), before))
+
+    def timed(fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return out, time.perf_counter() - t0
+
+    glb = os.path.join(keep, "icosphere.glb")
+    cache = os.path.join(keep, "icosphere_cache")
+    image = Image.open(os.path.join(keep, "icosphere.png")).convert("RGB")
+    before = _counts(attn)
+
+    # SigLIP at full width from the seeded tree
+    tree = init_siglip_params(gen, cfg, device=dev)
+    n_params = sum(t.numel() for _, t in _named_leaves(tree))
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    feats, secs = timed(lambda: siglip_forward(tree, cfg,
+                                               preprocess_siglip(image, cfg, dev)))
+    n = launches_since(before)
+    print(f"[redux] siglip {n_params} parameters ({cfg.num_layers} layers of "
+          f"{cfg.num_heads} heads of {cfg.hidden_size // cfg.num_heads}, "
+          f"{cfg.image_size}² input): forward {secs:.3f}s, peak {peak():.2f} "
+          f"GiB, output {tuple(feats.shape)}, launches {COUNTED} {n}", flush=True)
+    if tuple(feats.shape) != (1, cfg.num_patches, cfg.hidden_size) or not bool(
+            torch.isfinite(feats).all()) or n != NONE:
+        raise AssertionError(f"redux: siglip output {tuple(feats.shape)}, launches {n}")
+    shallow = dataclasses.replace(cfg, num_layers=2)
+    two = _depth(tree, 2)
+    px = preprocess_siglip(image, shallow, dev)
+    on_dev = siglip_forward(two, shallow, px)
+    on_cpu = siglip_forward(tree_to(two, "cpu"), shallow, px.cpu())
+    err = _rel(on_dev.cpu(), on_cpu)
+    print(f"[redux] siglip depth 2, {device} against the CPU: max|d| / max|ref| "
+          f"{err:.3e} (tol {SIGLIP_TOL})", flush=True)
+    if not err <= SIGLIP_TOL:
+        raise AssertionError(f"redux: siglip depth 2 off the CPU by {err}")
+    del on_dev, on_cpu, two
+
+    # the checkpoint chain: HF names on disk, read back by the conditioner
+    fcfg = pipe.flux_cfg
+    proj = init_redux_params(gen, cfg.hidden_size, fcfg.joint_attention_dim,
+                             device=dev)
+    root = tempfile.mkdtemp(prefix="chip_smoke_redux_")
+    try:
+        t0 = time.perf_counter()
+        os.makedirs(os.path.join(root, "siglip"))
+        os.makedirs(os.path.join(root, "flux", "redux"))
+        save_file({k: v.contiguous().cpu() for k, v in siglip_state_dict(tree).items()},
+                  os.path.join(root, "siglip", "model.safetensors"))
+        with open(os.path.join(root, "siglip", "config.json"), "w") as f:
+            json.dump({"num_attention_heads": cfg.num_heads,
+                       "hidden_act": cfg.hidden_act,
+                       "layer_norm_eps": cfg.layer_norm_eps}, f)
+        save_file({f"redux_{k}.{'weight' if leaf == 'kernel' else 'bias'}":
+                   (v.t() if leaf == "kernel" else v).contiguous().cpu()
+                   for k in ("up", "down") for leaf, v in proj[k].items()},
+                  os.path.join(root, "flux", "redux", "model.safetensors"))
+        t_write = time.perf_counter() - t0
+        cond, t_load = timed(lambda: ReduxConditioner(pretrain_root=root, device=dev))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    pairs = [(tree, cond.tower[0] if cond.tower else None), (proj, cond.params)]
+    same = all(b is not None and len(list(_named_leaves(a))) == len(list(_named_leaves(b)))
+               and all(torch.equal(x, y) for (_, x), (_, y) in
+                       zip(_named_leaves(a), _named_leaves(b))) for a, b in pairs)
+    # the shapes give the input side as 27 patches of 14 (378), as in the
+    # JAX package; the rest of the config is the tree's
+    read = cond.tower[1] if cond.tower else None
+    print(f"[redux] checkpoint: wrote <tmp>/siglip and <tmp>/flux/redux in "
+          f"{t_write:.2f}s, ReduxConditioner read them in {t_load:.2f}s: backend "
+          f"{cond.backend}, heads {read.num_heads if read else None}, input side "
+          f"{read.image_size if read else None}, both trees leaf for leaf equal "
+          f"{same}", flush=True)
+    if cond.backend != "port" or not same or dataclasses.replace(
+            read, image_size=cfg.image_size) != cfg or read.num_patches != cfg.num_patches:
+        raise AssertionError(f"redux: conditioner backend {cond.backend}, config "
+                             f"{read}, trees equal {same}")
+    del tree, proj, feats
+
+    # the Redux job: the texture pass with the Redux tokens as the prompt
+    embeds, ids = cond(image)
+    del cond
+    dcfg = pipe.config.diffusion
+    pipe_cfg = FluxPipelineConfig(
+        height=dcfg.height, width=dcfg.width, num_inference_steps=steps,
+        guidance_scale=dcfg.guidance_scale,
+        max_sequence_length=dcfg.max_sequence_length)
+    grid_img = 0.5 * load_image(os.path.join(cache, "mv_normal.png")) \
+        + 0.5 * load_image(os.path.join(cache, "mv_ccm.png"))
+    control = grid_to_strip(torch.from_numpy(grid_img).to(dev))
+    dual = torch.from_numpy(load_image(os.path.join(cache, "processed_image.png"))).to(dev)
+    vs = pipe.vae_cfg.downscale
+    tokens = 2 * (dcfg.height // (2 * vs)) * (dcfg.width // (2 * vs)) \
+        + (dual.shape[0] // (2 * vs)) * (dual.shape[1] // (2 * vs)) + embeds.shape[1]
+    blocks = fcfg.num_layers + fcfg.num_single_layers
+    seen = []
+    launch = attn.flash_attention
+
+    def recorded(q, k, v):
+        seen.append(tuple(q.shape))
+        return launch(q, k, v)
+
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    params = merge_lora(pipe.transformer_params,
+                        [(pipe.texture_lora, 1.0), (pipe.delight_lora, 0.0)])
+    before = _counts(attn)
+    attn.flash_attention = recorded
+    try:
+        strip, secs = timed(lambda: run_flux_pipeline(
+            params, fcfg, pipe.vae_params, pipe.vae_cfg, gen, pipe_cfg,
+            control_image=control, dual_image=dual, prompt_embeds=embeds,
+            device=dev))
+    finally:
+        attn.flash_attention = launch
+    del params
+    n = launches_since(before)
+    lengths = sorted({shape[1] for shape in seen})
+    print(f"[redux] job: prompt_embeds {tuple(embeds.shape)} (txt_ids "
+          f"{tuple(ids.shape)}), {steps} steps, S = {tokens}: {secs:.3f}s, peak "
+          f"{peak():.2f} GiB, B1 launches {n[0]} at S {lengths}", flush=True)
+    want = blocks * steps if cuda else 0
+    if not _only(n, B1=want) or len(seen) != want or (cuda and lengths != [tokens]):
+        raise AssertionError(f"redux: launches {COUNTED} {n} at S {lengths}, "
+                             f"expected B1 {want} at S = {tokens}")
+    if cuda and siglip_cfg is None and tokens != REDUX_S:
+        raise AssertionError(f"redux: S = {tokens}, expected {REDUX_S}")
+    if tuple(strip.shape) != (dcfg.height, dcfg.width, 3) or not bool(
+            torch.isfinite(strip).all()) or float(strip.min()) < 0 or float(strip.max()) > 1:
+        raise AssertionError(f"redux: strip {tuple(strip.shape)} not finite in [0, 1]")
+    del strip, embeds, control, dual
+    if cuda:
+        torch.cuda.empty_cache()
+
+    before = _counts(attn)
+    # search: k = 16 and balls of cap 32 over search_n points
+    pts = torch.randn((2, search_n, 3), generator=gen, device=dev)
+    q, ref = pts[0], pts[1]
+    (d_dev, i_dev), t_knn = timed(lambda: knn(q, ref, k=16, chunk=16384))
+    d_cpu, i_cpu = knn(q[:search_cpu].cpu(), ref.cpu(), k=16)
+    agree = _search_agrees(torch, d_dev[:search_cpu].cpu(), i_dev[:search_cpu].cpu(),
+                           d_cpu, i_cpu)
+    radius = 0.1
+    (b_idx, b_mask, b_cnt), t_ball = timed(
+        lambda: query_ball(q, ref, radius, cap=32, chunk=16384))
+    c_idx, c_mask, c_cnt = query_ball(q[:search_cpu].cpu(), ref.cpu(), radius, cap=32)
+    counts_equal = float((b_cnt[:search_cpu].cpu() == c_cnt).double().mean())
+    print(f"[search] knn k=16 {search_n} x {search_n}: {t_knn:.3f}s, {search_cpu} "
+          f"queries against the CPU: indices agree (ties of 1 ulp forgiven) on "
+          f"{agree:.6f}; query_ball cap 32, r {radius}: {t_ball:.3f}s, in-radius "
+          f"counts {int(b_cnt.min())}-{int(b_cnt.max())} (mean "
+          f"{float(b_cnt.float().mean()):.2f}), {counts_equal:.6f} of them the "
+          f"CPU's", flush=True)
+    if not (agree == 1.0 and bool(torch.isfinite(d_dev).all())
+            and counts_equal >= 0.999 and int(b_mask.sum(1).max()) <= 32):
+        raise AssertionError(f"search: knn agreement {agree}, counts {counts_equal}")
+    del pts, q, ref, d_dev, i_dev, b_idx, b_mask, b_cnt
+
+    # volume queries and the splat, against the CPU
+    vol = torch.randn((grid // 2, grid // 2, grid // 2, 4), generator=gen, device=dev)
+    planes = torch.randn((3, grid, grid, 8), generator=gen, device=dev)
+    coords = torch.rand((1 << 20, 3), generator=gen, device=dev) * 2.2 - 1.1
+    vals = torch.randn((1 << 20, 3), generator=gen, device=dev)
+    checks = {}
+    for name, fn, args in (
+            ("grid_sample_3d", grid_sample_3d, (vol, coords)),
+            ("grid_sample_3d aligned", lambda v, c: grid_sample_3d(v, c, True),
+             (vol, coords)),
+            ("triplane_query", triplane_query, (planes, coords)),
+            ("splat_points_to_grid", lambda c, v: splat_points_to_grid(c, v, grid),
+             (coords, vals))):
+        out, secs = timed(lambda: fn(*args))
+        ref_out = fn(*(a.cpu() for a in args))
+        checks[name] = (_rel(out.cpu(), ref_out), secs)
+        if not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"volume: {name} not finite")
+    print("[volume] " + ", ".join(f"{k} {e:.2e} of max|ref| ({s * 1e3:.2f} ms)"
+                                  for k, (e, s) in checks.items())
+          + f" (tol {FIELD_TOL}; 2^20 points, R = {grid})", flush=True)
+    if not all(e <= FIELD_TOL for e, _ in checks.values()):
+        raise AssertionError(f"volume: {checks}")
+    del vol, planes, coords, vals
+
+    # a field on the card, browsed as an isosurface GLB
+    work = tempfile.mkdtemp(prefix="chip_smoke_fields_")
+    try:
+        def ellipsoid(x, y, z):
+            return 0.5 - (x * x + 1.3 * y * y + z * z) + 0.1 * x * y * z
+
+        iso_glb = os.path.join(work, "isosurface.glb")
+        _, t_iso = timed(lambda: export_isosurface(ellipsoid, iso_glb,
+                                                   resolution=grid, device=dev))
+        back = load_mesh(iso_glb)
+        print(f"[fields] isosurface of a field on {device} at {grid}³: "
+              f"{back.vertices.shape[0]} vertices, {back.faces.shape[0]} faces, "
+              f"{t_iso:.3f}s to the GLB, read back by load_mesh", flush=True)
+        values = create_grid(ellipsoid, 8, 8, 8, device=dev)
+        if back.faces.shape[0] < 1000 or not np.isfinite(back.vertices).all() \
+                or values.dtype != np.float32:
+            raise AssertionError(f"fields: isosurface {back.faces.shape}")
+
+        # the job's texture: dilation and blur, against the CPU
+        host = load_mesh(glb)
+
+        def put(x, dtype):
+            return torch.from_numpy(np.ascontiguousarray(x, dtype)).to(dev)
+
+        mesh = Mesh(put(host.vertices, np.float32), put(host.faces, np.int64),
+                    uv=put(host.uv, np.float32), faces_uv=put(host.faces_uv, np.int64))
+        tex = put(host.texture[..., :3], np.float32) / 255.0
+        mask = uv_render(mesh, tex.shape[0])["mask"]
+        part, t_part = timed(lambda: uv_dilation(tex, mask, max_iters=DILATE_ITERS))
+        full, t_full = timed(lambda: uv_dilation(tex, mask))
+        blur, t_blur = timed(lambda: disk_blur(tex, 4))
+        e_part = _rel(part.cpu(), uv_dilation(tex.cpu(), mask.cpu(),
+                                              max_iters=DILATE_ITERS))
+        e_blur = _rel(blur.cpu(), disk_blur(tex.cpu(), 4))
+        print(f"[fields] texture {tuple(tex.shape)} ({float(mask.float().mean()):.4f}"
+              f" charted): uv_dilation {DILATE_ITERS} passes {t_part * 1e3:.2f} ms "
+              f"({e_part:.2e} of max|ref| off the CPU), until full {t_full:.3f}s; "
+              f"disk_blur r 4 {t_blur * 1e3:.2f} ms ({e_blur:.2e}); tol "
+              f"{FIELD_TOL}", flush=True)
+        if not (e_part <= FIELD_TOL and e_blur <= FIELD_TOL
+                and bool(torch.isfinite(full).all()) and float(full.min()) >= 0
+                and float(full.max()) <= 1):
+            raise AssertionError(f"fields: dilation {e_part}, blur {e_blur}")
+        del tex, mask, part, full, blur
+
+        cam = pipe.config.camera
+        c2ws, intr = condition_cameras(cam.radius, cam.ortho_scale, device=dev)
+        cam_size = (cam.view_size, cam.view_size)
+        # the views see the mesh as the job rendered it
+        scaled = Mesh(mesh.vertices * pipe.config.mesh.scale_to, mesh.faces)
+        fvis, t_vis = timed(lambda: get_visible_faces(
+            scaled, c2ws, intr, cam_size, perspective=cam.perspective))
+        vvis = get_visible_vertices(scaled, c2ws, intr, cam_size,
+                                    perspective=cam.perspective)
+        per_view = fvis.float().mean(1).tolist()
+        union = float(fvis.any(0).float().mean())
+        print(f"[fields] get_visible_faces, 6 condition views of {cam_size[0]}²: "
+              f"{t_vis:.3f}s, faces seen per view "
+              f"{[round(v, 4) for v in per_view]}, by any {union:.4f}; vertices "
+              f"by any {float(vvis.any(0).float().mean()):.4f}", flush=True)
+        if min(per_view) < 0.05 or union < 0.9:
+            raise AssertionError(f"fields: visible faces {per_view}, {union}")
+
+        # the viewer over local HTTP, on the card
+        httpd = serve(glb, port=0, poll=0.1, device=dev)
+        thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+        thread.start()
+        base = f"http://127.0.0.1:{httpd.server_address[1]}"
+
+        def get(path):
+            with urllib.request.urlopen(base + path, timeout=120) as r:
+                return r.status, r.read()
+
+        try:
+            get(f"/render?mode=rgb&size={frame}")     # first use
+            times, frames = {}, {}
+            for mode in MODES:
+                t0 = time.perf_counter()
+                status, body = get(f"/render?mode={mode}&az=30&el=20&size={frame}")
+                times[mode] = (time.perf_counter() - t0) * 1e3
+                frames[mode] = np.asarray(Image.open(io.BytesIO(body)))
+                if status != 200 or frames[mode].shape != (frame, frame, 3):
+                    raise AssertionError(f"viewer: {mode} {status} "
+                                         f"{frames[mode].shape}")
+            try:
+                get("/render?mode=depth")
+                bad = 200
+            except urllib.error.HTTPError as e:
+                bad = e.code
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            thread.join(timeout=30)
+        print(f"[viewer] {frame}² PNG frames over HTTP on {device}: " + ", ".join(
+            f"{m} {t:.1f} ms" for m, t in times.items())
+              + f"; a bad mode answers {bad}", flush=True)
+        if not (frames["rgb"] != 255).any() or bad != 400:
+            raise AssertionError(f"viewer: rgb frame blank or bad mode {bad}")
+
+        # the scripts: the round trip, the golden report, the mesh tools
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            t0 = time.perf_counter()
+            report = roundtrip_oracle.main([*oracle, "--device", device])
+            t_rt = time.perf_counter() - t0
+        rec = oracle_record("sphere", "priority_k1")
+        gaps = {k: report[k] - rec[k] for k in ("texture_psnr_visible",
+                                                "rerender_psnr")}
+        print(f"[scripts] roundtrip_oracle {' '.join(oracle) or '(defaults)'}: "
+              f"{report['faces']} faces, texture_psnr_visible "
+              f"{report['texture_psnr_visible']} (JAX {rec['texture_psnr_visible']},"
+              f" {gaps['texture_psnr_visible']:+.2f}), rerender_psnr "
+              f"{report['rerender_psnr']} (JAX {rec['rerender_psnr']}, "
+              f"{gaps['rerender_psnr']:+.2f}) in {t_rt:.2f}s", flush=True)
+        if not all(math.isfinite(report[k]) for k in gaps):
+            raise AssertionError(f"scripts: roundtrip report {report}")
+        if not oracle and max(abs(g) for g in gaps.values()) > ORACLE_GAP_DB:
+            print(f"[scripts] roundtrip_oracle: a gap above {ORACLE_GAP_DB} dB "
+                  f"to the JAX record (see PERF.md)", flush=True)
+        with contextlib.redirect_stdout(io.StringIO()):
+            golden = compare_golden.main([cache, cache, "--device", device])
+        scored = {k: v for k, v in golden["artifacts"].items() if v}
+        print(f"[scripts] compare_golden of the job's cache against itself: "
+              f"{len(scored)} artifacts, worst PSNR {golden['worst_psnr']} dB (the"
+              f" cap), SSIM {sorted({v['ssim'] for v in scored.values()})}",
+              flush=True)
+        if not scored or golden["worst_psnr"] != 120.0 or any(
+                v["ssim"] not in (1.0, None) for v in scored.values()):
+            raise AssertionError(f"scripts: compare_golden {golden}")
+        shutil.copy(glb, os.path.join(work, "icosphere.glb"))
+        with contextlib.redirect_stdout(io.StringIO()):
+            check_meshes.main([os.path.join(work, "*.glb"), "--out",
+                               os.path.join(work, "meshes.csv")])
+        with open(os.path.join(work, "meshes.csv")) as f:
+            rows = list(csv.DictReader(f))
+        for name in ("icosphere", "isosurface"):
+            with open(os.path.join(work, f"{name}.json"), "w") as f:
+                json.dump({name: {"status": "ok", "seconds": t_iso}}, f)
+        with contextlib.redirect_stdout(io.StringIO()):
+            merge_reports.main([os.path.join(work, "*.json"), "--mesh-root", work,
+                                "--out", os.path.join(work, "merged"),
+                                "--fail-key", "status"])
+        with open(os.path.join(work, "merged.json")) as f:
+            merged = json.load(f)
+        print(f"[scripts] check_meshes: {[(r['path'].rsplit('/', 1)[-1], r['V'], r['F']) for r in rows]};"
+              f" merge_reports: {sorted((k, v['faces']) for k, v in merged.items())}",
+              flush=True)
+        faces = {os.path.basename(r["path"]): int(r["F"]) for r in rows}
+        if faces != {"icosphere.glb": int(host.faces.shape[0]),
+                     "isosurface.glb": int(back.faces.shape[0])} or {
+                k: v["faces"] for k, v in merged.items()} != {
+                "icosphere": faces["icosphere.glb"],
+                "isosurface": faces["isosurface.glb"]}:
+            raise AssertionError(f"scripts: meshes {rows}, merged {merged}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    n = launches_since(before)
+    if n != NONE:
+        raise AssertionError(f"redux: launches {COUNTED} {n} outside the Redux job")
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "unitex_torch", "csrc")):
         return fail("run from a checkout of the repository (unitex_torch/ "
@@ -2784,8 +3306,8 @@ def main() -> int:
             print(f"[build] {source} {fn} ptxas: {use}", flush=True)
             usage[fn] = use
 
-    b1_record, b1_ms = check_flash_attention(attn, torch,
-                                             usage["flash_fwd_kernel<128>"])
+    b1_record, b1_ms, b1_redux = check_flash_attention(
+        attn, torch, usage["flash_fwd_kernel<128>"])
     records = [b1_record]
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -2837,13 +3359,26 @@ def main() -> int:
     try:
         run_texture_tools(attn, torch, pipe,
                           os.path.join(tools_dir, "icosphere.glb"))
+        torch.cuda.synchronize()
+        tools = _counts(attn)
+        print(f"[tools] phase 18 {time.perf_counter() - t0:.1f}s", flush=True)
+        if not _only(tools, B1=-1):
+            return fail(f"launches {COUNTED} {tools} in the texture tools")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # phase 19: the Redux image prompt and the field, search and
+        # viewer tools on the same trees and job
+        _reset(attn)
+        t0 = time.perf_counter()
+        run_redux_tools(attn, torch, pipe, tools_dir)
+        torch.cuda.synchronize()
+        redux = _counts(attn)
+        print(f"[redux] phase 19 {time.perf_counter() - t0:.1f}s", flush=True)
+        if not _only(redux, B1=57 * STEPS):
+            return fail(f"launches {COUNTED} {redux} in phase 19")
     finally:
         shutil.rmtree(tools_dir, ignore_errors=True)
-    torch.cuda.synchronize()
-    tools = _counts(attn)
-    print(f"[tools] phase 18 {time.perf_counter() - t0:.1f}s", flush=True)
-    if not _only(tools, B1=-1):
-        return fail(f"launches {COUNTED} {tools} in the texture tools")
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2963,13 +3498,18 @@ def main() -> int:
     if _counts(attn) != NONE:
         return fail(f"launches {COUNTED} {_counts(attn)} in the text encoders")
 
-    paths = ("matting", "serve", "http_serve", "texture_tools", "train",
-             "ltm", "cli", "flux_launcher", "int8_serve", "sr_options",
+    paths = ("matting", "serve", "http_serve", "texture_tools", "redux",
+             "train", "ltm", "cli", "flux_launcher", "int8_serve", "sr_options",
              "tsdsr_train", "oracle")
-    for rec, *n in zip(records, matting, serve, http, tools, train, ltm, cli,
-                       flux_launcher, int8, sr_options, tsdsr, oracle):
+    for rec, *n in zip(records, matting, serve, http, tools, redux, train, ltm,
+                       cli, flux_launcher, int8, sr_options, tsdsr, oracle):
         rec["launches"] = sum(n)
         rec["launches_by_path"] = dict(zip(paths, n))
+    # B1 at the Redux job's S: its launches are the Redux job's, all at
+    # that S (phase 19 checks each launch's length)
+    b1_redux["launches"] = redux[0]
+    b1_redux["launches_by_path"] = {"redux": redux[0]}
+    records.append(b1_redux)
     keys = ("ms", "plain_ms", "bound_ms", "max_abs_err", "library_ms")
     bad = [r for r in records if not all(
         (k == "library_ms" and r[k] is None)

@@ -23,6 +23,7 @@ from jax.experimental.pallas import tpu as pltpu
 from unitex_tpu.ops import attention as jattn
 from unitex_torch.ops import attention as tattn
 from torch_cpu_share import share_cpu
+from torch_jax_reference import jit_reference
 
 share_cpu()
 
@@ -156,7 +157,7 @@ def test_cpu_autograd_matches_jax_vjp():
     tq, tk, tv = (torch.from_numpy(x).requires_grad_(True) for x in (q, k, v))
     tattn.attention(tq, tk, tv).backward(torch.from_numpy(g))
     # the JAX vjp as one jitted program (eagerly, one compile an op)
-    grads = jax.jit(lambda q, k, v, g: jax.vjp(jattn.attention_reference,
+    grads = jit_reference(lambda q, k, v, g: jax.vjp(jattn.attention_reference,
                                                q, k, v)[1](g))(
         *map(jnp.asarray, (q, k, v, g)))
     for t, w in zip((tq, tk, tv), grads):
@@ -171,7 +172,7 @@ def test_bf16_reference_rounds_like_jax():
     tq = [torch.from_numpy(x).bfloat16() for x in (q, k, v)]
     jq = [jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)]
     out, _ = tattn.attention_reference(*tq)
-    ref = jax.jit(jattn.attention_reference)(*jq)
+    ref = jit_reference(jattn.attention_reference)(*jq)
     np.testing.assert_allclose(out.float().numpy(),
                                np.asarray(ref.astype(jnp.float32)), atol=2e-2)
 

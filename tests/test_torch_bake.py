@@ -29,6 +29,7 @@ from unitex_torch.ops import image_ops as timg
 from unitex_torch.ops import knn as tknn
 from unitex_torch.render import renderer_inverse as tinv
 from torch_cpu_share import share_cpu
+from torch_jax_reference import jit_reference
 
 share_cpu()
 
@@ -185,7 +186,7 @@ def test_query_field_fill_matches_jax(scene, ltm_fields):
     field colours every texel no view sees."""
     jfield, tfield = ltm_fields
     got, want = _bake_both(scene, ray_normal_angle_threshold=150.0,
-                           query_field=(jax.jit(jfield), tfield))
+                           query_field=(jit_reference(jfield), tfield))
     assert _assert_bakes_agree(got, want) < 0.6
     knn_fill = _port_bake(scene)
     invisible = ~got["mask_visible_any"] & got["mask_2d"]
@@ -246,7 +247,7 @@ def kd_inputs(scene):
     jmv = jinv.mv_render(jm, jnp.asarray(c2ws), jnp.asarray(intr), (VIEW, VIEW), **kw)
     tmv = tinv.mv_render(tm, _t(c2ws), _t(intr), (VIEW, VIEW), **kw)
     # one compile of the whole visibility instead of an eager compile per op
-    jvis = jax.jit(lambda *a: jinv.view_visibility(*a, **kw))(
+    jvis = jit_reference(lambda *a: jinv.view_visibility(*a, **kw))(
         juv, jmv, jnp.asarray(c2ws), jnp.asarray(views))
     tvis = tinv.view_visibility(tuv, tmv, _t(c2ws), _t(views), **kw)
     agree = (tvis["visible"].numpy() == np.asarray(jvis["visible"])).mean()
@@ -267,7 +268,7 @@ def test_bake_kdtree_matches_jax(kd_inputs, ltm_fields, method):
     if method == "order_mean_field":
         kw["method"] = "order_mean"
         jfield, tfield = ltm_fields
-        want = jinv.bake_kdtree(*jargs, query_field=jax.jit(jfield), **kw)
+        want = jinv.bake_kdtree(*jargs, query_field=jit_reference(jfield), **kw)
         got = tinv.bake_kdtree(*targs, query_field=tfield, **kw)
     else:
         want = jinv.bake_kdtree(*jargs, **kw)

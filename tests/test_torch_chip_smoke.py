@@ -235,10 +235,12 @@ def test_matting_phase_and_checkpoints_rehearse_on_the_cpu(tmp_path, monkeypatch
     import dataclasses
 
     import torch
+    from torch_cpu_share import share_cpu
 
     from unitex_torch.image import isnet, rembg
     from unitex_torch.models import birefnet
 
+    share_cpu()
     cs = _chip_smoke()
     for fn in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
         monkeypatch.setattr(torch.cuda, fn, lambda *a: None)
@@ -267,9 +269,11 @@ def test_ltm_training_and_text_phases_rehearse_on_the_cpu(monkeypatch, capsys):
     encoders at tiny configs (the forwards, the depth-2 copies against
     themselves, the HF names and back, the backend's choice)."""
     import torch
+    from torch_cpu_share import share_cpu
 
     from unitex_torch.models.text import CLIPTextConfig, T5EncoderConfig
 
+    share_cpu()
     cs = _chip_smoke()
     cs.run_ltm_training(torch, "cpu", args=("--tiny", "--steps", "60",
                                             "--log-every", "30"))
@@ -286,3 +290,75 @@ def test_ltm_training_and_text_phases_rehearse_on_the_cpu(monkeypatch, capsys):
     assert "[text] clip: 52 HF-named tensors -> 20 leaves equal" in out
     assert "[text] t5: 30 HF-named tensors -> 12 leaves equal" in out
     assert "None: zero embeddings" in out
+
+
+def test_redux_phase_rehearses_on_the_cpu(tmp_path, monkeypatch, capsys):
+    """Phase 19 on the CPU at tiny sizes: the tiny SigLIP and Redux trees
+    through the HF-named checkpoint and the conditioner, the Redux job on
+    tiny FLUX and VAE trees (no kernel launches on the CPU: the gate
+    expects none), the search, volume and field checks on small inputs,
+    the viewer over HTTP and the four scripts."""
+    import dataclasses
+    import types
+
+    import numpy as np
+    import torch
+    from torch_cpu_share import share_cpu
+    from PIL import Image
+
+    from unitex_torch.config import DEFAULT_CONFIG
+    from unitex_torch.geometry.io.mesh_io import save_mesh
+    from unitex_torch.geometry.primitives import make_icosphere
+    from unitex_torch.geometry.uv_atlas import unwrap_atlas
+    from unitex_torch.models.flux import model as tmodel
+    from unitex_torch.models.flux import vae as tvae
+    from unitex_torch.models.flux.config import FluxConfig
+    from unitex_torch.models.flux.lora import init_lora_params
+    from unitex_torch.models.siglip import SiglipVisionConfig
+    from unitex_torch.ops import attention as attn
+
+    share_cpu()
+    cs = _chip_smoke()
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    fcfg, vcfg = FluxConfig.tiny(), tvae.VAEConfig.tiny()
+    flux = tmodel.init_flux_params(torch.Generator().manual_seed(0), fcfg, device="cpu")
+    cfg = dataclasses.replace(
+        DEFAULT_CONFIG,
+        diffusion=dataclasses.replace(DEFAULT_CONFIG.diffusion, height=16,
+                                      width=96, dual_size=16),
+        camera=dataclasses.replace(DEFAULT_CONFIG.camera, view_size=32))
+    pipe = types.SimpleNamespace(
+        transformer_params=flux, flux_cfg=fcfg, config=cfg, vae_cfg=vcfg,
+        vae_params=tvae.init_vae_params(torch.Generator().manual_seed(1), vcfg,
+                                        device="cpu"),
+        texture_lora=init_lora_params(torch.Generator().manual_seed(2), flux,
+                                      rank=2, device="cpu"),
+        delight_lora=None)
+    host = unwrap_atlas(make_icosphere(3), size=64, gutter=1)
+    yy, xx = np.mgrid[:64, :64] / 63.0
+    host.texture = (127 + 100 * np.sin(4 * xx[..., None] + 3 * yy[..., None]
+                                       + np.arange(3))).astype(np.uint8)
+    save_mesh(str(tmp_path / "icosphere.glb"), host)
+    rng = np.random.default_rng(0)
+    Image.fromarray(rng.integers(0, 256, (48, 48, 3), dtype=np.uint8)).save(
+        tmp_path / "icosphere.png")
+    (tmp_path / "icosphere_cache").mkdir()
+    for name, shape in (("mv_normal", (32, 48)), ("mv_ccm", (32, 48)),
+                        ("processed_image", (16, 16))):
+        Image.fromarray(rng.integers(0, 256, (*shape, 3), dtype=np.uint8)).save(
+            tmp_path / "icosphere_cache" / f"{name}.png")
+    cs._reset(attn)
+    cs.run_redux_tools(attn, torch, pipe, str(tmp_path), device="cpu",
+                       siglip_cfg=SiglipVisionConfig.tiny(), steps=2,
+                       search_n=2048, search_cpu=256, grid=16, frame=64,
+                       oracle=("--subdiv", "2", "--view-size", "32",
+                               "--uv-size", "64"))
+    out = capsys.readouterr().out
+    assert "backend port, heads 4, input side 28, both trees leaf for leaf equal True" in out
+    assert "prompt_embeds (1, 4, 64)" in out and "S = 212" in out
+    assert "indices agree (ties of 1 ulp forgiven) on 1.000000" in out
+    for tag in ("[volume]", "[fields] isosurface", "[fields] texture",
+                "[fields] get_visible_faces", "a bad mode answers 400",
+                "[scripts] roundtrip_oracle", "worst PSNR 120.0 dB",
+                "[scripts] check_meshes"):
+        assert tag in out, tag

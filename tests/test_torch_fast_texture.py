@@ -27,6 +27,7 @@ from unitex_torch.models.flux.config import FluxConfig as TFluxConfig
 from unitex_torch.texture import fast_texture as tfast
 from unitex_torch.utils.params import params_from_jax
 from torch_cpu_share import share_cpu
+from torch_jax_reference import jit_reference
 
 share_cpu()
 
@@ -42,11 +43,11 @@ def _np(tree):
 # call compiles its scan and each op apart); configs and the schedule's
 # floats static
 _STATIC = ("strength", "num_inference_steps", "guidance_scale")
-j_inpaint = jax.jit(jpipe.run_flux_inpaint, static_argnums=(1, 3),
+j_inpaint = jit_reference(jpipe.run_flux_inpaint, static_argnums=(1, 3),
                     static_argnames=_STATIC)
-j_inpaint_texture = jax.jit(jfast.inpaint_texture, static_argnums=(1, 3),
+j_inpaint_texture = jit_reference(jfast.inpaint_texture, static_argnums=(1, 3),
                             static_argnames=_STATIC)
-j_upscale_texture = jax.jit(jfast.upscale_texture, static_argnums=(1, 3),
+j_upscale_texture = jit_reference(jfast.upscale_texture, static_argnums=(1, 3),
                             static_argnames=_STATIC + ("scale",))
 
 

@@ -30,6 +30,7 @@ from unitex_torch.models.flux.config import FluxConfig as TFluxConfig
 from unitex_torch.ops import attention as tattn
 from unitex_torch.utils.params import params_from_jax, tree_shapes
 from torch_cpu_share import share_cpu
+from torch_jax_reference import jit_reference
 
 share_cpu()
 
@@ -119,7 +120,7 @@ FORWARD_INPUTS = _forward_inputs()
 
 
 # one compile of the whole forward instead of one for each of its ops
-_jax_flux_forward = jax.jit(jmodel.flux_forward, static_argnums=1)
+_jax_flux_forward = jit_reference(jmodel.flux_forward, static_argnums=1)
 
 
 def _forwards(tree, inputs, tcfg=None):
@@ -197,14 +198,14 @@ def test_vae_matches_jax(vae_tree, mode):
     jp = jax.tree.map(jnp.asarray, vae_tree)
     if mode == "decode":
         z = rng.normal(size=(1, 8, 12, jc.latent_channels)).astype(np.float32)
-        want = jax.jit(jvae.vae_decode, static_argnums=1)(jp, jc, z)
+        want = jit_reference(jvae.vae_decode, static_argnums=1)(jp, jc, z)
         got = tvae.vae_decode(tp, tc, torch.from_numpy(z))
     else:
         img = rng.uniform(-1, 1, size=(1, 16, 24, 3)).astype(np.float32)
         eps = None
         if mode == "encode_sample":
             eps = rng.normal(size=(1, 8, 12, jc.latent_channels)).astype(np.float32)
-        want = jax.jit(jvae.vae_encode, static_argnums=1)(jp, jc, img,
+        want = jit_reference(jvae.vae_encode, static_argnums=1)(jp, jc, img,
                                                           sample_eps=eps)
         got = tvae.vae_encode(tp, tc, torch.from_numpy(img),
                               sample_eps=None if eps is None else torch.from_numpy(eps))
@@ -316,7 +317,7 @@ def test_run_flux_pipeline_matches_jax(flux_tree, vae_tree):
                                     max_sequence_length=8)
     tcfg = tpipe.FluxPipelineConfig(**dataclasses.asdict(jcfg))
     # one jitted program (eagerly its scan and each op compile apart)
-    want = jax.jit(jpipe.run_flux_pipeline, static_argnums=(1, 3, 5))(
+    want = jit_reference(jpipe.run_flux_pipeline, static_argnums=(1, 3, 5))(
         jax.tree.map(jnp.asarray, flux_tree), JFluxConfig.tiny(),
         jax.tree.map(jnp.asarray, vae_tree), jc, jax.random.key(0), jcfg,
         control_image=jnp.asarray(control), dual_image=jnp.asarray(dual),

@@ -55,7 +55,12 @@ def test_guard_sees_every_source():
     for module in ("texture/fast_texture.py", "texture/refine.py",
                    "texture/pbr.py", "texture/envmap.py", "render/unify.py",
                    "render/scene.py", "ops/raytrace.py", "ops/visibility.py",
-                   "geometry/topology.py", "camera/rotation.py"):
+                   "geometry/topology.py", "camera/rotation.py",
+                   "models/siglip.py", "models/flux/redux.py",
+                   "render/volume.py", "render/field_vis.py", "render/viewer.py",
+                   "utils/metrics.py", "scripts/view_mesh.py",
+                   "scripts/roundtrip_oracle.py", "scripts/compare_golden.py",
+                   "scripts/check_meshes.py", "scripts/merge_reports.py"):
         assert os.path.join(REPO, "unitex_torch", *module.split("/")) in files
 
 
@@ -213,3 +218,34 @@ def test_texture_tools_default_to_cuda():
         pytest.skip("a CUDA device is present: nothing to refuse")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         run_flux_inpaint({}, None, {}, None, None, torch.zeros(16, 16, 3))
+
+
+def test_redux_viewer_and_tool_scripts_default_to_cuda(tmp_path):
+    """The Redux conditioner, the SigLIP init and loaders, the viewer, its
+    server and script, and the round-trip and golden scripts run on the
+    card unless asked for the CPU; without a card they raise."""
+    import inspect
+
+    from unitex_torch.models.flux.redux import (
+        ReduxConditioner, init_redux_params, load_redux_params, redux_image_ids,
+    )
+    from unitex_torch.models.siglip import (
+        convert_siglip_vision, init_siglip_params, load_siglip, preprocess_siglip,
+    )
+    from unitex_torch.render.viewer import MeshViewer, serve
+    from unitex_torch.scripts import compare_golden, roundtrip_oracle, view_mesh
+
+    for fn in (ReduxConditioner.__init__, init_redux_params, load_redux_params,
+               redux_image_ids, convert_siglip_vision, init_siglip_params,
+               load_siglip, preprocess_siglip, MeshViewer.__init__, serve,
+               compare_golden.compare_caches):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn
+    assert view_mesh.parse_args(["m.glb"]).device == "cuda"
+    assert roundtrip_oracle.parse_args([]).device == "cuda"
+    assert compare_golden.parse_args(["a", "b"]).device == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: nothing to refuse")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ReduxConditioner(str(tmp_path))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        roundtrip_oracle.main(["--uv-size", "64"])

@@ -87,6 +87,19 @@ def test_cuda_tensor_never_falls_back(card):
 
 
 @pytest.mark.cuda
+def test_attention_refuses_siglip_heads(card):
+    """SigLIP's heads of 72 (S = 729) on a CUDA bf16 tensor: ``attention``
+    raises and launches nothing (SigLIP runs its own plain attention, as
+    the JAX package hands that shape to its plain reference)."""
+    q, k, v = _qkv(729, 16, 0, card, D=72)
+    before = (attn.launches, attn.launches_d64, attn.launches_qk8)
+    with pytest.raises(ValueError):
+        attn.attention(q, k, v)
+    torch.cuda.synchronize()
+    assert (attn.launches, attn.launches_d64, attn.launches_qk8) == before
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("S", [1, 63, 127, 129, 257, 385, 1000, 1178])
 def test_flash_kernel_d64_matches_plain(card, S):
     """B1 at D = 64 (the SD3 transformer's heads): ragged tiles on both

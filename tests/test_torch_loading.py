@@ -46,6 +46,7 @@ import test_pipeline
 from test_golden_parity import small_config
 from test_torch_pipeline import _port_config
 from torch_cpu_share import share_cpu
+from torch_jax_reference import jit_reference
 
 share_cpu()
 
@@ -331,7 +332,7 @@ def test_denoise_with_reuse_matches_jax(monkeypatch):
     sched = jsched.FlowMatchEulerScheduler.create(steps, S)
     jmask = jfpipe.make_reuse_mask(steps, reuse)
     # one jitted program (eagerly the scan and each op compile apart)
-    want = jax.jit(lambda tree, x, c: jfpipe.denoise(
+    want = jit_reference(lambda tree, x, c: jfpipe.denoise(
         tree, TINY, x, img_ids, txt_ids, prompt, pooled, sched, 3.5,
         condition_latents=c, reuse_mask=jmask))(
         jax.tree.map(jax.numpy.asarray, flux), noise, cond)

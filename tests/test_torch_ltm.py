@@ -25,6 +25,7 @@ from unitex_torch.utils.param_cache import load_meta as tload_meta
 from unitex_torch.utils.param_cache import load_params as tload_params
 from unitex_torch.utils.params import tree_shapes
 from torch_cpu_share import share_cpu
+from torch_jax_reference import jit_reference
 
 share_cpu()
 
@@ -94,7 +95,7 @@ def test_init_has_the_jax_layout(tiny):
 def test_fourier_features_match_jax():
     x = np.random.default_rng(0).uniform(-1, 1, (64, 3)).astype(np.float32)
     got = tltm.fourier_features(_t(x), 8).numpy()
-    want = np.asarray(jax.jit(jltm.fourier_features, static_argnums=1)(x, 8))
+    want = np.asarray(jit_reference(jltm.fourier_features, static_argnums=1)(x, 8))
     assert got.shape == want.shape == (64, 3 + 48)
     np.testing.assert_allclose(got, want, atol=1e-5)
 
@@ -107,7 +108,7 @@ def _encode_decode(jcfg, tcfg, jp, tp, inputs, with_ctx):
         return z, logvar, jltm.decode_field(p, jcfg, z, q,
                                             ctx=(a, b, c) if with_ctx else None)
 
-    jz, jlv, jout = jax.jit(jfn)(jp, pts, cols, val, qs)
+    jz, jlv, jout = jit_reference(jfn)(jp, pts, cols, val, qs)
     tz, _, tlv = tltm.encode_geometry(tp, tcfg, _t(pts), _t(cols), _t(val))
     tout = tltm.decode_field(tp, tcfg, tz, _t(qs),
                              ctx=(_t(pts), _t(cols), _t(val)) if with_ctx else None)
@@ -160,7 +161,7 @@ def test_query_field_matches_jax_on_the_trained_tree(large):
     pts, cols, val, _ = _inputs(4, n=6000)
     query = ~val & (np.random.default_rng(5).uniform(size=6000) < 0.8)
     jfield = jltm.make_query_field(jp, jcfg, max_ref=2048)
-    want = np.asarray(jax.jit(lambda a, b, c, d: jfield(a, b, a, visible_mask=c,
+    want = np.asarray(jit_reference(lambda a, b, c, d: jfield(a, b, a, visible_mask=c,
                                                         query_mask=d))(
         pts, cols, val, query))
     field = tltm.make_query_field(tp, tcfg, chunk=1000, max_ref=2048)
@@ -180,7 +181,7 @@ def test_vae_loss_matches_jax(tiny):
     qc = np.random.default_rng(7).uniform(size=(200, 3)).astype(np.float32)
     key = jax.random.key(11)
     noise = np.asarray(jax.random.normal(key, (jcfg.n_latents, jcfg.kl_latent_dim)))
-    want = float(jax.jit(lambda p, k: jltm.ltm_vae_loss(
+    want = float(jit_reference(lambda p, k: jltm.ltm_vae_loss(
         p, jcfg, pts, cols, val, qs, qc, k))(jp, key))
     got = float(tltm.ltm_vae_loss(tp, tcfg, _t(pts), _t(cols), _t(val), _t(qs),
                                   _t(qc), noise=_t(noise)))

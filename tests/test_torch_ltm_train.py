@@ -38,6 +38,7 @@ from unitex_torch.training import ltm as ttrain
 from unitex_torch.training.flux_lora import _leaves, warmup_cosine_decay_schedule
 from unitex_torch.utils.params import params_from_jax
 from torch_cpu_share import share_cpu
+from torch_jax_reference import jit_reference
 
 share_cpu()
 
@@ -96,7 +97,7 @@ def _occlusion_draws(key, points):
     }
 
 
-_jax_batch = jax.jit(jtrain.sample_device_batch, static_argnames=("n_query", "cur"))
+_jax_batch = jit_reference(jtrain.sample_device_batch, static_argnames=("n_query", "cur"))
 
 
 def test_field_and_occlusion_split_match_jax_draws(bank):
@@ -105,7 +106,7 @@ def test_field_and_occlusion_split_match_jax_draws(bank):
     the first half of the key, the split from the second)."""
     pts = bank[0][1]
 
-    @jax.jit
+    @jit_reference
     def jax_side(key, pts):
         kf, kh = jax.random.split(key)
         return (jtrain.sample_device_batch(key, pts, N_QUERY), _field_draws(kf),
@@ -145,7 +146,7 @@ def test_idw_fill_baseline_matches_jax():
     cols = rng.uniform(size=(600, 3)).astype(np.float32)
     valid = rng.uniform(size=600) < 0.6
     qs = rng.uniform(-1, 1, (150, 3)).astype(np.float32)
-    want = jax.jit(jtrain.idw_fill_baseline)(pts, cols, valid, qs)
+    want = jit_reference(jtrain.idw_fill_baseline)(pts, cols, valid, qs)
     got = ttrain.idw_fill_baseline(_t(pts), _t(cols), _t(valid), _t(qs))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=IDW_TOL, rtol=0)
 
@@ -159,7 +160,7 @@ def test_warmup_cosine_schedule_matches_optax(steps):
     warm = min(500, steps // 10)
     want_fn = optax.warmup_cosine_decay_schedule(0.0, lr, warm, steps, lr * 0.05)
     counts = np.arange(0, steps + 5, 37 if steps > 1000 else 1)
-    want = np.asarray(jax.jit(jax.vmap(want_fn))(jnp.asarray(counts)))
+    want = np.asarray(jit_reference(jax.vmap(want_fn))(jnp.asarray(counts)))
     got = warmup_cosine_decay_schedule(0.0, lr, warm, steps, lr * 0.05)
     np.testing.assert_allclose([got(int(c)) for c in counts], want,
                                atol=1e-6 * lr, rtol=0)
@@ -185,7 +186,7 @@ def test_three_train_steps_match_jax(tiny, bank):
     carried across, each on a JAX batch with the JAX normal draw as the
     encoder's noise: the losses and the final tree."""
     jcfg, tcfg, jstate, jtx = tiny
-    step_j = jax.jit(jtrain.ltm_train_step, static_argnames=("cfg", "tcfg", "tx"))
+    step_j = jit_reference(jtrain.ltm_train_step, static_argnames=("cfg", "tcfg", "tx"))
     cfg = tltm.LTMConfig(**dataclasses.asdict(jcfg))
     tcfg_t = ttrain.LTMTrainConfig(**dataclasses.asdict(tcfg))
     state, tx = ttrain.create_ltm_state(torch.Generator().manual_seed(0), cfg,
@@ -217,7 +218,7 @@ def test_eval_psnr_matches_jax(tiny, bank):
     jcfg, _, jstate, _ = tiny
     batch = _jax_batch(jax.random.key(10_050), bank[0][4], n_query=N_QUERY)
 
-    @jax.jit
+    @jit_reference
     def want_fn(params, batch):
         z, _, _ = jltm.encode_geometry(params, jcfg, batch["points"],
                                        batch["colors"], batch["valid"])

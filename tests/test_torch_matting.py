@@ -39,6 +39,7 @@ from unitex_torch.image import rembg as trembg
 from unitex_torch.models import birefnet as tbr
 from unitex_torch.utils.params import params_from_jax, tree_shapes
 from torch_cpu_share import share_cpu
+from torch_jax_reference import jit_reference
 
 share_cpu()
 
@@ -72,7 +73,7 @@ def isnet():
     jp = jis.convert_isnet_torch(_np_sd(sd), jcfg)
     tp = tis.convert_isnet_torch(sd, cfg, "cpu")
     x = tis.normalized_input(_image(), cfg.size, cfg.mean, cfg.std)
-    outs = jax.jit(lambda p, x: jis.isnet_forward(p, jcfg, x))(jp, jnp.asarray(x))
+    outs = jit_reference(lambda p, x: jis.isnet_forward(p, jcfg, x))(jp, jnp.asarray(x))
     return dict(cfg=cfg, jcfg=jcfg, sd=sd, jp=jp, tp=tp, x=x,
                 ref=[np.asarray(o) for o in outs])
 
@@ -84,7 +85,7 @@ def birefnet():
     jp = jbr.convert_birefnet_torch(_np_sd(sd), jcfg)
     tp = tbr.convert_birefnet_torch(sd, cfg, "cpu")
     x = tis.normalized_input(_image(), cfg.size, cfg.mean, cfg.std)
-    ref = jax.jit(lambda p, x: jbr.birefnet_forward(p, jcfg, x))(
+    ref = jit_reference(lambda p, x: jbr.birefnet_forward(p, jcfg, x))(
         jp, jnp.asarray(x))
     return dict(cfg=cfg, jcfg=jcfg, sd=sd, jp=jp, tp=tp, x=x,
                 ref=np.asarray(ref))
@@ -141,7 +142,7 @@ def test_upsample_equals_jax_half_pixel_resize(src, dst):
     """``F.interpolate(align_corners=False)`` is JAX's half-pixel bilinear
     on the upsamplings the pools make."""
     x = np.random.default_rng(0).normal(size=(1, *src, 2)).astype(np.float32)
-    want = np.asarray(jax.jit(jis._upsample_to)(jnp.asarray(x),
+    want = np.asarray(jit_reference(jis._upsample_to)(jnp.asarray(x),
                                                 jnp.zeros((1, *dst, 1))))
     got = tis._upsample(torch.from_numpy(x).permute(0, 3, 1, 2), dst)
     np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(), want,
@@ -152,7 +153,7 @@ def test_upsample_equals_jax_half_pixel_resize(src, dst):
                                      ((1, 3), (5, 5)), ((8, 6), (1, 3))])
 def test_resize_align_corners_matches_jax(src, dst):
     x = np.random.default_rng(1).normal(size=(1, *src, 3)).astype(np.float32)
-    want = np.asarray(jax.jit(jbr._resize_ac, static_argnums=1)(
+    want = np.asarray(jit_reference(jbr._resize_ac, static_argnums=1)(
         jnp.asarray(x), dst))
     got = tbr._resize_ac(torch.from_numpy(x).permute(0, 3, 1, 2), dst)
     np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(), want,
@@ -175,7 +176,7 @@ def test_deform_conv_matches_jax(k):
         "bias": rng.normal(0, 0.1, O),
     }
     p = jax.tree.map(lambda a: np.asarray(a, np.float32), p)
-    want = np.asarray(jax.jit(jbr._deform_conv, static_argnums=2)(
+    want = np.asarray(jit_reference(jbr._deform_conv, static_argnums=2)(
         p, jnp.asarray(x), k))
     got = tbr._deform_conv(params_from_jax(p, "cpu"),
                            torch.from_numpy(x).permute(0, 3, 1, 2), k)
@@ -215,7 +216,7 @@ def test_swin_block_and_patch_merge_match_jax(hw, shift):
     c, nh, w = 8, 2, 4
     p = _swin_block_params(rng, c, nh, w)
     x = rng.normal(size=(1, *hw, c)).astype(np.float32)
-    jy, jm = jax.jit(lambda p, x: _swin_then_merge(p, x, nh, w, shift))(
+    jy, jm = jit_reference(lambda p, x: _swin_then_merge(p, x, nh, w, shift))(
         p, jnp.asarray(x))
     tp = params_from_jax(p, "cpu")
     ty = tbr._swin_block(tp, torch.from_numpy(x), nh, w, shift)

@@ -19,6 +19,7 @@ from unitex_tpu.geometry.primitives import make_torus
 
 from unitex_torch.geometry import mesh as tmesh
 from torch_cpu_share import share_cpu
+from torch_jax_reference import jit_reference
 
 share_cpu()
 
@@ -66,7 +67,7 @@ def _geometry(m, x, edges):
 
 def test_mesh_functions_match_jax(torus):
     edges = jtopo.unique_edges(torus["f"])
-    want = jax.jit(lambda d, e: _geometry(jmesh, d, e))(
+    want = jit_reference(lambda d, e: _geometry(jmesh, d, e))(
         {k: jnp.asarray(a) for k, a in torus.items()}, jnp.asarray(edges))
     got = _geometry(tmesh, {k: torch.from_numpy(np.asarray(a))
                             for k, a in torus.items()},
@@ -84,7 +85,7 @@ def test_mesh_functions_match_jax(torus):
 def test_laplacian_loss_gradient_matches_jax(torus):
     edges = jtopo.unique_edges(torus["f"])
     V = len(torus["v"])
-    want = jax.jit(jax.grad(lambda v: jmesh.laplacian_loss(
+    want = jit_reference(jax.grad(lambda v: jmesh.laplacian_loss(
         v, jnp.asarray(edges), V, depth=3)))(jnp.asarray(torus["v"]))
     v = torch.from_numpy(torus["v"]).requires_grad_(True)
     tmesh.laplacian_loss(v, torch.from_numpy(edges.astype(np.int64)), V,

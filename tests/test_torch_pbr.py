@@ -5,7 +5,6 @@ the same seeded inputs, within 1e-5 of the largest value (absolute below
 
 import importlib
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -15,6 +14,7 @@ import unitex_torch.texture as ttex
 from unitex_torch.texture import envmap as tenv
 from unitex_torch.texture import pbr as tpbr
 from torch_cpu_share import share_cpu
+from torch_jax_reference import jit_reference
 
 share_cpu()
 
@@ -91,7 +91,7 @@ def _check(got, want):
 
 
 def test_bsdf_terms_match_jax(surf):
-    want = jax.jit(lambda d: _terms(jpbr, d))(
+    want = jit_reference(lambda d: _terms(jpbr, d))(
         {k: jnp.asarray(v) for k, v in surf.items()})
     got = _terms(tpbr, {k: torch.from_numpy(v) for k, v in surf.items()})
     _check(got, want)
@@ -136,7 +136,7 @@ def _env_terms(m, env, x):
 def test_envmap_matches_jax(surf, env):
     """The equirect mapping, the SH irradiance, the prefiltered levels and
     their lookup, the Karis LUT and the whole split-sum shade."""
-    want = jax.jit(lambda e, d: _env_terms(jenv, e, d))(
+    want = jit_reference(lambda e, d: _env_terms(jenv, e, d))(
         jnp.asarray(env), {k: jnp.asarray(v) for k, v in surf.items()})
 
     class _Port:   # the port's functions, its maps built on the CPU

@@ -43,6 +43,7 @@ from unitex_torch.utils.params import params_from_jax
 
 from test_golden_parity import small_config
 from torch_cpu_share import share_cpu
+from torch_jax_reference import jit_reference
 
 share_cpu()
 
@@ -96,7 +97,7 @@ def _jitted_scores():
     import unitex_tpu.utils.metrics as metrics
 
     saved = metrics.psnr, metrics.ssim
-    metrics.psnr, metrics.ssim = jax.jit(metrics.psnr), jax.jit(metrics.ssim)
+    metrics.psnr, metrics.ssim = jit_reference(metrics.psnr), jit_reference(metrics.ssim)
     yield
     metrics.psnr, metrics.ssim = saved
 
@@ -209,7 +210,7 @@ def test_ltm_pipeline_matches_jax(assets, tmp_path, monkeypatch, ltm_auto):
     # the JAX hook under jax.jit: one compile instead of one for each op
     make = jltm_mod.make_query_field
     monkeypatch.setattr(jltm_mod, "make_query_field",
-                        lambda *a, **kw: jax.jit(make(*a, **kw)))
+                        lambda *a, **kw: jit_reference(make(*a, **kw)))
     mesh_path, img_path = assets
     empty = str(tmp_path / "no_weights")
     os.makedirs(empty)

@@ -12,7 +12,6 @@ compare barycentrics and depth only where ``tri`` agrees.
 
 import importlib
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -32,6 +31,7 @@ from unitex_torch.ops import grid_sample as tgs
 from unitex_torch.ops import rasterize as trast
 from unitex_torch.render import conditioning as tcond
 from torch_cpu_share import share_cpu
+from torch_jax_reference import jit_reference
 
 share_cpu()
 
@@ -79,7 +79,7 @@ def test_cameras_and_mvp_match_jax():
     """Box c2ws, intrinsics and mvp in exact f32.  The JAX side runs as
     one jitted program (eagerly it compiles each of its ops)."""
 
-    @jax.jit
+    @jit_reference
     def jax_side(c2ws):
         intr = [jgen.generate_intrinsics(0.9, 0.9, fov=p) for p in (False, True)]
         mvp = [jconv.get_mvp(c2ws, jnp.broadcast_to(i, (6, 3, 3)), perspective=p)
@@ -105,7 +105,7 @@ def test_mesh_normals_and_bucket_padding_match_jax(sphere):
     v, host = sphere
     f = host.faces.astype(np.int64)
     # the JAX normals as one jitted program (eagerly, one compile an op)
-    fn_j, vn_j = jax.jit(lambda v, f: (jmesh.compute_face_normals(v, f),
+    fn_j, vn_j = jit_reference(lambda v, f: (jmesh.compute_face_normals(v, f),
                                        jmesh.compute_vertex_normals(v, f)))(
         jnp.asarray(v), jnp.asarray(f))
     np.testing.assert_allclose(
@@ -235,7 +235,7 @@ def test_rasterize_uv_and_interpolate_match_jax(sphere):
     # compared alone: the f32 blend of the three corners, background = fill
     shared = trast.Rast(_t(jr.bary), _t(jr.z), _t(jr.tri, torch.int64))
     got = trast.interpolate(_t(v), shared, _t(host.faces, torch.int64), fill=-1.0)
-    want = jax.jit(lambda v, r, f: jrast.interpolate(v, r, f, fill=-1.0))(
+    want = jit_reference(lambda v, r, f: jrast.interpolate(v, r, f, fill=-1.0))(
         jnp.asarray(v), jr, jnp.asarray(host.faces))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6)
     assert (np.asarray(jr.tri) < 0).any() and (np.asarray(jr.tri) >= 0).mean() > 0.3

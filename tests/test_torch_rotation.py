@@ -14,6 +14,7 @@ import torch
 
 from unitex_torch.camera import rotation as trot
 from torch_cpu_share import share_cpu
+from torch_jax_reference import jit_reference
 
 share_cpu()
 
@@ -69,7 +70,7 @@ def _all(m, x):
 
 def test_conversions_match_jax():
     x = _inputs()
-    want = jax.jit(lambda d: _all(jrot, d))(
+    want = jit_reference(lambda d: _all(jrot, d))(
         {k: jnp.asarray(v) for k, v in x.items()})
     got = _all(trot, {k: torch.from_numpy(v) for k, v in x.items()})
     assert sorted(got) == sorted(want)
@@ -81,7 +82,7 @@ def test_conversions_match_jax():
 def test_random_rotations_take_jax_draws():
     key = jax.random.PRNGKey(5)
     draws = np.asarray(jax.random.normal(key, (16, 4)))
-    want = jax.jit(lambda: (jrot.random_quaternions(16, key),
+    want = jit_reference(lambda: (jrot.random_quaternions(16, key),
                             jrot.random_rotations(16, key),
                             jrot.random_rotation(key)))()
     got = (trot.random_quaternions(16, draws=torch.from_numpy(draws)),

@@ -31,6 +31,7 @@ from unitex_torch.geometry import sampling as tsamp
 from unitex_torch.ops import closest_point as tcp
 from unitex_torch.texture import remapping as tremap
 from torch_cpu_share import share_cpu
+from torch_jax_reference import jit_reference
 
 share_cpu()
 
@@ -116,7 +117,7 @@ def test_sample_pbr_mesh_matches_jax(monkeypatch):
     from unitex_torch.geometry.mesh import PBRMesh as TPBRMesh
 
     monkeypatch.setattr(jmesh, "sample_pbr_attribute",
-                        jax.jit(jmesh.sample_pbr_attribute))
+                        jit_reference(jmesh.sample_pbr_attribute))
 
     jm, _ = _meshes("icosphere")
     rng = np.random.default_rng(4)
@@ -188,7 +189,7 @@ def test_closest_point_triangle_matches_jax():
     rng = np.random.default_rng(1)
     tri = rng.normal(size=(4000, 3, 3)).astype(np.float32)
     p = (rng.normal(size=(4000, 3)) * 3).astype(np.float32)
-    want = jax.jit(jcp.closest_point_triangle)(p, tri[:, 0], tri[:, 1], tri[:, 2])
+    want = jit_reference(jcp.closest_point_triangle)(p, tri[:, 0], tri[:, 1], tri[:, 2])
     got = tcp.closest_point_triangle(*(torch.from_numpy(x) for x in
                                        (p, tri[:, 0], tri[:, 1], tri[:, 2])))
     np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]), atol=1e-5)

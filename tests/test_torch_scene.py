@@ -35,6 +35,7 @@ from unitex_torch.render import scene as tscene
 from unitex_torch.render import unify as tunify
 from unitex_torch.render import video as tvideo
 from torch_cpu_share import share_cpu
+from torch_jax_reference import jit_reference
 
 share_cpu()
 
@@ -67,7 +68,7 @@ def _close_frames(got, want):
 def test_cameras_match_jax():
     for make in ("generate_cameras_v1", "generate_cameras_v2"):
         for persp in (True, False):
-            want = jax.jit(lambda: getattr(junify, make)(6, persp))()
+            want = jit_reference(lambda: getattr(junify, make)(6, persp))()
             got = getattr(tunify, make)(6, persp, device="cpu")
             for a, b in zip(got, want):
                 np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0,

@@ -48,6 +48,7 @@ from unitex_torch.utils.resize import resize_bicubic
 
 from test_torch_pipeline import _port_config
 from torch_cpu_share import share_cpu
+from torch_jax_reference import jit_reference
 
 share_cpu()
 
@@ -169,7 +170,7 @@ def test_lora_trees_match_jax(trees):
                 rng.normal(size=x.shape).astype(np.float32) * 0.1),
             lora, is_leaf=torch.is_tensor)
         got = tlora.merge_lora(base, [(lora, 0.7)])
-        want = jax.jit(lambda p, l: jflora.merge_lora(p, [(l, 0.7)]))(
+        want = jit_reference(lambda p, l: jflora.merge_lora(p, [(l, 0.7)]))(
             jbase, jax.tree.map(jnp.asarray, _numpy(lora)))
         got, want = _flat(got), _flat(want)
         assert sorted(got) == sorted(want)
@@ -185,7 +186,7 @@ def test_color_fix_matches_jax(fix):
     source = (0.5 * target + rng.uniform(size=(40, 52, 3)) * 0.5 + 0.1) \
         .astype(np.float32)
     fn = fix + "_color_fix"
-    want = np.asarray(jax.jit(getattr(jcolor, fn))(jnp.asarray(target),
+    want = np.asarray(jit_reference(getattr(jcolor, fn))(jnp.asarray(target),
                                                    jnp.asarray(source)))
     got = getattr(tcolor, fn)(torch.from_numpy(target), torch.from_numpy(source))
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=IMG_ATOL)
@@ -231,7 +232,7 @@ def test_tiling_helpers_match_jax():
     xt = torch.from_numpy(x)
 
     def jax_side(fn):  # one jitted program instead of an eager op a tile
-        return np.asarray(jax.jit(fn)(jnp.asarray(x)))
+        return np.asarray(jit_reference(fn)(jnp.asarray(x)))
 
     for got, want in (
             (tsr.tiled_apply(tfn, xt, 16, 4),

@@ -42,6 +42,7 @@ from unitex_torch.models.sd3.config import SD3Config as TSD3Config
 from test_torch_sd3 import _configs, _numpy
 from test_torch_sd3 import trees  # noqa: F401  (the module's fixture)
 from torch_cpu_share import share_cpu
+from torch_jax_reference import jit_reference
 
 share_cpu()
 
@@ -54,7 +55,7 @@ BF16_MAX, BF16_MEAN = 5e-2, 5e-3   # the bf16 VAE decode (module docstring)
 INT8_REL = 5e-4       # relative L2 of the int8 paths' outputs
 
 
-_jax_forward = jax.jit(jmodel.sd3_forward, static_argnums=1)
+_jax_forward = jit_reference(jmodel.sd3_forward, static_argnums=1)
 
 
 @pytest.mark.parametrize("name", ["tiny", "d64"])

@@ -13,7 +13,6 @@ on both sides (summation order).
 
 import os
 
-import jax
 import numpy as np
 import pytest
 import torch
@@ -29,13 +28,14 @@ from unitex_torch.training import sr_data as tsd
 from unitex_torch.utils import file_client as tfc
 from unitex_torch.utils import lpips as tlp
 from torch_cpu_share import share_cpu
+from torch_jax_reference import jit_reference
 
 share_cpu()
 
 RESIZE_ATOL = 1e-6   # f32 [0, 1] images, two contractions
 LPIPS_REL = 1e-5     # f32 distances of unit-scale features
 # the JAX references jitted (an eager first call compiles op by op)
-_jimresize = jax.jit(jmat.imresize, static_argnums=(1, 2))
+_jimresize = jit_reference(jmat.imresize, static_argnums=(1, 2))
 
 
 def _write_pairs(root, n=4, hr=(40, 48), scale=4, seed=0, lr=None):
@@ -267,7 +267,7 @@ def test_lpips_matches_jax(net):
     rng = np.random.default_rng(12)
     a, b = (rng.random((2, 64, 64, 3)).astype(np.float32) for _ in range(2))
 
-    @jax.jit
+    @jit_reference
     def jax_side(trees, a, b):
         q = {**trees, "pnet": net}
         return (jlp.lpips_image01(q, a, b), jlp.lpips(q, a, b),

@@ -29,6 +29,7 @@ from unitex_torch.models import text_encoders as tenc
 from unitex_torch.scripts import train_flux_lora as launcher
 from unitex_torch.utils.params import params_from_jax
 from torch_cpu_share import share_cpu
+from torch_jax_reference import jit_reference
 
 share_cpu()
 
@@ -55,7 +56,7 @@ def _tcfg(cls, cfg):
 
 @pytest.mark.parametrize("S", [7, 77, 512])
 def test_relative_buckets_equal_jax(S):
-    want = jax.jit(jtext._t5_relative_buckets, static_argnums=(0, 1, 2))(S, 32, 128)
+    want = jit_reference(jtext._t5_relative_buckets, static_argnums=(0, 1, 2))(S, 32, 128)
     got = ttext._t5_relative_buckets(S, 32, 128)
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
@@ -105,7 +106,7 @@ def test_clip_forward_matches_jax(clip_tree, act):
     first EOS (row 0 at 5, row 1 at 11)."""
     cfg = dataclasses.replace(CLIP_TINY, hidden_act=act, eos_token_id=EOS)
     ids = _clip_ids()
-    want = jax.jit(jtext.clip_text_forward, static_argnums=1)(clip_tree, cfg, ids)
+    want = jit_reference(jtext.clip_text_forward, static_argnums=1)(clip_tree, cfg, ids)
     got = ttext.clip_text_forward(params_from_jax(clip_tree, "cpu"),
                                   _tcfg(ttext.CLIPTextConfig, cfg), _t(ids))
     for g, w in zip(got, want):
@@ -125,7 +126,7 @@ def test_t5_forward_matches_jax(gated, masked):
         mask = np.ones((2, 24), np.int32)
         mask[0, 17:] = 0
         mask[1, 9:] = 0
-    want = jax.jit(jtext.t5_encoder_forward, static_argnums=1)(tree, cfg, ids, mask)
+    want = jit_reference(jtext.t5_encoder_forward, static_argnums=1)(tree, cfg, ids, mask)
     got = ttext.t5_encoder_forward(
         params_from_jax(tree, "cpu"), _tcfg(ttext.T5EncoderConfig, cfg), _t(ids),
         None if mask is None else _t(mask))
@@ -223,7 +224,7 @@ def test_sdpa_masked_branch_matches_jax_and_launches_no_kernel(monkeypatch):
     q, k, v = (rng.normal(size=(2, 12, 4, 8)).astype(np.float32) for _ in range(3))
     mask = rng.uniform(size=(2, 1, 12, 12)) < 0.6
     mask[..., 0] = True
-    want = jax.jit(lambda q, k, v, m: jax.nn.dot_product_attention(q, k, v, mask=m))
+    want = jit_reference(lambda q, k, v, m: jax.nn.dot_product_attention(q, k, v, mask=m))
     for dtype, jdt, tol in ((torch.float32, jnp.float32, TOL),
                             (torch.bfloat16, jnp.bfloat16, 2e-2)):
         w = want(*(jnp.asarray(x, jdt) for x in (q, k, v)), mask)

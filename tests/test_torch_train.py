@@ -37,6 +37,7 @@ from unitex_torch.training import flux_lora as tfl
 from unitex_torch.utils.image_io import save_image
 from unitex_torch.utils.params import params_from_jax
 from torch_cpu_share import share_cpu
+from torch_jax_reference import jit_reference
 
 share_cpu()
 
@@ -132,7 +133,7 @@ def test_flow_match_loss_and_lora_grads_match_jax(trees):
                       weighting_scheme="logit_normal", prior_loss_weight=0.7)
     batch = _batch(3)
     key = jax.random.key(4)
-    loss_j, grads_j = jax.jit(jax.value_and_grad(jfl.flow_match_loss),
+    loss_j, grads_j = jit_reference(jax.value_and_grad(jfl.flow_match_loss),
                               static_argnums=(2, 3))(
         jax.tree.map(jnp.asarray, lora), jax.tree.map(jnp.asarray, base),
         JFluxConfig.tiny(), jt, jax.tree.map(jnp.asarray, batch), key)
@@ -254,7 +255,7 @@ def test_synthetic_dataset_matches_jax(monkeypatch):
     as one jitted program (eagerly it compiles each of its ops)."""
     import unitex_tpu.render.conditioning as jcond
 
-    monkeypatch.setattr(jcond, "render_geometry_condition", jax.jit(
+    monkeypatch.setattr(jcond, "render_geometry_condition", jit_reference(
         jcond.render_geometry_condition,
         static_argnames=("view_size", "rows", "cols")))
     want = iter(jdata.SyntheticTextureDataset(view_size=32, seed=11))
@@ -463,7 +464,7 @@ def test_preconditioning_loss_and_lora_grads_match_jax(trees):
                                    key, vae_params=vae,
                                    vae_cfg=JVAEConfig.tiny())
 
-    loss_j, grads_j = jax.jit(jax.value_and_grad(jloss))(
+    loss_j, grads_j = jit_reference(jax.value_and_grad(jloss))(
         *(jax.tree.map(jnp.asarray, x) for x in (lora, base, batch, vae)))
     lora_t = _torch_lora(lora)
     loss_t = tfl.flow_match_loss(

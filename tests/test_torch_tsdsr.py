@@ -39,6 +39,7 @@ from unitex_torch.training.flux_lora import _leaves, _map
 from unitex_torch.utils import lpips as tlp
 from unitex_torch.utils.params import params_from_jax
 from torch_cpu_share import share_cpu
+from torch_jax_reference import jit_reference
 
 share_cpu()
 
@@ -170,7 +171,7 @@ def test_sd3_forward_with_lora_and_its_grads_match_jax(trees):
                                jnp.asarray(t), batch["pooled_embeds"])
         return jnp.sum(v * w), v
 
-    (_, v_j), g_j = jax.jit(jax.value_and_grad(jloss, has_aux=True))(
+    (_, v_j), g_j = jit_reference(jax.value_and_grad(jloss, has_aux=True))(
         _j(stu), _j(base))
     lora = _port(stu)
     v_t = tmodel.sd3_forward(
@@ -224,7 +225,7 @@ def jax_step(trees):
         return (new.student_lora, new.reg_lora, new.opt_state_student,
                 new.opt_state_reg, m)
 
-    out = _np(jax.jit(step)(_j(stu), _j(reg), _j(base), _j(batch)))
+    out = _np(jit_reference(step)(_j(stu), _j(reg), _j(base), _j(batch)))
     k_s, k_r = jax.random.split(key)
     shape = batch["latent_lr"].shape
     return out, {"student": _draws(k_s, shape), "reg": _draws(k_r, shape)}
@@ -370,7 +371,7 @@ def test_lpips_perceptual_fn_matches_jax(trees):
     jfn = jtsd.make_lpips_perceptual_fn(
         lp_j, lambda z: jvae.vae_decode(vae_j, jvae.VAEConfig.tiny(), z)
         * 0.5 + 0.5)
-    val_j, g_j = jax.jit(jax.value_and_grad(jfn))(jnp.asarray(stu),
+    val_j, g_j = jit_reference(jax.value_and_grad(jfn))(jnp.asarray(stu),
                                                   jnp.asarray(hr))
     tfn = ttsd.make_lpips_perceptual_fn(
         lp, lambda z: tvae.vae_decode_with_grad(vae_t, vcfg, z) * 0.5 + 0.5)

@@ -12,7 +12,6 @@ level (measured: all 49,152 equal, for both video types).
 import dataclasses
 import os
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -33,6 +32,7 @@ from unitex_torch.render import video as tvideo
 
 from test_torch_pipeline import _port_config
 from torch_cpu_share import share_cpu
+from torch_jax_reference import jit_reference
 
 share_cpu()
 
@@ -44,7 +44,7 @@ LEVEL_AGREE = 0.999   # share of uint8 values within one level of JAX's
                                              (4, 1.0, 0.0)])
 def test_orbit_cameras_match_jax(n, radius, height):
     # one jitted program (eagerly the JAX side compiles each of its ops)
-    want = jax.jit(lambda: jgen.generate_orbit_views_c2ws(
+    want = jit_reference(lambda: jgen.generate_orbit_views_c2ws(
         n, radius=radius, height=height))()
     got = tgen.generate_orbit_views_c2ws(n, radius=radius, height=height,
                                          device="cpu")

@@ -24,6 +24,30 @@ def _as_nchw1(x: torch.Tensor):
     return x.reshape(-1, 1, *x.shape[-2:]), lead
 
 
+def _pool(x: torch.Tensor, k: int, op: str) -> torch.Tensor:
+    """Same-padded k x k window max/min over the H, W axes of a
+    channels-last [..., H, W, C] image (padded with the reduction's
+    identity, -inf for max and +inf for min)."""
+    lead = x.shape[:-3]
+    y = x.reshape(-1, *x.shape[-3:]).permute(0, 3, 1, 2)
+    if op == "min":
+        y = -y
+    pad = k // 2
+    y = F.max_pool2d(F.pad(y, (pad, pad, pad, pad), value=-float("inf")),
+                     k, stride=1)
+    if op == "min":
+        y = -y
+    return y.permute(0, 2, 3, 1).reshape(*lead, *y.shape[-2:], y.shape[1])
+
+
+def max_pool2d(x: torch.Tensor, k: int) -> torch.Tensor:
+    return _pool(x, k, "max")
+
+
+def min_pool2d(x: torch.Tensor, k: int) -> torch.Tensor:
+    return _pool(x, k, "min")
+
+
 def _pool_mask(mask: torch.Tensor, k: int, op: str) -> torch.Tensor:
     """k x k window max/min of a [..., H, W, 1] bool mask -> bool."""
     x, lead = _as_nchw1(mask[..., 0].float())
@@ -111,6 +135,22 @@ def gaussian_blur(img: torch.Tensor, k: int = 5, sigma: float | None = None) -> 
     x = F.pad(x, (pad, pad, pad, pad), mode="reflect")
     x = _depthwise(_depthwise(x, kern, "h", 0), kern, "w", 0)
     return x.permute(0, 2, 3, 1).reshape(*lead, *x.shape[2:], x.shape[1])
+
+
+@exact_f32()
+def disk_blur(img: torch.Tensor, radius: int = 4) -> torch.Tensor:
+    """Uniform disk ("bokeh") blur of [..., H, W, C] with reflect padding:
+    the mean over the pixels within ``radius``."""
+    k = 2 * radius + 1
+    yy, xx = np.mgrid[-radius: radius + 1, -radius: radius + 1]
+    kern = ((yy ** 2 + xx ** 2) <= radius ** 2).astype(np.float64)
+    kern = torch.from_numpy((kern / kern.sum()).astype(np.float32)).to(img.device)
+    lead, C = img.shape[:-3], img.shape[-1]
+    x = img.reshape(-1, *img.shape[-3:]).permute(0, 3, 1, 2)
+    x = F.pad(x, (radius, radius, radius, radius), mode="reflect")
+    x = F.conv2d(x, kern.reshape(1, 1, k, k).expand(C, 1, k, k).contiguous(),
+                 groups=C)
+    return x.permute(0, 2, 3, 1).reshape(*lead, *x.shape[2:], C)
 
 
 def pull_push(color: torch.Tensor, mask: torch.Tensor, levels: int = 0) -> torch.Tensor:
@@ -225,3 +265,40 @@ def lens_blur(
     out = torch.pow(torch.clamp(out, min=0.0), 1.0 / exposure_gamma)
     out = torch.clamp(out, 0.0, 1.0).permute(0, 2, 3, 1)
     return out.reshape(*lead, *out.shape[1:])
+
+
+@torch.no_grad()
+@exact_f32()
+def uv_dilation(
+    color: torch.Tensor,
+    mask: torch.Tensor,
+    max_iters: int = -1,
+    kernel_size: int = 3,
+) -> torch.Tensor:
+    """Iterative masked-neighbour UV dilation: invalid texels repeatedly
+    take the mean of their valid k x k neighbourhood until the map is full
+    (or ``max_iters`` passes; -1 runs until full, at most H + W passes),
+    then the grown region is blended over the original.  color [H, W, C]
+    in [0, 1]; mask [H, W, 1] bool, True = valid.  Whether a hole is left
+    is read on the host after each pass."""
+    k = 2 * (kernel_size // 2) + 1
+    H, W, _ = color.shape
+    valid = mask.to(torch.float32)
+    col = color * valid
+    limit = max_iters if max_iters > 0 else H + W
+
+    def box_avg(x):
+        # zero-padded SAME k x k mean, as reduce_window's sum / k²
+        y = x.permute(2, 0, 1)[None]
+        y = F.avg_pool2d(y, k, stride=1, padding=k // 2, count_include_pad=True)
+        return y[0].permute(1, 2, 0)
+
+    for _ in range(limit):
+        if float(valid.min()) != 0.0:
+            break
+        vavg = box_avg(valid)
+        cavg = box_avg(col)
+        boundary = torch.abs(vavg - valid) > 0.0
+        col = torch.where(boundary, cavg / torch.clamp(vavg, min=1e-20), col)
+        valid = (vavg > 0.0).to(torch.float32)
+    return torch.clamp(valid * col + (1.0 - valid) * color, 0.0, 1.0)

@@ -64,6 +64,92 @@ def _downsample(x: Optional[torch.Tensor], s: int) -> Optional[torch.Tensor]:
     return x.reshape(M, Hs // s, s, Ws // s, s, *x.shape[3:]).mean(dim=(2, 4))
 
 
+def draw_point_cloud(
+    points_ndc: torch.Tensor,
+    H: int,
+    W: int,
+    valid: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Scatter NDC points [N, 2] into a bool [H, W, 1] dot mask (the
+    JAX package's segment scatter; out-of-frame and invalid points land in
+    a dropped slot)."""
+    pix_x = torch.floor((points_ndc[..., 0] * 0.5 + 0.5) * W).to(torch.long)
+    pix_y = torch.floor((points_ndc[..., 1] * 0.5 + 0.5) * H).to(torch.long)
+    inb = (pix_x >= 0) & (pix_x < W) & (pix_y >= 0) & (pix_y < H)
+    if valid is not None:
+        inb = inb & valid
+    flat = torch.where(inb, pix_y * W + pix_x, torch.full_like(pix_x, H * W))
+    img = torch.zeros(H * W + 1, dtype=torch.bool, device=points_ndc.device)
+    img[flat.reshape(-1)] = True
+    return img[:H * W].reshape(H, W, 1)
+
+
+@exact_f32()
+def render_uv_attributes(
+    mesh: Mesh,
+    uv_size: int,
+    v_attr: Optional[torch.Tensor] = None,
+    render_world_normal: bool = False,
+    render_world_position: bool = False,
+    face_chunk: int = 512,
+    pixel_tile: int = 512,
+):
+    """Inverse (UV-space) rendering: per-vertex attributes baked into the
+    UV atlas.  Returns a dict with "mask" [S, S, 1] and the requested
+    attribute images ("v_attr", "world_position", "world_normal").
+    ``pixel_tile`` only bounds memory in the JAX package and is ignored."""
+    from ..ops.rasterize import rasterize_uv
+
+    del pixel_tile
+    rast = rasterize_uv(mesh.uv, mesh.faces_uv.long(), uv_size,
+                        face_chunk=face_chunk)
+    faces = mesh.faces.long()
+    out = {"mask": rast.mask[..., None]}
+    if v_attr is not None:
+        out["v_attr"] = interpolate(v_attr, rast, faces)
+    if render_world_position:
+        out["world_position"] = interpolate(mesh.vertices, rast, faces)
+    if render_world_normal:
+        nrm = compute_vertex_normals(mesh.vertices, faces)
+        out["world_normal"] = _unit(interpolate(nrm, rast, faces))
+    return out
+
+
+def get_visible_faces(
+    mesh: Mesh,
+    c2ws: torch.Tensor,
+    intrinsics: torch.Tensor,
+    render_size: Tuple[int, int],
+    perspective: bool = False,
+) -> torch.Tensor:
+    """Per-view face visibility [M, F] bool: the faces whose id the
+    rasterizer wrote into any pixel of the view."""
+    out = render_views(mesh, c2ws, intrinsics, render_size, perspective=perspective)
+    F = mesh.faces.shape[0]
+    tri = out.tri.reshape(out.tri.shape[0], -1).long()
+    seen = torch.zeros((tri.shape[0], F + 1), dtype=torch.bool, device=tri.device)
+    seen.scatter_(1, torch.where(tri >= 0, tri, torch.full_like(tri, F)), True)
+    return seen[:, :F]
+
+
+def get_visible_vertices(
+    mesh: Mesh,
+    c2ws: torch.Tensor,
+    intrinsics: torch.Tensor,
+    render_size: Tuple[int, int],
+    perspective: bool = False,
+) -> torch.Tensor:
+    """Per-view vertex visibility [M, V] bool: a vertex is visible when
+    any face using it is."""
+    fvis = get_visible_faces(mesh, c2ws, intrinsics, render_size, perspective)
+    V = mesh.vertices.shape[0]
+    faces = mesh.faces.long()
+    idx = torch.where(fvis[:, :, None], faces[None], torch.full_like(faces[None], V))
+    seen = torch.zeros((fvis.shape[0], V + 1), dtype=torch.bool, device=fvis.device)
+    seen.scatter_(1, idx.reshape(fvis.shape[0], -1), True)
+    return seen[:, :V]
+
+
 @exact_f32()
 def render_views(
     mesh: Mesh,

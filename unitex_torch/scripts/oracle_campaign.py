@@ -68,17 +68,22 @@ def _host_mesh(primitive: str):
 
 @torch.no_grad()
 def prepare_case(primitive: str, view_size: int = 512, uv_size: int = 2048,
-                 device="cuda") -> dict:
+                 device="cuda", host=None, texture=None) -> dict:
     """The unwrapped mesh, its ground-truth texture and the six views of
-    it: what every bake of ``primitive`` starts from."""
+    it: what every bake of ``primitive`` starts from.  ``host`` is an
+    unwrapped host mesh to take instead of the primitive; ``texture``
+    [H, W, 3] in [0, 1] (resized to the atlas as ``jax.image.resize``
+    does) replaces the position colours on the chart."""
     from ..geometry.mesh import Mesh
     from ..geometry.uv_atlas import unwrap_atlas
     from ..ops.image_ops import pull_push
     from ..render.conditioning import condition_cameras
     from ..render.renderer import render_views
     from ..render.renderer_inverse import uv_render
+    from ..utils.resize import resize_bilinear
 
-    host = unwrap_atlas(_host_mesh(primitive), size=uv_size, gutter=4)
+    if host is None:
+        host = unwrap_atlas(_host_mesh(primitive), size=uv_size, gutter=4)
     mesh = Mesh(
         torch.from_numpy(np.asarray(host.vertices * 0.85, np.float32)).to(device),
         torch.from_numpy(np.asarray(host.faces, np.int64)).to(device),
@@ -87,8 +92,13 @@ def prepare_case(primitive: str, view_size: int = 512, uv_size: int = 2048,
     )
     uv_out = uv_render(mesh, uv_size)
     mask = uv_out["mask"]
-    tex = torch.where(mask, 0.5 + 0.5 * uv_out["position"] / 0.85,
-                      torch.zeros_like(uv_out["position"]))
+    if texture is None:
+        tex = 0.5 + 0.5 * uv_out["position"] / 0.85
+    else:
+        tex = torch.as_tensor(texture, dtype=torch.float32).to(mask.device)
+        if tuple(tex.shape[:2]) != (uv_size, uv_size):
+            tex = resize_bilinear(tex, uv_size, uv_size)
+    tex = torch.where(mask, tex, torch.zeros_like(tex))
     # the views see the texture with its gutter dilated, as a baked
     # texture ships: a zero gutter would darken every seam pixel
     c2ws, intr = condition_cameras(device=device)
@@ -108,9 +118,10 @@ def _psnr(a: np.ndarray, b: np.ndarray) -> float:
 
 @torch.no_grad()
 def run_case(primitive: str, view_size: int = 512, uv_size: int = 2048,
-             ltm_path=None, device="cuda", scene=None, **bake_kwargs) -> dict:
-    """One round trip of ``primitive`` with the bake options
-    ``bake_kwargs`` (and the LTM field of ``ltm_path``); ``scene`` is a
+             ltm_path=None, device="cuda", scene=None, method="reproject",
+             **bake_kwargs) -> dict:
+    """One round trip of ``primitive`` by the bake ``method`` with the bake
+    options ``bake_kwargs`` (and the LTM field of ``ltm_path``); ``scene`` is a
     :func:`prepare_case` of the same primitive and sizes to start from.
     Adds ``bake_s``, the bake's seconds ending in a device sync, and
     returns ``texture`` (the baked atlas, on the device) beside the
@@ -128,7 +139,7 @@ def run_case(primitive: str, view_size: int = 512, uv_size: int = 2048,
     sync()
     t0 = time.perf_counter()
     baked = bake_texture(mesh, scene["views"], scene["c2ws"], scene["intr"],
-                         uv_size=uv_size, method="reproject", **bake_kwargs,
+                         uv_size=uv_size, method=method, **bake_kwargs,
                          **extra)
     sync()
     bake_s = time.perf_counter() - t0
