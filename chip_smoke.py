@@ -110,6 +110,25 @@ non-zero:
    sphere, ``compare_golden`` of the job's cache against itself (the 120
    dB cap, SSIM 1), ``check_meshes`` and ``merge_reports`` over the
    phase's GLBs; the phase's wall as ``[redux] phase 19``;
+20. multi-GPU serving at world 1 (after phase 19, on the same resident
+   trees): a one-rank NCCL process group from a ``FileStore``, destroyed
+   at the end; one full-width ``flux_forward`` at S = 512 + 13312 = 13824
+   on one device, then through tensor parallelism (``shard_flux_params``:
+   the single blocks' pre-split ``proj_out``, ``row_linear``'s NCCL
+   ``all_reduce``, the AdaLN gather), Ulysses (``all_to_all_single``) and
+   the ring (one block: no exchange at one rank) on a ``make_mesh`` of the
+   group, and with ``attn_qk8`` (kernel B3 on the local heads) on one
+   device and through TP, each called twice and timed the second time:
+   Ulysses within ``PAR_ULYSSES_REL`` of max|ref| (a copy at one rank:
+   bit-equal is expected), TP, ring and TP with B3 within ``PAR_REL``;
+   exactly 57 B1 (or B3) launches a forward; the ring's merge on one card over 4 x 4
+   virtual blocks (16 B1 launches at [1, 3456, 24, 128], ``ring_merge``
+   in f32, not counted) held to one B1 launch at S = 13824 by B1's rule;
+   one 4-step icosphere job through the pipeline's multi-rank path (a
+   pipeline with ``mesh=``, sharing the resident trees through
+   ``set_flux_trees``): exactly 456 B1 launches, a GLB, a finite 2048²
+   texture and its PSNR against phase 4's job; ``[parallel]`` lines and
+   the phase's wall as ``[parallel] phase 20``;
 5. training path: three FLUX.1-dev LoRA ``train_step``s (rank 16, remat,
    constant lr 1e-4) on the serving pipeline's resident base tree, each on
    one ``SyntheticTextureDataset(view_size=512)`` batch built by the
@@ -3273,6 +3292,214 @@ def run_redux_tools(attn, torch, pipe, keep: str, device: str = "cuda",
         raise AssertionError(f"redux: launches {COUNTED} {n} outside the Redux job")
 
 
+# phase 20: multi-GPU serving at world 1
+PAR_REL = 1e-2           # TP and ring forwards, of max|ref| (bf16 order)
+PAR_ULYSSES_REL = 1e-3   # Ulysses at one rank: the exchange is a copy
+PAR_LATENTS = ((32, 192), (32, 192, 16), (32, 32, 16))   # noise, control, dual
+PAR_TXT = 512
+
+
+def parallel_ids(torch, latents=PAR_LATENTS, device="cuda"):
+    """The FLUX job's image position ids: the noise grid, the control grid
+    below it, the dual image beside it (``models/flux/pipeline.py``)."""
+    from unitex_torch.models.flux.pipeline import latent_image_ids
+
+    (h, w), (hc, wc, oy), (hd, wd, od) = latents
+    return torch.cat([
+        latent_image_ids(h, w, device=device),
+        latent_image_ids(hc, wc, offset_y=oy, device=device),
+        latent_image_ids(hd, wd, offset_x=od, offset_y=od, device=device)])
+
+
+def run_parallel(attn, torch, pipe, keep: str, device: str = "cuda",
+                 latents=PAR_LATENTS, s_txt: int = PAR_TXT, ring_s: int = 13824,
+                 config=None, job=None) -> tuple:
+    """Phase 20 (module docstring) on ``pipe``'s resident trees; ``keep``
+    holds phase 4's ``icosphere.glb`` and ``icosphere.png``.  ``job``:
+    (mesh path, image path), by default the icosphere of ``make_assets``;
+    ``config``: the job's pipeline config (default: ``DEFAULT_CONFIG``
+    with ``STEPS`` steps).  Returns the launches of the forwards and the
+    job (the merge's comparison launches left out)."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from unitex_torch.config import DEFAULT_CONFIG
+    from unitex_torch.geometry.io.mesh_io import load_mesh
+    from unitex_torch.models.flux.model import flux_forward, tp_config
+    from unitex_torch.models.flux.sp import flux_forward_sp
+    from unitex_torch.ops.ring_attention import ring_block, ring_finish, ring_merge
+    from unitex_torch.parallel.mesh import make_mesh
+    from unitex_torch.parallel.sharding import shard_flux_params
+    from unitex_torch.pipeline import CustomRGBTextureFullPipeline
+    from unitex_torch.utils.image_io import to_uint8_device
+
+    cuda = device == "cuda"
+    cfg, params = pipe.flux_cfg, pipe.transformer_params
+    per_forward = cfg.num_layers + cfg.num_single_layers if cuda else 0
+    work = tempfile.mkdtemp(prefix="chip_smoke_parallel_")
+    store = dist.FileStore(os.path.join(work, "store"), 1)
+    dist.init_process_group("nccl" if cuda else "gloo", store=store, rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh(data=1, model=1, device=device)
+        print(f"[parallel] process group {dist.get_backend()} world "
+              f"{dist.get_world_size()}, mesh {mesh.shape} on {mesh.device}",
+              flush=True)
+        g = torch.Generator(device=device).manual_seed(20)
+        img_ids = parallel_ids(torch, latents, device)
+        S_img = img_ids.shape[0]
+        args = [torch.randn((1, S_img, cfg.in_channels), generator=g,
+                            device=device),
+                torch.randn((1, s_txt, cfg.joint_attention_dim), generator=g,
+                            device=device),
+                torch.tensor([0.6], device=device),
+                torch.randn((1, cfg.pooled_projection_dim), generator=g,
+                            device=device),
+                img_ids, torch.zeros((s_txt, 3), device=device),
+                torch.tensor([3.5], device=device)]
+        seq = mesh.group("seq")
+        qk8 = dataclasses.replace(cfg, attn_qk8=True)
+        shard = shard_flux_params(params, mesh)
+        group = mesh.group("model")
+        # name: (forward, the forward it is held to, limit, kernel counted)
+        runs = {
+            "one device": (lambda: flux_forward(params, cfg, *args),
+                           None, None, 0),
+            "TP": (lambda: flux_forward(shard, tp_config(cfg, group), *args),
+                   "one device", PAR_REL, 0),
+            "Ulysses": (lambda: flux_forward_sp(params, cfg, *args,
+                                                seq_axis=seq,
+                                                sp_mode="ulysses"),
+                        "one device", PAR_ULYSSES_REL, 0),
+            "ring": (lambda: flux_forward_sp(params, cfg, *args, seq_axis=seq,
+                                             sp_mode="ring"),
+                     "one device", PAR_REL, 0),
+            # attn_qk8: kernel B3 on the local heads
+            "one device, attn_qk8": (lambda: flux_forward(params, qk8, *args),
+                                     None, None, 3),
+            "TP, attn_qk8": (lambda: flux_forward(shard, tp_config(qk8, group),
+                                                  *args),
+                             "one device, attn_qk8", PAR_REL, 3),
+        }
+        _reset(attn)
+        outs = {}
+        with torch.no_grad():
+            for name, (fn, _, _, kernel) in runs.items():
+                # twice: the first call starts the groups' communicators
+                walls, counts = [], []
+                for _ in range(2):
+                    before = _counts(attn)
+                    t0 = time.perf_counter()
+                    outs[name] = fn()
+                    torch.cuda.synchronize()
+                    walls.append(time.perf_counter() - t0)
+                    counts.append(tuple(a - b for a, b in
+                                        zip(_counts(attn), before)))
+                want = tuple(per_forward if i == kernel else 0
+                             for i in range(len(COUNTED)))
+                print(f"[parallel] flux_forward {name}: S = {s_txt} + {S_img}, "
+                      f"{walls[1]:.3f}s (first call {walls[0]:.3f}s), "
+                      f"{COUNTED[kernel]} launches {counts[1][kernel]} a call",
+                      flush=True)
+                if counts != [want] * 2:
+                    raise AssertionError(f"parallel: {name} launched {COUNTED} "
+                                         f"{counts}, expected {want} a call")
+        forwards = _counts(attn)
+        for name, (_, against, rel, _) in runs.items():
+            if against is None:
+                continue
+            ref = outs[against].float()
+            scale = float(ref.abs().max())
+            out = outs[name].float()
+            err = float((out - ref).abs().max())
+            print(f"[parallel] {name} against {against}: max|d| {err:.3e} "
+                  f"({err / scale:.2e} of max|ref| {scale:.3f}, limit {rel}), "
+                  f"bit-equal {bool(torch.equal(out, ref))}", flush=True)
+            if not (out.shape == ref.shape and bool(torch.isfinite(out).all())
+                    and err <= rel * scale):
+                raise AssertionError(f"parallel: {name} {err} > {rel} x {scale}")
+        del shard
+        del outs, ref
+
+        # the ring's merge on one card: 4 query blocks x 4 key blocks
+        H, D = (24, 128) if cuda else (cfg.num_attention_heads,
+                                       cfg.attention_head_dim)
+        dtype = torch.bfloat16 if cuda else torch.float32
+        q, k, v = (torch.randn((1, ring_s, H, D), generator=g, device=device,
+                               dtype=dtype) for _ in range(3))
+        b = ring_s // 4
+        t0 = time.perf_counter()
+        want, _ = attn.flash_attention(q, k, v)
+        torch.cuda.synchronize()
+        t_one = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        blocks = []
+        for i in range(4):
+            state = None
+            for j in range(4):
+                state = ring_merge(state, *ring_block(
+                    q[:, i * b:(i + 1) * b], k[:, j * b:(j + 1) * b],
+                    v[:, j * b:(j + 1) * b]))
+            blocks.append(ring_finish(state, dtype))
+        got = torch.cat(blocks, dim=1)
+        torch.cuda.synchronize()
+        t_ring = time.perf_counter() - t0
+        err = float((got.float() - want.float()).abs().max())
+        ref_max = float(want.float().abs().max())
+        tol = min(OUT_TOL, OUT_REL * ref_max)
+        print(f"[parallel] ring merge 4 x 4 blocks of [1, {b}, {H}, {D}]: "
+              f"max|d| {err:.3e} against one B1 launch at S = {ring_s} "
+              f"(limit {tol:.3e}); {t_ring * 1e3:.2f} ms against "
+              f"{t_one * 1e3:.2f} ms (first calls, host clock)", flush=True)
+        if not err <= tol:
+            raise AssertionError(f"parallel: ring merge {err} > {tol}")
+        del q, k, v, want, got, blocks, state
+
+        # one job through the pipeline's multi-rank path
+        if config is None:
+            config = dataclasses.replace(
+                DEFAULT_CONFIG, diffusion=dataclasses.replace(
+                    DEFAULT_CONFIG.diffusion, num_inference_steps=STEPS))
+        if job is None:
+            job = next((m, i) for name, m, i in make_assets(work)
+                       if name == "icosphere")
+        ranked = CustomRGBTextureFullPipeline(config=config, device=device,
+                                              mesh=mesh)
+        ranked.flux_cfg, ranked.vae_cfg = cfg, pipe.vae_cfg
+        ranked.set_flux_trees(params, pipe.vae_params, pipe.texture_lora,
+                              pipe.delight_lora)
+        _reset(attn)
+        t0 = time.perf_counter()
+        _, glb = ranked(os.path.join(work, "job"), job[1], job[0])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        job_n = _counts(attn)
+        tex = ranked.last_texture
+        size = config.bake.uv_size
+        want_n = 57 * 2 * config.diffusion.num_inference_steps if cuda else 0
+        psnr = None
+        ref_glb = os.path.join(keep, "icosphere.glb")
+        if os.path.exists(ref_glb):
+            a = load_mesh(ref_glb).texture.astype(np.float64) / 255.0
+            got = to_uint8_device(tex).cpu().numpy().astype(np.float64)
+            mse = float(np.mean((got / 255.0 - a) ** 2))
+            psnr = 10 * math.log10(1.0 / max(mse, 1e-20))
+        print(f"[parallel] icosphere job on the one-rank mesh: {wall:.2f}s, "
+              f"B1 launches {job_n[0]}, texture {tuple(tex.shape)}, PSNR "
+              f"against phase 4's job {psnr if psnr is None else round(psnr, 2)}"
+              f" dB", flush=True)
+        if not (os.path.exists(glb) and tuple(tex.shape) == (size, size, 3)
+                and bool(torch.isfinite(tex).all())
+                and _only(job_n, B1=want_n)):
+            raise AssertionError(f"parallel: job {glb} {tuple(tex.shape)} "
+                                 f"launches {job_n}, expected B1 {want_n}")
+        del ranked
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(work, ignore_errors=True)
+    return tuple(a + b for a, b in zip(forwards, job_n))
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "unitex_torch", "csrc")):
         return fail("run from a checkout of the repository (unitex_torch/ "
@@ -3377,6 +3604,16 @@ def main() -> int:
         print(f"[redux] phase 19 {time.perf_counter() - t0:.1f}s", flush=True)
         if not _only(redux, B1=57 * STEPS):
             return fail(f"launches {COUNTED} {redux} in phase 19")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # phase 20: multi-GPU serving at world 1 over NCCL
+        t0 = time.perf_counter()
+        parallel = run_parallel(attn, torch, pipe, tools_dir)
+        torch.cuda.synchronize()
+        print(f"[parallel] phase 20 {time.perf_counter() - t0:.1f}s", flush=True)
+        if not _only(parallel, B1=57 * 8 + 57 * 2 * STEPS, B3=57 * 4):
+            return fail(f"launches {COUNTED} {parallel} in phase 20")
     finally:
         shutil.rmtree(tools_dir, ignore_errors=True)
     gc.collect()
@@ -3499,10 +3736,11 @@ def main() -> int:
         return fail(f"launches {COUNTED} {_counts(attn)} in the text encoders")
 
     paths = ("matting", "serve", "http_serve", "texture_tools", "redux",
-             "train", "ltm", "cli", "flux_launcher", "int8_serve", "sr_options",
-             "tsdsr_train", "oracle")
-    for rec, *n in zip(records, matting, serve, http, tools, redux, train, ltm,
-                       cli, flux_launcher, int8, sr_options, tsdsr, oracle):
+             "parallel", "train", "ltm", "cli", "flux_launcher", "int8_serve",
+             "sr_options", "tsdsr_train", "oracle")
+    for rec, *n in zip(records, matting, serve, http, tools, redux, parallel,
+                       train, ltm, cli, flux_launcher, int8, sr_options, tsdsr,
+                       oracle):
         rec["launches"] = sum(n)
         rec["launches_by_path"] = dict(zip(paths, n))
     # B1 at the Redux job's S: its launches are the Redux job's, all at

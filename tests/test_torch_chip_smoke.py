@@ -362,3 +362,65 @@ def test_redux_phase_rehearses_on_the_cpu(tmp_path, monkeypatch, capsys):
                 "[scripts] roundtrip_oracle", "worst PSNR 120.0 dB",
                 "[scripts] check_meshes"):
         assert tag in out, tag
+
+
+def test_parallel_phase_rehearses_on_the_cpu(tmp_path, monkeypatch, capsys):
+    """Phase 20 on the CPU at tiny sizes, over a one-rank gloo group: the
+    tiny FLUX forward on one device, through TP, Ulysses and the ring; the
+    4 x 4 ring merge; one job through the pipeline's multi-rank path (no
+    kernel launches on the CPU: the gate expects none), scored against
+    the same job on the plain pipeline."""
+    import dataclasses
+    import types
+
+    import numpy as np
+    import torch
+    from PIL import Image
+    from torch_cpu_share import share_cpu
+
+    from unitex_torch.geometry.io.mesh_io import save_mesh
+    from unitex_torch.geometry.primitives import make_icosphere
+    from unitex_torch.models.flux import model as tmodel
+    from unitex_torch.models.flux import vae as tvae
+    from unitex_torch.models.flux.config import FluxConfig
+    from unitex_torch.ops import attention as attn
+    from unitex_torch.pipeline import CustomRGBTextureFullPipeline
+    from torch_dist_workers import pipeline_config
+
+    share_cpu()
+    cs = _chip_smoke()
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    fcfg, vcfg = FluxConfig.tiny(), tvae.VAEConfig.tiny()
+    mesh_path = str(tmp_path / "input.obj")
+    save_mesh(mesh_path, make_icosphere(3))
+    img = np.full((64, 64, 3), 255, np.uint8)
+    img[16:48, 16:48] = [200, 60, 30]
+    img_path = str(tmp_path / "image.png")
+    Image.fromarray(img).save(img_path)
+    config = pipeline_config()
+    pipe = CustomRGBTextureFullPipeline(config=config, device="cpu")
+    pipe.flux_cfg, pipe.vae_cfg = fcfg, vcfg
+    pipe.transformer_params = tmodel.init_flux_params(
+        torch.Generator().manual_seed(0), fcfg, device="cpu")
+    pipe.vae_params = tvae.init_vae_params(torch.Generator().manual_seed(1),
+                                           vcfg, device="cpu")
+    pipe._flux_loaded = True
+    pipe(str(tmp_path / "phase4"), img_path, mesh_path)
+    pipe.flush_io()
+    os.replace(tmp_path / "phase4" / "textured_mesh.glb",
+               tmp_path / "icosphere.glb")
+    cs._reset(attn)
+    n = cs.run_parallel(attn, torch, pipe, str(tmp_path), device="cpu",
+                        latents=((2, 4), (2, 4, 1), (2, 2, 1)), s_txt=8,
+                        ring_s=32, config=config, job=(mesh_path, img_path))
+    out = capsys.readouterr().out
+    assert n == cs.NONE
+    assert "[parallel] process group gloo world 1" in out
+    assert "Ulysses against one device: max|d| 0.000e+00" in out
+    for tag in ("TP against one device", "ring against one device",
+                "TP, attn_qk8 against one device, attn_qk8",
+                "[parallel] ring merge 4 x 4 blocks of [1, 8, 4, 32]",
+                "PSNR against phase 4's job"):
+        assert tag in out, tag
+    psnr = float(out.split("PSNR against phase 4's job ")[1].split(" dB")[0])
+    assert psnr >= 50.0, out

@@ -332,8 +332,17 @@ def test_run_flux_pipeline_matches_jax(flux_tree, vae_tree):
 
 
 def test_deferred_branches_raise():
+    """Tensor and sequence parallelism run (tests/test_torch_parallel.py,
+    tests/test_torch_sp.py); a config naming an axis instead of holding
+    its process group is refused, and so is cutting an int8 serving tree
+    across ranks (its fused leaves need per-part cuts: deferred)."""
+    from unitex_torch.parallel.sharding import shard_node
+
     for parallel in ({"seq_axis": "seq"}, {"tp_axis": "model"}):
-        with pytest.raises(NotImplementedError, match="parallelism"):
-            tmodel.flux_forward({}, dataclasses.replace(TFluxConfig.tiny(),
-                                                        **parallel),
-                                *[None] * 6)
+        with pytest.raises(TypeError, match="process group"):
+            dataclasses.replace(TFluxConfig.tiny(), **parallel)
+    for path, node in ((("dual_blocks", "attn", "qkv_fused"), {}),
+                       (("dual_blocks", "ff", "in"),
+                        {"kernel_int8": torch.zeros(2, 4, 4, dtype=torch.int8)})):
+        with pytest.raises(NotImplementedError, match="int8"):
+            shard_node(path, node, 0, 2)

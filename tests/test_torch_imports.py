@@ -60,7 +60,10 @@ def test_guard_sees_every_source():
                    "render/volume.py", "render/field_vis.py", "render/viewer.py",
                    "utils/metrics.py", "scripts/view_mesh.py",
                    "scripts/roundtrip_oracle.py", "scripts/compare_golden.py",
-                   "scripts/check_meshes.py", "scripts/merge_reports.py"):
+                   "scripts/check_meshes.py", "scripts/merge_reports.py",
+                   "parallel/mesh.py", "parallel/sharding.py",
+                   "ops/ring_attention.py", "models/flux/sp.py",
+                   "scripts/probe_multi_gpu.py"):
         assert os.path.join(REPO, "unitex_torch", *module.split("/")) in files
 
 
@@ -249,3 +252,24 @@ def test_redux_viewer_and_tool_scripts_default_to_cuda(tmp_path):
         ReduxConditioner(str(tmp_path))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         roundtrip_oracle.main(["--uv-size", "64"])
+
+
+def test_multi_gpu_entry_points_default_to_cuda_and_nccl():
+    """The mesh and the multi-rank pipeline run on the card (NCCL) unless
+    asked for the CPU (gloo); without a card the mesh raises before any
+    process group starts."""
+    import inspect
+
+    import torch.distributed as dist
+
+    from unitex_torch.models.sd3.sr_pipeline import TSDSRPipeline
+    from unitex_torch.parallel.mesh import make_mesh
+
+    assert inspect.signature(make_mesh).parameters["device"].default == "cuda"
+    assert inspect.signature(TSDSRPipeline.__init__).parameters[
+        "device"].default == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: nothing to refuse")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_mesh(store=object(), rank=0, world_size=1)
+    assert not dist.is_initialized()

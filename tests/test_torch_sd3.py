@@ -107,9 +107,14 @@ def test_patchify_matches_jax():
 
 
 def test_seq_axis_is_refused():
-    with pytest.raises(NotImplementedError, match="sequence parallelism"):
-        dataclasses.replace(TSD3Config.tiny(), seq_axis="sp")
-    with pytest.raises(NotImplementedError, match="mesh"):
+    """A config's sequence and tensor axes hold process groups: a bare axis
+    name is refused (``mesh.group(name)`` resolves it), and so is a mesh
+    that is not ``parallel.mesh.Mesh``.  Sequence parallelism itself runs
+    (tests/test_torch_sp.py)."""
+    for axis in ("seq_axis", "tp_axis"):
+        with pytest.raises(TypeError, match="process group"):
+            dataclasses.replace(TSD3Config.tiny(), **{axis: "sp"})
+    with pytest.raises(TypeError, match="Mesh"):
         tsr.TSDSRPipeline(None, mesh=object(), device="cpu")
 
 

@@ -114,8 +114,9 @@ class SRConfig:
 @dataclasses.dataclass(frozen=True)
 class ParallelConfig:
     """Device-mesh layout.  data axis = views/batch, model axis = TP over
-    attention heads + MLP.  The port runs on one device; multi-device
-    layouts are not ported yet."""
+    attention heads + MLP.  A pipeline whose process group spans more than
+    one rank builds ``make_mesh(data=data_size, model=-1)``
+    (``parallel/mesh.py``)."""
 
     data_axis: str = "data"
     model_axis: str = "model"

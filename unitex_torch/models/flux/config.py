@@ -3,16 +3,27 @@
 Architecture hyperparameters of black-forest-labs/FLUX.1-dev
 (FluxTransformer2DModel).  ``tiny()`` is a scaled-down config for CPU
 tests (same topology).  ``attn_qk8`` sends every block's attention through
-the int8-QK kernel B3 (serving, forward only).  The fields of the
-parallel variants are kept so configs carry over, but the port runs only
-the single-device forward (with ``remat``): ``flux_forward`` raises
-``NotImplementedError`` when ``seq_axis`` or ``tp_axis`` is set.
+the int8-QK kernel B3 (serving, forward only).  ``tp_axis`` and
+``seq_axis`` hold ``torch.distributed`` process groups (``parallel/
+mesh.Mesh.group``): tensor parallelism over the first (the blocks then
+hold Megatron slices and ``num_attention_heads`` is the local head count:
+``model.tp_config``), the token sequence cut over the second
+(``sp.flux_forward_sp``), with ``sp_mode`` "ulysses", "ring" or "auto".
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Any, Tuple
+
+
+def check_groups(cfg) -> None:
+    """A config's ``seq_axis`` / ``tp_axis`` hold process groups (or
+    ``None``); a mesh axis name is resolved first (``Mesh.group``)."""
+    for field in ("seq_axis", "tp_axis"):
+        if isinstance(getattr(cfg, field, None), str):
+            raise TypeError(f"{field} holds a process group, not the name "
+                            f"{getattr(cfg, field)!r}: pass mesh.group(name)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,9 +42,12 @@ class FluxConfig:
     dtype: str = "bfloat16"
     remat: bool = False
     attn_qk8: bool = False
-    seq_axis: "str | None" = None
+    seq_axis: Any = None      # process group the sequence is cut over
     sp_mode: str = "auto"
-    tp_axis: "str | None" = None
+    tp_axis: Any = None       # process group of the tensor-parallel ranks
+
+    def __post_init__(self):
+        check_groups(self)
 
     @property
     def hidden_size(self) -> int:

@@ -11,6 +11,10 @@ memory-mapped (:class:`SafetensorsDict`), each leaf is allocated once on
 the target device in its final dtype, and each source tensor is read,
 moved to the device and copied into its slot (the transpose and the cast
 happen in that one device copy).  Host memory stays near one tensor.
+With a ``mesh`` (``parallel/mesh.py``) each linear node is cut to this
+rank's tensor-parallel slices as soon as it is filled
+(``parallel/sharding.shard_hook``), so a rank holds its slices and one
+full stacked node at a time.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ from typing import Any, Dict, Iterator, Optional
 
 import torch
 
+from ...parallel.sharding import shard_hook
 from ...utils.precision import resolve_device
 from .config import FluxConfig
 from .vae import VAEConfig
@@ -102,16 +107,21 @@ def _view(x, kind: str) -> torch.Tensor:
     return t
 
 
-def _materialize(names, sd, device, dtype, n_layers: Optional[int] = None):
+def _materialize(names, sd, device, dtype, n_layers: Optional[int] = None,
+                 hook=None, path=()):
     """The parameter tree of a name tree.  Each leaf is allocated once on
     ``device`` (in ``dtype``, or the source's) and filled layer by layer:
     the source tensor goes to the device as stored, and one copy there
-    transposes and casts it into its slot."""
+    transposes and casts it into its slot.  ``hook(path, node)`` replaces
+    each linear node once it is filled."""
     if isinstance(names, dict):
-        return {k: _materialize(v, sd, device, dtype, n_layers)
+        node = {k: _materialize(v, sd, device, dtype, n_layers, hook,
+                                path + (k,))
                 for k, v in names.items()}
+        return hook(path, node) if hook is not None and "kernel" in node else node
     if isinstance(names, list):
-        return [_materialize(v, sd, device, dtype, n_layers) for v in names]
+        return [_materialize(v, sd, device, dtype, n_layers, hook, path + (i,))
+                for i, v in enumerate(names)]
     name, kind = names
     layers = [None] if n_layers is None else range(n_layers)
     out = None
@@ -191,28 +201,33 @@ def _flux_names(sd: Mapping, cfg: FluxConfig):
 
 def flux_params_from_state_dict(
     sd: Mapping, cfg: FluxConfig, device="cuda",
-    dtype: Optional[torch.dtype] = None,
+    dtype: Optional[torch.dtype] = None, mesh=None,
 ) -> Dict[str, Any]:
     """Map a diffusers ``FluxTransformer2DModel`` state dict (tensors or
     numpy arrays by name) into the ``init_flux_params`` tree on
-    ``device``, cast to ``dtype`` (default: as stored)."""
+    ``device``, cast to ``dtype`` (default: as stored); with ``mesh``,
+    this rank's tensor-parallel slices of it."""
     dev = resolve_device(device)
+    hook = None if mesh is None else shard_hook(mesh)
     top, dual, single = _flux_names(sd, cfg)
     params = _materialize(top, sd, dev, dtype)
-    params["dual_blocks"] = _materialize(dual, sd, dev, dtype, cfg.num_layers)
+    params["dual_blocks"] = _materialize(dual, sd, dev, dtype, cfg.num_layers,
+                                         hook, ("dual_blocks",))
     params["single_blocks"] = _materialize(single, sd, dev, dtype,
-                                           cfg.num_single_layers)
+                                           cfg.num_single_layers, hook,
+                                           ("single_blocks",))
     return params
 
 
 def load_flux_transformer(
     path: str, cfg: FluxConfig, device="cuda",
-    dtype: Optional[torch.dtype] = None,
+    dtype: Optional[torch.dtype] = None, mesh=None,
 ) -> Dict[str, Any]:
     """The transformer tree of a diffusers model directory (or one
-    ``.safetensors`` file), streamed onto ``device``."""
+    ``.safetensors`` file), streamed onto ``device`` (with ``mesh``: this
+    rank's slices)."""
     with iter_safetensors(path) as sd:
-        return flux_params_from_state_dict(sd, cfg, device, dtype)
+        return flux_params_from_state_dict(sd, cfg, device, dtype, mesh)
 
 
 # ------------------------------------------------------------------- VAE

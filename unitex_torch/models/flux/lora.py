@@ -168,18 +168,20 @@ def _merged(kernel, a, b, scale):
 
 def _walk(base, delta, scale, merged_kernel):
     """``base`` with ``merged_kernel(kernel, {"a", "b"}, scale)`` in place
-    of each kernel that ``delta`` targets; other leaves are shared."""
+    of each kernel that ``delta`` targets (a linear node's ``kernel``, or a
+    kernel leaf an adapter names directly: the ``kernel_attn`` /
+    ``kernel_mlp`` parts of a tensor-parallel ``proj_out``); other leaves
+    are shared."""
     out = {}
     for k, v in base.items():
-        if isinstance(v, dict) and k in delta:
-            d = delta[k]
-            if "a" in d and "b" in d:
-                out[k] = dict(v)
-                out[k]["kernel"] = merged_kernel(v["kernel"], d, scale)
-            else:
-                out[k] = _walk(v, d, scale, merged_kernel)
-        else:
+        d = delta.get(k)
+        if not isinstance(d, dict):
             out[k] = v
+        elif "a" in d and "b" in d:
+            out[k] = ({**v, "kernel": merged_kernel(v["kernel"], d, scale)}
+                      if isinstance(v, dict) else merged_kernel(v, d, scale))
+        else:
+            out[k] = _walk(v, d, scale, merged_kernel)
     return out
 
 

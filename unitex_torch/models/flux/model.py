@@ -10,6 +10,17 @@ kernel B1 on the card, with kernels B2a/B2b as its backward, or with
 the leaf names, so it serves the bf16, int8 and fused trees of
 ``quantize.py`` alike.
 
+Tensor and sequence parallelism (serving, forward only; the collectives
+are not differentiated): with ``cfg.tp_axis`` a process group, the blocks
+take this rank's Megatron slices (``parallel/sharding.shard_flux_params``,
+the config from :func:`tp_config` with the local head count), gather the
+AdaLN modulations and ``all_reduce`` after each row-parallel product
+(``layers.row_linear``, the pre-split ``proj_out`` of the single blocks).
+With ``cfg.seq_axis`` a process group, the tokens given are this rank's
+block of the sequence and attention runs Ulysses or the ring over the
+group (``ops/ring_attention.py``; ``models/flux/sp.flux_forward_sp`` cuts
+and gathers the sequence).
+
 The forward runs under autograd (serving callers wrap it in
 ``torch.no_grad``).  ``cfg.remat`` runs each block under
 ``torch.utils.checkpoint`` (the JAX ``jax.checkpoint``), and a LoRA tree
@@ -21,10 +32,15 @@ from __future__ import annotations
 
 from typing import Any, Dict, Optional
 
+import dataclasses
+
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ...ops.ring_attention import sequence_parallel_attention
+from ...parallel.sharding import gather
 from ...utils.params import Spec, init_from_spec, linear_spec
 from ...utils.precision import resolve_device
 from .config import FluxConfig
@@ -38,6 +54,7 @@ from .layers import (
     mlp_embedder,
     rms_norm,
     rope_freqs,
+    row_linear,
     sdpa,
     sinusoidal_embedding,
 )
@@ -108,15 +125,31 @@ def flux_param_spec(cfg: FluxConfig) -> Spec:
 
 def init_flux_params(
     generator: torch.Generator, cfg: FluxConfig, device="cuda",
-    dtype: Optional[torch.dtype] = None,
+    dtype: Optional[torch.dtype] = None, hook=None,
 ) -> Params:
     """Random FLUX tree made on ``device`` in ``dtype`` (default: the
     config's compute dtype) — the same leaf names and shapes as the JAX
-    package's ``init_flux_params``; the numbers differ (another PRNG)."""
+    package's ``init_flux_params``; the numbers differ (another PRNG).
+    ``hook(path, node)`` replaces each linear node as it is made
+    (``parallel/sharding.shard_hook``: this rank's slices of the tree
+    every rank draws alike)."""
     if dtype is None:
         dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
     return init_from_spec(flux_param_spec(cfg), generator,
-                          resolve_device(device), dtype)
+                          resolve_device(device), dtype, hook=hook)
+
+
+def tp_config(cfg, group):
+    """A FLUX or SD3 config for the blocks' Megatron slices over
+    ``group``: its ``tp_axis``, and the local head count (as in the JAX
+    package, whose tensor-parallel blocks see ``num_attention_heads`` per
+    shard)."""
+    n = dist.get_world_size(group)
+    if cfg.num_attention_heads % n or cfg.mlp_dim % n:
+        raise ValueError(f"{cfg.num_attention_heads} heads / mlp "
+                         f"{cfg.mlp_dim} do not split over {n} ranks")
+    return dataclasses.replace(
+        cfg, tp_axis=group, num_attention_heads=cfg.num_attention_heads // n)
 
 
 def layer(stacked: Params, i: int) -> Params:
@@ -134,8 +167,23 @@ def _heads(x: torch.Tensor, heads: int) -> torch.Tensor:
     return x.reshape(B, S, heads, -1)
 
 
-def _joint_attention(p, cfg, hidden, context, cos, sin):
-    """Dual-stream joint attention: text tokens first in the sequence."""
+def _attention(cfg: FluxConfig, q, k, v):
+    """Attention on [B, S, H, D]: over ``cfg.seq_axis``'s ranks (Ulysses or
+    the ring, ``cfg.sp_mode``) when the sequence is cut, else ``sdpa``."""
+    def local(a, b, c):
+        return sdpa(a, b, c, qk8=cfg.attn_qk8)
+
+    if cfg.seq_axis is not None:
+        return sequence_parallel_attention(q, k, v, cfg.seq_axis, cfg.sp_mode,
+                                           attn_fn=local)
+    return local(q, k, v)
+
+
+def _joint_attention(p, cfg, hidden, context, cos, sin, kv_keep_idx=None):
+    """Dual-stream joint attention: text tokens first in the sequence.
+    ``kv_keep_idx`` [S_kept] subselects the joint K/V sequence (queries
+    stay full): the training-time token dropping of the reference's
+    RandomDropFluxAttnProcessor2_0."""
     H = cfg.num_attention_heads
     if "qkv_fused" in p:
         # fused serving form (quantize.py): one wide projection per stream
@@ -157,14 +205,17 @@ def _joint_attention(p, cfg, hidden, context, cos, sin):
     q = apply_rope(torch.cat([cq, q], dim=1), cos, sin)
     k = apply_rope(torch.cat([ck, k], dim=1), cos, sin)
     v = torch.cat([cv, v], dim=1)
-    out = sdpa(q, k, v, qk8=cfg.attn_qk8)
+    if kv_keep_idx is not None:
+        k, v = k[:, kv_keep_idx], v[:, kv_keep_idx]
+    out = _attention(cfg, q, k, v)
     out = out.reshape(out.shape[0], out.shape[1], -1)
     S_txt = context.shape[1]
     ctx_out, img_out = out[:, :S_txt], out[:, S_txt:]
-    return linear(p["to_out"], img_out), linear(p["to_add_out"], ctx_out)
+    return (row_linear(p["to_out"], img_out, cfg.tp_axis),
+            row_linear(p["to_add_out"], ctx_out, cfg.tp_axis))
 
 
-def _single_attention(p, cfg, x, cos, sin, qkv=None):
+def _single_attention(p, cfg, x, cos, sin, qkv=None, kv_keep_idx=None):
     """``qkv``: the q/k/v projections, when the fused serving projection
     has already computed them."""
     H = cfg.num_attention_heads
@@ -174,48 +225,72 @@ def _single_attention(p, cfg, x, cos, sin, qkv=None):
     q = rms_norm(_heads(qf, H), p["norm_q"])
     k = rms_norm(_heads(kf, H), p["norm_k"])
     v = _heads(vf, H)
-    out = sdpa(apply_rope(q, cos, sin), apply_rope(k, cos, sin), v,
-               qk8=cfg.attn_qk8)
+    k = apply_rope(k, cos, sin)
+    if kv_keep_idx is not None:
+        k, v = k[:, kv_keep_idx], v[:, kv_keep_idx]
+    out = _attention(cfg, apply_rope(q, cos, sin), k, v)
     return out.reshape(out.shape[0], out.shape[1], -1)
 
 
-def _ada_ln_zero(p, temb, n=6):
+def _ada_ln_zero(p, temb, n=6, group=None):
+    """The block's ``n`` modulations [B, 1, d] each.  Under tensor
+    parallelism ``lin`` holds this rank's columns, and the [B, n·d/ranks]
+    slices are gathered."""
     mods = linear(p["lin"], F.silu(temb))
+    if group is not None:
+        mods = gather(mods, group, dim=-1)
     return torch.chunk(mods[:, None, :], n, dim=-1)
 
 
-def _dual_block(p, cfg, hidden, context, temb, cos, sin):
-    sh_a, sc_a, g_a, sh_m, sc_m, g_m = _ada_ln_zero(p["norm1"], temb, 6)
+def _dual_block(p, cfg, hidden, context, temb, cos, sin, kv_keep_idx=None):
+    tp = cfg.tp_axis
+    sh_a, sc_a, g_a, sh_m, sc_m, g_m = _ada_ln_zero(p["norm1"], temb, 6, tp)
     csh_a, csc_a, cg_a, csh_m, csc_m, cg_m = _ada_ln_zero(
-        p["norm1_context"], temb, 6)
+        p["norm1_context"], temb, 6, tp)
     h_norm = layer_norm(hidden) * (1 + sc_a) + sh_a
     c_norm = layer_norm(context) * (1 + csc_a) + csh_a
-    h_attn, c_attn = _joint_attention(p["attn"], cfg, h_norm, c_norm, cos, sin)
+    h_attn, c_attn = _joint_attention(p["attn"], cfg, h_norm, c_norm, cos, sin,
+                                      kv_keep_idx)
     hidden = hidden + g_a * h_attn
     context = context + cg_a * c_attn
     h_mlp = layer_norm(hidden) * (1 + sc_m) + sh_m
-    hidden = hidden + g_m * linear(
-        p["ff"]["out"], gelu_tanh(linear(p["ff"]["in"], h_mlp)))
+    hidden = hidden + g_m * row_linear(
+        p["ff"]["out"], gelu_tanh(linear(p["ff"]["in"], h_mlp)), tp)
     c_mlp = layer_norm(context) * (1 + csc_m) + csh_m
-    context = context + cg_m * linear(
-        p["ff_context"]["out"], gelu_tanh(linear(p["ff_context"]["in"], c_mlp)))
+    context = context + cg_m * row_linear(
+        p["ff_context"]["out"], gelu_tanh(linear(p["ff_context"]["in"], c_mlp)),
+        tp)
     return hidden, context
 
 
-def _single_block(p, cfg, x, temb, cos, sin):
-    sh, sc, gate = _ada_ln_zero(p["norm"], temb, 3)
+def _single_block(p, cfg, x, temb, cos, sin, kv_keep_idx=None):
+    sh, sc, gate = _ada_ln_zero(p["norm"], temb, 3, cfg.tp_axis)
     x_norm = layer_norm(x) * (1 + sc) + sh
     if "qkvm_fused" in p:
         d = cfg.hidden_size
         fused = linear(p["qkvm_fused"], x_norm)
         qkv = (fused[..., :d], fused[..., d:2 * d], fused[..., 2 * d:3 * d])
-        attn_out = _single_attention(p["attn"], cfg, x_norm, cos, sin, qkv)
+        attn_out = _single_attention(p["attn"], cfg, x_norm, cos, sin, qkv,
+                                     kv_keep_idx)
         mlp_out = gelu_tanh(fused[..., 3 * d:])
     else:
-        attn_out = _single_attention(p["attn"], cfg, x_norm, cos, sin)
+        attn_out = _single_attention(p["attn"], cfg, x_norm, cos, sin,
+                                     kv_keep_idx=kv_keep_idx)
         mlp_out = gelu_tanh(linear(p["proj_mlp"], x_norm))
+    po = p["proj_out"]
+    if "kernel_attn" in po:
+        # tensor parallel: proj_out's input rows interleave [attn ‖ mlp],
+        # so it comes pre-split (parallel/sharding.py), each part holding
+        # this rank's rows; the partial products sum over the ranks and
+        # the bias is added once
+        y = (attn_out @ po["kernel_attn"].to(x.dtype)
+             + mlp_out @ po["kernel_mlp"].to(x.dtype))
+        dist.all_reduce(y, group=cfg.tp_axis)
+        if "bias" in po:
+            y = y + po["bias"].to(x.dtype)
+        return x + gate * y
     merged = torch.cat([attn_out, mlp_out], dim=-1)
-    return x + gate * linear(p["proj_out"], merged)
+    return x + gate * linear(po, merged)
 
 
 def _block_params(params: Params, lora: Optional[Dict[str, Any]], stack: str,
@@ -238,6 +313,7 @@ def flux_forward(
     txt_ids: torch.Tensor,
     guidance: Optional[torch.Tensor] = None,
     lora: Optional[Dict[str, Any]] = None,
+    kv_keep_idx: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Velocity prediction for the packed token sequence.
 
@@ -246,11 +322,11 @@ def flux_forward(
     img_ids [S_img, 3], txt_ids [S_txt, 3], guidance [B] (raw cfg scale).
     ``lora``: an adapter tree merged with weight 1 into each block's
     kernels inside the block (the JAX trainer's ``merge_lora`` of the whole
-    tree before the forward, one layer at a time).  Returns
-    [B, S_img, C_in] f32."""
-    if cfg.seq_axis or cfg.tp_axis:
-        raise NotImplementedError(
-            "sequence/tensor parallelism is not ported")
+    tree before the forward, one layer at a time; under tensor
+    parallelism a tree cut by ``shard_flux_params``, whose merge yields this
+    rank's slices).  ``kv_keep_idx`` [S_kept] (indices into the joint
+    [txt ‖ img] sequence) keeps those keys and values in every attention.
+    Returns [B, S_img, C_in] f32."""
     dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
     hidden = linear(params["x_embedder"], hidden_states.to(dtype))
     context = linear(params["context_embedder"], encoder_hidden_states.to(dtype))
@@ -268,11 +344,11 @@ def flux_forward(
 
     def dual(i, h, c):
         return _dual_block(_block_params(params, lora, "dual_blocks", i), cfg,
-                           h, c, temb, cos, sin)
+                           h, c, temb, cos, sin, kv_keep_idx)
 
     def single(i, x):
         return _single_block(_block_params(params, lora, "single_blocks", i),
-                             cfg, x, temb, cos, sin)
+                             cfg, x, temb, cos, sin, kv_keep_idx)
 
     def run(fn, *args):
         if cfg.remat:

@@ -20,7 +20,7 @@ region re-pinned after every step.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -206,7 +206,38 @@ def run_flux_pipeline(
     ``noise`` [HL, WL, C] or [1, HL, WL, C] overrides the initial latent
     noise (else drawn from ``generator``); ``control_eps`` / ``dual_eps``
     supply the VAE posterior draws of the condition encodes (without them
-    the encode is the deterministic mode).  Returns [H, W, 3] in [0, 1]."""
+    the encode is the deterministic mode).  Returns [H, W, 3] in [0, 1].
+
+    The three parts are :func:`flux_inputs`, :func:`flux_denoise` and
+    :func:`flux_decode`; across ranks (``pipeline.py``) rank 0 makes the
+    inputs and decodes, and every rank denoises."""
+    inputs = flux_inputs(flux_cfg, vae_params, vae_cfg, generator, pipe_cfg,
+                         control_image, dual_image, prompt_embeds,
+                         pooled_embeds, noise, control_eps, dual_eps, device)
+    tokens = flux_denoise(transformer_params, flux_cfg, inputs, pipe_cfg)
+    return flux_decode(vae_params, vae_cfg, tokens, pipe_cfg)
+
+
+@torch.no_grad()
+def flux_inputs(
+    flux_cfg: FluxConfig,
+    vae_params,
+    vae_cfg: VAEConfig,
+    generator: Optional[torch.Generator],
+    pipe_cfg: FluxPipelineConfig,
+    control_image: Optional[torch.Tensor] = None,
+    dual_image: Optional[torch.Tensor] = None,
+    prompt_embeds: Optional[torch.Tensor] = None,
+    pooled_embeds: Optional[torch.Tensor] = None,
+    noise=None,
+    control_eps=None,
+    dual_eps=None,
+    device="cuda",
+) -> Dict[str, torch.Tensor]:
+    """The denoise loop's inputs (arguments as :func:`run_flux_pipeline`'s):
+    the packed noise tokens, the VAE-encoded condition tokens (absent
+    without condition images), the position ids and the (zero by default)
+    prompt embeddings, by name."""
     dev = resolve_device(device)
     H, W = pipe_cfg.height, pipe_cfg.width
     vs = vae_cfg.downscale
@@ -251,20 +282,43 @@ def run_flux_pipeline(
                                     dtype=torch.float32, device=dev)
     txt_ids = torch.zeros((prompt_embeds.shape[1], 3), dtype=torch.float32,
                           device=dev)
+    inputs = {"noise": noise_tokens, "img_ids": img_ids, "txt_ids": txt_ids,
+              "prompt_embeds": prompt_embeds, "pooled_embeds": pooled_embeds}
+    if condition_latents is not None:
+        inputs["condition_latents"] = condition_latents
+    return inputs
+
+
+@torch.no_grad()
+def flux_denoise(transformer_params, flux_cfg: FluxConfig,
+                 inputs: Dict[str, torch.Tensor], pipe_cfg: FluxPipelineConfig,
+                 forward_fn=None) -> torch.Tensor:
+    """The flow-match Euler loop over :func:`flux_inputs`' tensors: the
+    denoised noise tokens."""
+    noise = inputs["noise"]
     scheduler = FlowMatchEulerScheduler.create(
-        pipe_cfg.num_inference_steps, noise_tokens.shape[1],
+        pipe_cfg.num_inference_steps, noise.shape[1],
         pipe_cfg.base_image_seq_len, pipe_cfg.max_image_seq_len,
-        pipe_cfg.base_shift, pipe_cfg.max_shift, device=dev,
+        pipe_cfg.base_shift, pipe_cfg.max_shift, device=noise.device,
     )
-    out_tokens = denoise(
-        transformer_params, flux_cfg, noise_tokens, img_ids, txt_ids,
-        prompt_embeds, pooled_embeds, scheduler, pipe_cfg.guidance_scale,
-        condition_latents,
+    return denoise(
+        transformer_params, flux_cfg, noise, inputs["img_ids"],
+        inputs["txt_ids"], inputs["prompt_embeds"], inputs["pooled_embeds"],
+        scheduler, pipe_cfg.guidance_scale, inputs.get("condition_latents"),
         reuse_mask=make_reuse_mask(pipe_cfg.num_inference_steps,
                                    pipe_cfg.velocity_reuse),
+        forward_fn=forward_fn,
     )
-    latents = unpack_latents(out_tokens, HL, WL)
-    image = vae_decode(vae_params, vae_cfg, latents)[0]
+
+
+@torch.no_grad()
+def flux_decode(vae_params, vae_cfg: VAEConfig, tokens: torch.Tensor,
+                pipe_cfg: FluxPipelineConfig) -> torch.Tensor:
+    """Denoised tokens -> the [H, W, 3] image in [0, 1]."""
+    vs = vae_cfg.downscale
+    HL = 2 * (pipe_cfg.height // (vs * 2))
+    WL = 2 * (pipe_cfg.width // (vs * 2))
+    image = vae_decode(vae_params, vae_cfg, unpack_latents(tokens, HL, WL))[0]
     return torch.clamp(image * 0.5 + 0.5, 0.0, 1.0)
 
 

@@ -1,9 +1,17 @@
 """SD3 MMDiT configuration, the TSD-SR backbone (port of
-unitex_tpu/models/sd3/config.py: stable-diffusion-3-medium)."""
+unitex_tpu/models/sd3/config.py: stable-diffusion-3-medium).
+
+``seq_axis`` and ``tp_axis`` hold process groups, as FLUX's do
+(``models/flux/config.py``): the token sequence cut over the first
+(``model.sd3_forward_sp``), tensor parallelism over the second, with the
+blocks' Megatron slices and the local head count (``model.tp_config``)."""
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
+
+from ..flux.config import check_groups
 
 
 @dataclasses.dataclass(frozen=True)
@@ -21,15 +29,12 @@ class SD3Config:
     qk_norm: bool = False              # medium has no qk-norm
     mlp_ratio: float = 4.0
     dtype: str = "bfloat16"
-    # sequence parallelism (the JAX package's sd3_forward_sp) is not
-    # ported: a config that names a sequence axis is refused
-    seq_axis: "str | None" = None
-    sp_mode: str = "auto"
+    seq_axis: Any = None      # process group the sequence is cut over
+    sp_mode: str = "auto"     # "ulysses" | "ring" | "auto"
+    tp_axis: Any = None       # process group of the tensor-parallel ranks
 
     def __post_init__(self):
-        if self.seq_axis is not None:
-            raise NotImplementedError(
-                "SD3 sequence parallelism (seq_axis) is not ported")
+        check_groups(self)
 
     @property
     def hidden_size(self) -> int:

@@ -3,7 +3,8 @@
 ``models/flux/loader.py``: each leaf allocated once on the device in its
 final dtype and filled layer by layer from the memory-mapped shards.  The
 SD3 VAE loads through ``models/flux/loader.load_vae`` with
-``VAEConfig.sd3()``."""
+``VAEConfig.sd3()``.  With a ``mesh`` the blocks' linear nodes are cut to
+this rank's tensor-parallel slices as they are filled."""
 
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from ...parallel.sharding import shard_hook
 from ...utils.precision import resolve_device
 from ..flux.loader import _lin, _materialize, iter_safetensors
 from .config import SD3Config
@@ -50,14 +52,16 @@ def _copy_to(src: torch.Tensor, device, dtype) -> torch.Tensor:
 
 def sd3_params_from_state_dict(
     sd: Mapping, cfg: SD3Config, device="cuda",
-    dtype: Optional[torch.dtype] = None,
+    dtype: Optional[torch.dtype] = None, mesh=None,
 ) -> Dict[str, Any]:
     """Map a diffusers ``SD3Transformer2DModel`` state dict (tensors or
     numpy arrays by name) into the ``init_sd3_params`` tree on ``device``,
-    cast to ``dtype`` (default: as stored).  The ``PatchEmbed`` conv
+    cast to ``dtype`` (default: as stored); with ``mesh``, this rank's
+    tensor-parallel slices of it.  The ``PatchEmbed`` conv
     [d, C, ps, ps] becomes a linear over (C, ph, pw)-flattened patches and
     the [1, pmax², d] position table a [pmax, pmax, d] one."""
     dev = resolve_device(device)
+    hook = None if mesh is None else shard_hook(mesh)
 
     def embedder(prefix):
         return {"in": _lin(sd, f"{prefix}.linear_1"),
@@ -85,17 +89,20 @@ def sd3_params_from_state_dict(
     last = cfg.num_layers - 1
     b = "transformer_blocks"
     params["blocks"] = _materialize(
-        _block_names(sd, f"{b}.{{i}}", f"{b}.0", True), sd, dev, dtype, last)
+        _block_names(sd, f"{b}.{{i}}", f"{b}.0", True), sd, dev, dtype, last,
+        hook, ("blocks",))
     params["final_block"] = _materialize(
-        _block_names(sd, f"{b}.{last}", f"{b}.{last}", False), sd, dev, dtype)
+        _block_names(sd, f"{b}.{last}", f"{b}.{last}", False), sd, dev, dtype,
+        None, hook, ("final_block",))
     return params
 
 
 def load_sd3_transformer(
     path: str, cfg: SD3Config, device="cuda",
-    dtype: Optional[torch.dtype] = None,
+    dtype: Optional[torch.dtype] = None, mesh=None,
 ) -> Dict[str, Any]:
     """The SD3 transformer tree of a diffusers model directory (or one
-    ``.safetensors`` file), streamed onto ``device``."""
+    ``.safetensors`` file), streamed onto ``device`` (with ``mesh``: this
+    rank's slices)."""
     with iter_safetensors(path) as sd:
-        return sd3_params_from_state_dict(sd, cfg, device, dtype)
+        return sd3_params_from_state_dict(sd, cfg, device, dtype, mesh)

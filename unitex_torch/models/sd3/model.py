@@ -10,16 +10,27 @@ shift) order), no guidance embedding, timesteps embedded at scale 1.0.
 Blocks stay stacked [L-1, ...] as in the JAX package, the final block
 apart; the forward walks the stack with a Python loop (the JAX
 ``lax.scan``).  Attention goes through FLUX's ``sdpa``: kernel B1 at
-D = 64 on the card, its plain version on the CPU.  The sequence-parallel
-``sd3_forward_sp`` is not ported.
+D = 64 on the card, its plain version on the CPU.
+
+Serving across ranks, as FLUX (``models/flux/model.py``): with
+``cfg.tp_axis`` the blocks hold this rank's Megatron slices
+(``parallel/sharding.shard_sd3_params``, the config from
+``models/flux/model.tp_config``), gather the AdaLN modulations and ``all_reduce`` after
+the row-parallel products; :func:`sd3_forward_sp` cuts the token sequence
+over ``seq_axis`` (Ulysses or the ring).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+
+from ...ops.ring_attention import sequence_parallel_attention
+from ...parallel.sharding import gather
 
 from ...utils.params import Spec, init_from_spec, linear_spec
 from ...utils.precision import resolve_device
@@ -29,6 +40,7 @@ from ..flux.layers import (
     layer_norm,
     linear,
     mlp_embedder,
+    row_linear,
     sdpa,
     sinusoidal_embedding,
 )
@@ -93,15 +105,16 @@ def sd3_param_spec(cfg: SD3Config) -> Spec:
 
 def init_sd3_params(
     generator: torch.Generator, cfg: SD3Config, device="cuda",
-    dtype: Optional[torch.dtype] = None,
+    dtype: Optional[torch.dtype] = None, hook=None,
 ) -> Params:
     """Random SD3 tree made on ``device`` in ``dtype`` (default: the
     config's compute dtype): the JAX package's leaf names and shapes; the
-    numbers differ (another PRNG)."""
+    numbers differ (another PRNG).  ``hook`` as in FLUX's
+    ``init_flux_params``."""
     if dtype is None:
         dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
     return init_from_spec(sd3_param_spec(cfg), generator,
-                          resolve_device(device), dtype)
+                          resolve_device(device), dtype, hook=hook)
 
 
 # --------------------------------------------------------------- forward
@@ -121,45 +134,56 @@ def _joint_attention(p, cfg: SD3Config, hidden, context, context_out: bool):
     cq = _heads(linear(p["add_q_proj"], context), H)
     ck = _heads(linear(p["add_k_proj"], context), H)
     cv = _heads(linear(p["add_v_proj"], context), H)
-    out = sdpa(torch.cat([cq, q], dim=1), torch.cat([ck, k], dim=1),
-               torch.cat([cv, v], dim=1))
+    q, k, v = (torch.cat(pair, dim=1) for pair in ((cq, q), (ck, k), (cv, v)))
+    if cfg.seq_axis is not None:
+        out = sequence_parallel_attention(q, k, v, cfg.seq_axis, cfg.sp_mode,
+                                          attn_fn=sdpa)
+    else:
+        out = sdpa(q, k, v)
     out = out.reshape(out.shape[0], out.shape[1], -1)
     S_txt = context.shape[1]
     ctx_out, img_out = out[:, :S_txt], out[:, S_txt:]
-    img_out = linear(p["to_out"], img_out)
+    img_out = row_linear(p["to_out"], img_out, cfg.tp_axis)
     if context_out:
-        return img_out, linear(p["to_add_out"], ctx_out)
+        return img_out, row_linear(p["to_add_out"], ctx_out, cfg.tp_axis)
     return img_out, None
 
 
-def _mods(p, temb, n):
-    return torch.chunk(linear(p["lin"], F.silu(temb))[:, None, :], n, dim=-1)
+def _mods(p, temb, n, group=None):
+    """``n`` modulations [B, 1, d]; under tensor parallelism ``lin`` holds
+    this rank's columns and the slices are gathered."""
+    mods = linear(p["lin"], F.silu(temb))
+    if group is not None:
+        mods = gather(mods, group, dim=-1)
+    return torch.chunk(mods[:, None, :], n, dim=-1)
 
 
 def _joint_block(p, cfg: SD3Config, hidden, context, temb,
                  context_pre_only: bool):
-    sh_a, sc_a, g_a, sh_m, sc_m, g_m = _mods(p["norm1"], temb, 6)
+    tp = cfg.tp_axis
+    sh_a, sc_a, g_a, sh_m, sc_m, g_m = _mods(p["norm1"], temb, 6, tp)
     h_norm = layer_norm(hidden) * (1 + sc_a) + sh_a
     if context_pre_only:
         # AdaLayerNormContinuous chunks (scale, shift)
-        csc, csh = _mods(p["norm1_context"], temb, 2)
+        csc, csh = _mods(p["norm1_context"], temb, 2, tp)
         c_norm = layer_norm(context) * (1 + csc) + csh
     else:
         csh_a, csc_a, cg_a, csh_m, csc_m, cg_m = _mods(
-            p["norm1_context"], temb, 6)
+            p["norm1_context"], temb, 6, tp)
         c_norm = layer_norm(context) * (1 + csc_a) + csh_a
     h_attn, c_attn = _joint_attention(p["attn"], cfg, h_norm, c_norm,
                                       context_out=not context_pre_only)
     hidden = hidden + g_a * h_attn
     h_mlp = layer_norm(hidden) * (1 + sc_m) + sh_m
-    hidden = hidden + g_m * linear(
-        p["ff"]["out"], gelu_tanh(linear(p["ff"]["in"], h_mlp)))
+    hidden = hidden + g_m * row_linear(
+        p["ff"]["out"], gelu_tanh(linear(p["ff"]["in"], h_mlp)), tp)
     if context_pre_only:
         return hidden, None
     context = context + cg_a * c_attn
     c_mlp = layer_norm(context) * (1 + csc_m) + csh_m
-    context = context + cg_m * linear(
-        p["ff_context"]["out"], gelu_tanh(linear(p["ff_context"]["in"], c_mlp)))
+    context = context + cg_m * row_linear(
+        p["ff_context"]["out"], gelu_tanh(linear(p["ff_context"]["in"], c_mlp)),
+        tp)
     return hidden, context
 
 
@@ -197,6 +221,18 @@ def sd3_forward(
     autograd, so its gradients reach the adapters (the JAX TSD-SR
     trainer's ``merge_lora`` of the whole tree before the forward, one
     layer at a time).  Returns the velocity [B, H, W, C] f32."""
+    hidden, context, temb = _prologue(params, cfg, latents,
+                                      encoder_hidden_states, timestep,
+                                      pooled_projections)
+    out = _token_stage(params, cfg, hidden, context, temb, lora)
+    H, W = latents.shape[1:3]
+    return unpatchify(out.float(), H, W, cfg.patch_size)
+
+
+def _prologue(params, cfg: SD3Config, latents, encoder_hidden_states,
+              timestep, pooled_projections):
+    """Patchify, the cropped position table, the context and time
+    embeddings: (hidden, context, temb)."""
     dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
     B, H, W, C = latents.shape
     ps = cfg.patch_size
@@ -222,7 +258,13 @@ def sd3_forward(
         sinusoidal_embedding(timestep.float(), 256, scale=1.0).to(dtype))
     temb = temb + mlp_embedder(params["pooled_embed"],
                                pooled_projections.to(dtype))
+    return hidden, context, temb
 
+
+def _token_stage(params, cfg: SD3Config, hidden, context, temb, lora=None):
+    """The token-wise middle: the joint blocks, the context-pre-only final
+    block, norm_out and proj_out.  Every op but attention is token-local,
+    so :func:`sd3_forward_sp` runs it on a block of the sequence."""
     for i in range(cfg.num_layers - 1):
         p = layer(params["blocks"], i)
         if lora is not None:
@@ -236,5 +278,40 @@ def sd3_forward(
                              context_pre_only=True)
     sc, sh = _mods(params["norm_out"], temb, 2)
     hidden = layer_norm(hidden) * (1 + sc) + sh
-    out = linear(params["proj_out"], hidden)
-    return unpatchify(out.float(), H, W, ps)
+    return linear(params["proj_out"], hidden)
+
+
+def sd3_forward_sp(
+    params: Params,
+    cfg: SD3Config,
+    latents: torch.Tensor,
+    encoder_hidden_states: torch.Tensor,
+    timestep: torch.Tensor,
+    pooled_projections: torch.Tensor,
+    seq_axis,
+    sp_mode: Optional[str] = None,
+) -> torch.Tensor:
+    """:func:`sd3_forward` with the token sequence cut over the process
+    group ``seq_axis`` (Ulysses or the ring by ``sp_mode``, default
+    ``cfg.sp_mode``).  The patchify prologue and the unpatchify epilogue
+    run whole on every rank; each rank runs the block stack on its blocks
+    of the image and context tokens, and the output tokens are gathered.
+    Both token counts must divide the group size.  Under tensor
+    parallelism pass the config of :func:`tp_config` and this rank's
+    slices."""
+    n, r = dist.get_world_size(seq_axis), dist.get_rank(seq_axis)
+    hidden, context, temb = _prologue(params, cfg, latents,
+                                      encoder_hidden_states, timestep,
+                                      pooled_projections)
+    S_img, S_txt = hidden.shape[1], context.shape[1]
+    if S_img % n or S_txt % n:
+        raise ValueError(f"S_img {S_img} / S_txt {S_txt} must divide the "
+                         f"sequence group's size {n}")
+    si, st = S_img // n, S_txt // n
+    cfg_sp = dataclasses.replace(cfg, seq_axis=seq_axis,
+                                 sp_mode=sp_mode or cfg.sp_mode)
+    out = _token_stage(params, cfg_sp, hidden[:, r * si:(r + 1) * si],
+                       context[:, r * st:(r + 1) * st], temb)
+    H, W = latents.shape[1:3]
+    return unpatchify(gather(out, seq_axis, dim=1).float(), H, W,
+                      cfg.patch_size)

@@ -12,8 +12,16 @@ Timers (``utils/timer.CPUTimer``, each ending in a device synchronize):
 ``sr_upscale``, ``sr_encode``, ``sr_transformer``, ``sr_decode``,
 ``sr_color_fix``, and ``sr_stage_weights`` for a ``host_params`` window.  Tile sums are assembled in the JAX package's order
 (tile by tile, in ``_tile_offsets`` order), so the blends match it to
-rounding.  Not ported: the JAX package's device ``mesh`` (multi-GPU) and
-its retry of a failed device put; on the card an out-of-memory raises.
+rounding.
+
+With a ``mesh`` (``parallel/mesh.py``) the stage runs on every rank in
+step: the SD3 transformer tensor-parallel over ``model``
+(``parallel/sharding.shard_sd3_params``), and the latent-tile and VAE-tile
+batches split over ``data`` (padded with repeats to a multiple of the
+axis, gathered and cut back: ``sharding.data_parallel``), so every rank
+ends with the whole image before the colour fix.  Not ported: the JAX
+package's retry of a failed device put; on the card an out-of-memory
+raises.
 """
 
 from __future__ import annotations
@@ -27,11 +35,14 @@ import numpy as np
 import torch
 
 from ...ops.quant import pack_int4_tree, quantize_linears, unpack_int4_tree
+from ...parallel.mesh import Mesh, broadcast_tensors
+from ...parallel.sharding import data_parallel, shard_sd3_params
 from ...utils.params import tree_to
 from ...utils.precision import resolve_device
 from ...utils.resize import resize_bicubic
 from ...utils.timer import CPUTimer
 from ..flux.loader import load_vae
+from ..flux.model import tp_config
 from ..flux.vae import VAEConfig, vae_decode, vae_encode
 from .color_fix import adain_color_fix, wavelet_color_fix
 from .config import SD3Config
@@ -178,7 +189,12 @@ class TSDSRPipeline:
     (diffusers safetensors, read straight onto the device: the transformer
     in the config's dtype, the VAE in f32) and optionally
     ``tsdsr/prompt_embeds.npz``; or the trees are given.  Without weights
-    the output is the bicubic upscale."""
+    the output is the bicubic upscale.
+
+    ``mesh``: run across its ranks, each calling with the same arguments
+    (the image is rank 0's; the others may pass ``None``); the transformer
+    tree, loaded or given whole, is cut to this rank's slices and
+    ``device`` is ``mesh.device``."""
 
     def __init__(
         self,
@@ -192,10 +208,15 @@ class TSDSRPipeline:
         mesh: Optional[Any] = None,
         device="cuda",
     ):
-        if mesh is not None:
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a parallel.mesh.Mesh, got "
+                            f"{type(mesh).__name__}")
+        if mesh is not None and cfg.int8_serving:
             raise NotImplementedError(
-                "a multi-device mesh for the SR stage is not ported")
-        self.device = resolve_device(device)
+                "int8 serving is not cut across ranks; serve the SR stage in "
+                "bf16 with more than one rank")
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         self.cfg = cfg
         self.sd3_cfg = sd3_cfg
         self.vae_cfg = VAEConfig.sd3()
@@ -208,6 +229,8 @@ class TSDSRPipeline:
         self._auto_batch = None
         if pretrain_root is not None and transformer_params is None:
             self._try_load(pretrain_root)
+        elif mesh is not None and transformer_params is not None:
+            self.transformer_params = shard_sd3_params(transformer_params, mesh)
         if cfg.int8_serving and self.transformer_params is not None:
             self.transformer_params = quantize_linears(self.transformer_params)
         if cfg.host_params:
@@ -223,7 +246,7 @@ class TSDSRPipeline:
         try:
             transformer = load_sd3_transformer(
                 os.path.join(root, "sd3", "transformer"), self.sd3_cfg,
-                device=self.device, dtype=dtype)
+                device=self.device, dtype=dtype, mesh=self.mesh)
             vae = load_vae(os.path.join(root, "sd3", "vae"), self.vae_cfg,
                            device=self.device, dtype=torch.float32)
         except OSError as e:  # FileNotFoundError among them
@@ -295,6 +318,11 @@ class TSDSRPipeline:
     @torch.no_grad()
     def _infer(self, image) -> torch.Tensor:
         cfg = self.cfg
+        mesh = self.mesh
+        if mesh is not None:
+            image = broadcast_tensors(
+                {"image": torch.as_tensor(image, dtype=torch.float32)}
+                if mesh.is_root else None, mesh)["image"]
         image = torch.as_tensor(image, dtype=torch.float32).to(self.device)
         with CPUTimer("sr_upscale"):
             up = upscale_clip(image, cfg.upscale)
@@ -322,14 +350,23 @@ class TSDSRPipeline:
         if pooled.dim() == 1:
             pooled = pooled[None]
 
-        def step(lat_tiles):
+        sd3_cfg = self.sd3_cfg
+        if mesh is not None:
+            sd3_cfg = tp_config(sd3_cfg, mesh.group("model"))
+
+        def forward(lat_tiles):
             nb = lat_tiles.shape[0]
             t = torch.full((nb,), cfg.timestep, dtype=torch.float32,
                            device=self.device)
             return sd3_forward(
-                self.transformer_params, self.sd3_cfg, lat_tiles,
+                self.transformer_params, sd3_cfg, lat_tiles,
                 prompt.expand(nb, *prompt.shape[1:]), t,
                 pooled.expand(nb, *pooled.shape[1:]))
+
+        def step(lat_tiles):
+            if mesh is None:
+                return forward(lat_tiles)
+            return data_parallel(forward, lat_tiles, mesh)
 
         with CPUTimer("sr_transformer"):
             pred = tiled_apply_batched(
@@ -343,8 +380,14 @@ class TSDSRPipeline:
             return _sr_finish(out, up, cfg.align_method)
 
     def _run_tile_batches(self, fn, tiles: torch.Tensor, bs: int) -> torch.Tensor:
-        """``fn`` over [N, t, t, C] stacked tiles in chunks of ``bs``."""
-        return torch.cat([fn(tiles[i:i + bs])
+        """``fn`` over [N, t, t, C] stacked tiles in chunks of ``bs``, each
+        chunk split over ``data`` on a mesh."""
+        def run(chunk):
+            if self.mesh is None:
+                return fn(chunk)
+            return data_parallel(fn, chunk, self.mesh)
+
+        return torch.cat([run(tiles[i:i + bs])
                           for i in range(0, tiles.shape[0], bs)])
 
     def _tiled_encode(self, x: torch.Tensor) -> torch.Tensor:

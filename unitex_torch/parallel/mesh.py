@@ -1,0 +1,174 @@
+"""Process meshes over ``torch.distributed`` (port of
+unitex_tpu/parallel/mesh.py).
+
+The JAX package is single-controller: one process sees every device, a
+``jax.sharding.Mesh`` names a ``(data, model)`` grid of them and XLA places
+the collectives.  The port is multi-controller: one process per GPU
+(launched by ``torchrun``), and a :class:`Mesh` is this process's view of
+the grid: the size of each axis, this rank's coordinate on it, and the
+process group of the ranks that share every other coordinate (its
+"row" along the axis).  The model code runs its collectives explicitly
+over those groups: ``all_reduce`` after a row-parallel product
+(``models/flux/layers.row_linear``), ``all_to_all_single`` for Ulysses and
+``batch_isend_irecv`` for the ring (``ops/ring_attention.py``),
+``all_gather`` of a batch split over ``data``.
+
+The grid is ``(data, seq, model)``, row-major: global rank
+``(d·seq + s)·model + m``, so a ``(data, model)`` mesh lays its ranks out
+as JAX's ``devices.reshape(data, model)`` does.  ``seq`` is the axis the
+token sequence is sharded over (``models/flux/sp.py``); with ``model`` > 1
+too it is the SP x TP layout.  A world of one rank is a mesh like any
+other: its collectives run (over NCCL or gloo) and copy.
+
+NCCL serves CUDA tensors, gloo the CPU (``device="cpu"``, as the tests
+ask).  Nothing falls back: a process group that cannot start raises.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Dict, Optional
+
+import torch
+import torch.distributed as dist
+
+from ..utils.precision import resolve_device
+
+AXES = ("data", "seq", "model")
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Mesh:
+    """This rank's place in a ``(data, seq, model)`` process grid."""
+
+    shape: Dict[str, int]          # axis -> size
+    coords: Dict[str, int]         # axis -> this rank's index on it
+    groups: Dict[str, dist.ProcessGroup]  # axis -> this rank's group on it
+    device: torch.device
+
+    @property
+    def rank(self) -> int:
+        return dist.get_rank()
+
+    @property
+    def world_size(self) -> int:
+        return dist.get_world_size()
+
+    @property
+    def is_root(self) -> bool:
+        """Rank 0, which does a job's host work."""
+        return self.rank == 0
+
+    def size(self, axis: str) -> int:
+        return self.shape[axis]
+
+    def index(self, axis: str) -> int:
+        return self.coords[axis]
+
+    def group(self, axis: str) -> dist.ProcessGroup:
+        return self.groups[axis]
+
+
+def world_size_from_env() -> int:
+    """The world size ``torchrun`` announces (``WORLD_SIZE``), 1 without
+    it."""
+    return int(os.environ.get("WORLD_SIZE", "1"))
+
+
+def default_device(device="cuda") -> torch.device:
+    """``cuda`` -> ``cuda:LOCAL_RANK`` (``torchrun``'s, 0 without it);
+    any other device as given."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+    return dev
+
+
+def init_distributed(device, store=None, rank: Optional[int] = None,
+                     world_size: Optional[int] = None) -> None:
+    """Start the default process group unless one is running: NCCL for a
+    CUDA device, gloo for the CPU; from ``store``/``rank``/``world_size``
+    when given, else from ``torchrun``'s environment (``env://``)."""
+    if dist.is_initialized():
+        return
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    if store is not None:
+        dist.init_process_group(backend, store=store, rank=rank,
+                                world_size=world_size)
+    else:
+        dist.init_process_group(backend)
+
+
+def make_mesh(
+    data: int = 1,
+    model: int = -1,
+    seq: int = 1,
+    device="cuda",
+    store=None,
+    rank: Optional[int] = None,
+    world_size: Optional[int] = None,
+) -> Mesh:
+    """A ``(data, seq, model)`` mesh over every rank of the default process
+    group, started here if it is not running (see
+    :func:`init_distributed`).  ``model=-1`` takes every rank the other
+    axes leave, as in the JAX package; the sizes must multiply to the
+    world size.  Every rank must call this with the same arguments: each
+    axis' groups are created on every rank, in one order."""
+    dev = default_device(device)
+    init_distributed(dev, store, rank, world_size)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    world = dist.get_world_size()
+    if model == -1:
+        if world % (data * seq):
+            raise ValueError(f"{world} ranks not divisible by data={data} x "
+                             f"seq={seq}")
+        model = world // (data * seq)
+    shape = {"data": data, "seq": seq, "model": model}
+    if data * seq * model != world:
+        raise ValueError(f"mesh {data}x{seq}x{model} needs "
+                         f"{data * seq * model} ranks, the world has {world}")
+    me = dist.get_rank()
+    coords = {"data": me // (seq * model), "seq": me // model % seq,
+              "model": me % model}
+
+    def grid_rank(d, s, m):
+        return (d * seq + s) * model + m
+
+    groups = {}
+    for axis in AXES:
+        others = [a for a in AXES if a != axis]
+        # every row of the grid along ``axis``, in one order on every rank
+        for i in range(shape[others[0]]):
+            for j in range(shape[others[1]]):
+                ranks = []
+                for k in range(shape[axis]):
+                    c = {axis: k, others[0]: i, others[1]: j}
+                    ranks.append(grid_rank(c["data"], c["seq"], c["model"]))
+                group = dist.new_group(ranks)
+                if me in ranks:
+                    groups[axis] = group
+    return Mesh(shape, coords, groups, dev)
+
+
+def broadcast_tensors(tensors: Optional[Dict[str, torch.Tensor]],
+                      mesh: Mesh) -> Dict[str, torch.Tensor]:
+    """Rank 0's dict of tensors on every rank (on ``mesh.device``): rank 0
+    passes the dict, the other ranks ``None``.  Names, shapes and dtypes
+    go first (``broadcast_object_list``), then each tensor."""
+    meta = [None]
+    if mesh.is_root:
+        meta = [{k: (tuple(v.shape), v.dtype) for k, v in tensors.items()}]
+    dist.broadcast_object_list(meta, src=0)
+    out = {}
+    for name, (shape, dtype) in meta[0].items():
+        if mesh.is_root:
+            t = tensors[name].to(mesh.device, dtype).contiguous()
+        else:
+            t = torch.empty(shape, dtype=dtype, device=mesh.device)
+        dist.broadcast(t, src=0)
+        out[name] = t
+    return out

@@ -1,0 +1,186 @@
+"""Megatron tensor-parallel cuts of the FLUX and SD3 trees, and the batch
+split over ``data`` (port of unitex_tpu/parallel/sharding.py).
+
+The JAX package annotates the whole tree with NamedShardings
+(``flux_param_shardings``, ``sd3_param_shardings``) and lets XLA place the
+collectives; here each rank keeps only its slice of every leaf, cut by the
+same layout, and the model code runs the collectives itself
+(``models/flux/layers.row_linear``, ``models/flux/model._ada_ln_zero``):
+
+* column-parallel, over the output dim (kernel and bias): attention
+  ``to_q/k/v``, ``add_{q,k,v}_proj``, ``ff.in`` / ``ff_context.in``,
+  ``proj_mlp`` and the AdaLN ``lin`` layers.  AdaLN is about a quarter of
+  FLUX: its local modulation columns are gathered (a [B, 6·d] vector);
+* row-parallel, over the input dim (the bias replicated, added once after
+  the ``all_reduce``): ``to_out``, ``to_add_out``, ``ff.out`` /
+  ``ff_context.out``;
+* the single blocks' ``proj_out``, whose input rows interleave
+  ``[attn ‖ mlp]``, is pre-split into ``kernel_attn`` / ``kernel_mlp``,
+  each row-cut (as the JAX package's ``prepare_flux_params_tp_pp`` does);
+* everything outside the block stacks (embedders, ``norm_out``, the final
+  ``proj_out``) and the QK norms: replicated.
+
+Rank ``m`` of the ``model`` axis takes the ``m``-th contiguous part, so a
+column cut keeps whole heads (heads ``m·H/n … (m+1)·H/n - 1``) and the row
+cut of the next projection matches it.  LoRA trees (``{"a", "b"}`` nodes)
+are cut by the same rule: ``b`` of a column kernel by its columns, ``a`` of
+a row kernel by its rows, the other factor replicated, so a per-block
+merge yields this rank's slice of the merged kernel.
+
+:func:`shard_hook` is the rule for one linear node, for the loaders and
+the random init, which cut each node as it is made, so a rank holds its
+slices and one full node at a time.  The fused int8 serving leaves
+(``qkv_fused``, ``qkvm_fused``, ``kernel_int8``) would need per-part column
+cuts and are refused.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, Tuple
+
+import torch
+import torch.distributed as dist
+
+from .mesh import Mesh
+
+Path = Tuple[str, ...]
+
+_STACKS = ("dual_blocks", "single_blocks", "blocks", "final_block")
+_COL = {"to_q", "to_k", "to_v", "add_q_proj", "add_k_proj", "add_v_proj",
+        "proj_mlp", "lin"}
+_ROW = {"to_out", "to_add_out"}
+_FF = ("ff", "ff_context")
+_INT8_NODES = {"qkv_fused", "add_qkv_fused", "qkvm_fused"}
+_INT8_LEAVES = ("kernel_int8", "kernel_int8_wo")
+
+
+def layout(path: Path) -> str:
+    """The cut of the linear node at ``path``: "col", "row", "split_row"
+    (the single blocks' ``proj_out``) or "rep"."""
+    if not path or path[0] not in _STACKS:
+        return "rep"
+    name, parent = path[-1], (path[-2] if len(path) > 1 else "")
+    if name in _COL or (name == "in" and parent in _FF):
+        return "col"
+    if name in _ROW or (name == "out" and parent in _FF):
+        return "row"
+    if name == "proj_out" and path[0] == "single_blocks":
+        return "split_row"
+    return "rep"
+
+
+def cut(t: torch.Tensor, dim: int, part: int, n: int) -> torch.Tensor:
+    """Part ``part`` of ``n`` contiguous parts of ``t`` along ``dim``; a
+    copy of its own (so the full tensor can be freed), or ``t`` itself
+    when ``n`` is 1."""
+    if n == 1:
+        return t
+    size = t.shape[dim]
+    if size % n:
+        raise ValueError(f"dim {dim} of {tuple(t.shape)} does not split "
+                         f"into {n} parts")
+    k = size // n
+    return t.narrow(dim, part * k, k).clone(memory_format=torch.contiguous_format)
+
+
+def shard_node(path: Path, node: Dict[str, Any], part: int,
+               n: int) -> Dict[str, Any]:
+    """This part of one linear node (``kernel``/``bias``) or LoRA node
+    (``a``/``b``), by :func:`layout`."""
+    if path[-1] in _INT8_NODES or any(k in node for k in _INT8_LEAVES):
+        raise NotImplementedError(
+            "int8 serving trees are not cut across ranks (the fused leaves "
+            "need per-part column cuts); serve bf16 with more than one rank")
+    kind = layout(path)
+    lora = "a" in node and "b" in node
+    out = dict(node)
+    if kind == "col":
+        for k in ("b",) if lora else ("kernel", "bias"):
+            if k in node:
+                out[k] = cut(node[k], -1, part, n)
+    elif kind == "row":
+        k = "a" if lora else "kernel"
+        out[k] = cut(node[k], -2, part, n)
+    elif kind == "split_row":
+        # the input rows are [attn (d) ‖ mlp]; d is the output width
+        if lora:
+            a, d = node["a"], node["b"].shape[-1]
+            return {"kernel_attn": {"a": cut(a[..., :d, :], -2, part, n),
+                                    "b": node["b"]},
+                    "kernel_mlp": {"a": cut(a[..., d:, :], -2, part, n),
+                                   "b": node["b"]}}
+        kernel = out.pop("kernel")
+        d = kernel.shape[-1]
+        out["kernel_attn"] = cut(kernel[..., :d, :], -2, part, n)
+        out["kernel_mlp"] = cut(kernel[..., d:, :], -2, part, n)
+    return out
+
+
+def shard_hook(mesh: Mesh) -> Callable[[Path, Dict[str, Any]], Dict[str, Any]]:
+    """:func:`shard_node` for this rank of ``mesh``'s ``model`` axis."""
+    part, n = mesh.index("model"), mesh.size("model")
+    return lambda path, node: shard_node(path, node, part, n)
+
+
+def is_linear(node) -> bool:
+    return isinstance(node, dict) and (
+        "kernel" in node or any(k in node for k in _INT8_LEAVES)
+        or ("a" in node and "b" in node))
+
+
+def shard_tree(tree: Dict[str, Any], hook, path: Path = ()) -> Dict[str, Any]:
+    """``tree`` with ``hook(path, node)`` in place of every linear node."""
+    if not isinstance(tree, dict):
+        return tree
+    out = {k: shard_tree(v, hook, path + (k,)) for k, v in tree.items()}
+    return hook(path, out) if is_linear(out) else out
+
+
+def shard_flux_params(params: Dict[str, Any], mesh: Mesh) -> Dict[str, Any]:
+    """This rank's slices of a FLUX parameter tree, or of a LoRA tree of
+    it, in the layout of ``flux_param_shardings``."""
+    return shard_tree(params, shard_hook(mesh))
+
+
+def shard_sd3_params(params: Dict[str, Any], mesh: Mesh) -> Dict[str, Any]:
+    """This rank's slices of an SD3 tree, in the layout of
+    ``sd3_param_shardings`` (the same rule: the SD3 blocks use FLUX's leaf
+    names)."""
+    return shard_tree(params, shard_hook(mesh))
+
+
+# ------------------------------------------------------------ activations
+
+
+def gather(x: torch.Tensor, group: dist.ProcessGroup, dim: int = 0) -> torch.Tensor:
+    """The group's parts of ``x``, concatenated along ``dim`` in rank
+    order (``all_gather_into_tensor``)."""
+    n = dist.get_world_size(group)
+    x = x.contiguous()
+    out = torch.empty((n * x.shape[0], *x.shape[1:]), dtype=x.dtype,
+                      device=x.device)
+    dist.all_gather_into_tensor(out, x, group=group)
+    return torch.cat(out.reshape(n, *x.shape).unbind(0), dim=dim)
+
+
+def data_shard(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """This rank's slice of the leading (batch) axis over ``data``
+    (``data_sharding``); the batch must divide the axis."""
+    n, i = mesh.size("data"), mesh.index("data")
+    if x.shape[0] % n:
+        raise ValueError(f"batch {x.shape[0]} does not split over data={n}")
+    k = x.shape[0] // n
+    return x[i * k:(i + 1) * k]
+
+
+def data_parallel(fn, x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """``fn`` over the batch of ``x`` split across ``data``: the batch is
+    padded with repeats of its first item to a multiple of the axis (as
+    the JAX package pads its tile chunks), each rank runs its slice, the
+    slices are gathered and the padding cut off.  Every rank returns the
+    whole result."""
+    nb = x.shape[0]
+    pad = (-nb) % mesh.size("data")
+    if pad:
+        x = torch.cat([x, x[:1].expand(pad, *x.shape[1:])])
+    return gather(fn(data_shard(x, mesh)), mesh.group("data"))[:nb]

@@ -43,7 +43,22 @@ Reference-image matting is the JAX package's choice of backend
 BiRefNet for ``<root>/briaai/RMBG-2.0``, on ``device``; else the
 heuristic.  ``async_io=True`` puts the GLB encode and the copies after it
 on one writer thread, in order, so they overlap the next job's device
-work; ``flush_io()`` waits for them.  Deferred: multi-GPU placement.
+work; ``flush_io()`` waits for them.
+
+Across GPUs (one process each, under ``torchrun``): when the default
+process group spans more than one rank (or ``WORLD_SIZE`` says it will),
+or when a ``mesh`` is given, the pipeline serves on a ``(data, model)``
+mesh (``parallel/mesh.make_mesh(data=config.parallel.data_size,
+model=-1)``): the FLUX tree and its adapters are cut to each rank's
+tensor-parallel slices (``parallel/sharding.py``) and the SR stage runs
+tensor-parallel over ``model`` with its tile batches over ``data``.  Rank
+0 does the job's host work (preprocess, matting, the condition renders,
+every file, the bake and the GLB) and broadcasts what the others need:
+each FLUX pass's noise, condition latents and prompt embeddings, and the
+grid the SR stage starts from.  The other ranks run the FLUX passes and
+the SR stage in step with it, then wait at a barrier; none redoes host
+work, so no rank's inputs can differ by a bit.  int8 serving, the
+serving-tree cache and ``prewarm`` (the job server) run on one rank only.
 """
 
 from __future__ import annotations
@@ -55,6 +70,7 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .config import DEFAULT_CONFIG, PipelineConfig
 from .geometry.io.mesh_io import HostMesh, load_mesh, save_mesh, save_obj
@@ -70,15 +86,21 @@ from .models.flux.lora import (
     load_lora_safetensors,
     merge_lora,
 )
-from .models.flux.model import flux_param_spec, init_flux_params
+from .models.flux.model import flux_param_spec, init_flux_params, tp_config
 from .models.flux.quantize import quantize_flux_params
 from .models.flux.pipeline import (
     FluxPipelineConfig,
+    flux_decode,
+    flux_denoise,
+    flux_inputs,
     run_flux_pipeline,
     torch_reference_rng,
 )
 from .models.flux.vae import VAEConfig, init_vae_params
 from .ops.quant import gemm_layout, pack_int4_tree, unpack_int4_tree
+from .parallel.mesh import Mesh as RankMesh
+from .parallel.mesh import broadcast_tensors, make_mesh, world_size_from_env
+from .parallel.sharding import shard_flux_params, shard_hook
 from .render.conditioning import (
     grid_to_strip,
     grid_to_views,
@@ -143,11 +165,23 @@ class RGBTextureFullPipelineBase:
         params_cache: Optional[str] = None,
         params_cache_int4: bool = False,
         device="cuda",
+        mesh: Optional[RankMesh] = None,
     ):
         if int8_serving not in _CACHE_MODES:
             raise ValueError(f"int8_serving must be False, True or "
                              f"'max_memory', got {int8_serving!r}")
-        self.device = resolve_device(device)
+        if mesh is None and (world_size_from_env() > 1 or (
+                dist.is_initialized() and dist.get_world_size() > 1)):
+            mesh = make_mesh(data=config.parallel.data_size, model=-1,
+                             device=device)
+        if mesh is not None and (int8_serving or params_cache):
+            raise NotImplementedError(
+                "int8 serving and the serving-tree cache run on one rank: "
+                "their fused int8 leaves and whole-tree files are not cut "
+                "across ranks")
+        # the (data, model) mesh of a multi-rank job, or None on one device
+        self.device_mesh = mesh
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         self.config = config
         self.seed = seed
         self.pretrain_models = pretrain_models
@@ -172,8 +206,10 @@ class RGBTextureFullPipelineBase:
             from concurrent.futures import ThreadPoolExecutor
 
             self._io_pool = ThreadPoolExecutor(max_workers=1)
-        self.rembg = build_background_remover(pretrain_models,
-                                              device=self.device)
+        # matting is host work: rank 0's alone
+        self.rembg = (build_background_remover(pretrain_models,
+                                               device=self.device)
+                      if self._is_root else None)
         self.flux_cfg = FluxConfig.flux1_dev()
         self.vae_cfg = VAEConfig.flux()
         self._flux_loaded = False
@@ -194,6 +230,7 @@ class RGBTextureFullPipelineBase:
             # SD3 and its VAE from <root>/sd3; without them the SR stage is
             # the bicubic upscale, as in the JAX package
             self.sr_pipeline = TSDSRPipeline(pretrain_models,
+                                             mesh=self.device_mesh,
                                              device=self.device)
 
     # bump when the serving tree's layout or the file encoding changes
@@ -202,32 +239,59 @@ class RGBTextureFullPipelineBase:
     # package's ``flux_random_s0``, so another tree
     RANDOM_KIND = "flux_random_torch_s0"
 
+    @property
+    def _is_root(self) -> bool:
+        return self.device_mesh is None or self.device_mesh.is_root
+
+    def _shard(self, tree):
+        """This rank's slices of a FLUX or adapter tree on a mesh."""
+        if self.device_mesh is None or tree is None:
+            return tree
+        return shard_flux_params(tree, self.device_mesh)
+
+    def set_flux_trees(self, transformer, vae, texture_lora=None,
+                       delight_lora=None) -> None:
+        """Serve the given whole trees (on a mesh: this rank's slices of
+        the transformer and adapters; the caller's tree stays whole)."""
+        self.transformer_params = self._shard(transformer)
+        self.texture_lora = self._shard(texture_lora)
+        self.delight_lora = self._shard(delight_lora)
+        self.vae_params = vae
+        self._flux_loaded = True
+
     def _init_random_weights(self) -> None:
         """Random-init the serving tree at full size, directly on the
         device in bf16 (the VAE and LoRA in f32, as the JAX package serves
         them), then quantize it for int8 serving, each kernel dropped as
-        soon as it is quantized; or read it from ``params_cache``.
-        Outputs are meaningless images; every shape, kernel launch and
-        memory footprint is the real one."""
+        soon as it is quantized; or read it from ``params_cache``.  On a
+        mesh every rank draws the same tree and keeps its slices, each
+        linear node cut as soon as it is drawn.  Outputs are meaningless
+        images; every shape, kernel launch and memory footprint is the real
+        one."""
         gen = torch.Generator(device=self.device)
         cached = self._load_cached_tree(self.RANDOM_KIND)
         if cached is not None:
             self.transformer_params = self._place_flux_params(*cached)
         else:
-            params = init_flux_params(gen.manual_seed(0), self.flux_cfg,
-                                      device=self.device, dtype=torch.bfloat16)
+            mesh = self.device_mesh
+            params = init_flux_params(
+                gen.manual_seed(0), self.flux_cfg, device=self.device,
+                dtype=torch.bfloat16,
+                hook=None if mesh is None else shard_hook(mesh))
             if self.int8_serving:
                 params = quantize_flux_params(
                     params, weight_only_rest=self.int8_serving == "max_memory",
                     consume=True)
             self.transformer_params = params
             self._store_cached_tree(self.RANDOM_KIND, params)
-        self.texture_lora = init_lora_params(
-            gen.manual_seed(1), self.transformer_params, rank=16,
-            device=self.device)
-        self.delight_lora = init_lora_params(
-            gen.manual_seed(2), self.transformer_params, rank=16,
-            device=self.device)
+        # the adapters take the whole tree's shapes (a cut tree's differ)
+        shapes = self.transformer_params
+        if self.device_mesh is not None:
+            shapes = _meta_tree(flux_param_spec(self.flux_cfg))
+        self.texture_lora = self._shard(init_lora_params(
+            gen.manual_seed(1), shapes, rank=16, device=self.device))
+        self.delight_lora = self._shard(init_lora_params(
+            gen.manual_seed(2), shapes, rank=16, device=self.device))
         self.vae_params = init_vae_params(gen.manual_seed(3), self.vae_cfg,
                                           device=self.device)
         self._flux_loaded = True
@@ -252,7 +316,8 @@ class RGBTextureFullPipelineBase:
             else:
                 params = load_flux_transformer(
                     os.path.join(root, "flux", "transformer"), self.flux_cfg,
-                    device=self.device, dtype=torch.bfloat16)
+                    device=self.device, dtype=torch.bfloat16,
+                    mesh=self.device_mesh)
                 if self.int8_serving:
                     params = quantize_flux_params(
                         params,
@@ -264,9 +329,9 @@ class RGBTextureFullPipelineBase:
             for name in ("texture", "delight"):
                 path = os.path.join(root, f"{name}_lora.safetensors")
                 if os.path.exists(path):
-                    loras[name] = load_lora_safetensors(
+                    loras[name] = self._shard(load_lora_safetensors(
                         path, self.flux_cfg.num_layers,
-                        self.flux_cfg.num_single_layers, device=self.device)
+                        self.flux_cfg.num_single_layers, device=self.device))
             if cached is None:
                 self._store_cached_tree("flux", params)
         except OSError as e:  # FileNotFoundError among them
@@ -419,6 +484,10 @@ class RGBTextureFullPipelineBase:
         each stage.  The job server calls it on its device thread."""
         import tempfile
 
+        if self.device_mesh is not None:
+            raise NotImplementedError("prewarm and the job server run on one "
+                                      "rank")
+
         from PIL import Image
 
         from .geometry.primitives import make_icosphere
@@ -550,6 +619,13 @@ class RGBTextureFullPipelineBase:
         Without FLUX weights the control strip (geometry-shaded) stands in
         for both passes.  ``apply_sr=False`` leaves the SR stage to the
         caller (:meth:`_apply_sr`), as batch drivers do."""
+        if not self._is_root:
+            # this rank's part of the job: the FLUX passes and the SR stage
+            if self._flux_loaded:
+                self._flux_passes(save_dir, None, None)
+            if apply_sr and self.sr_pipeline is not None:
+                self.sr_pipeline(None)
+            return None
         control_grid = 0.5 * condition["normal"] + 0.5 * condition["ccm"]
         control_strip = grid_to_strip(control_grid)
         if self._flux_loaded:
@@ -619,11 +695,39 @@ class RGBTextureFullPipelineBase:
             [np.concatenate(sr_views[r * cam.cols:(r + 1) * cam.cols], axis=1)
              for r in range(cam.rows)], axis=0))
 
+    def _flux_pass(self, params, pipe_cfg: FluxPipelineConfig, control,
+                   dual, plan) -> Optional[torch.Tensor]:
+        """One FLUX pass -> [H, W, 3].  On a mesh rank 0 makes the inputs
+        (noise, condition latents, prompt embeddings) and broadcasts them,
+        every rank denoises on its slices, and rank 0 decodes; the other
+        ranks return None."""
+        mesh = self.device_mesh
+        if mesh is None:
+            return run_flux_pipeline(
+                params, self.flux_cfg, self.vae_params, self.vae_cfg,
+                self._generator(), pipe_cfg, control_image=control,
+                dual_image=dual, device=self.device, **plan)
+        inputs = None
+        if mesh.is_root:
+            inputs = flux_inputs(
+                self.flux_cfg, self.vae_params, self.vae_cfg,
+                self._generator(), pipe_cfg, control_image=control,
+                dual_image=dual, device=self.device, **plan)
+        inputs = broadcast_tensors(inputs, mesh)
+        tokens = flux_denoise(
+            params, tp_config(self.flux_cfg, mesh.group("model")), inputs,
+            pipe_cfg)
+        if not mesh.is_root:
+            return None
+        return flux_decode(self.vae_params, self.vae_cfg, tokens, pipe_cfg)
+
     def _flux_passes(self, save_dir: str, reference_image: np.ndarray,
                      control_strip: torch.Tensor) -> torch.Tensor:
         """The texture pass (dual image, adapters [1, 0]) and the delight
         pass on its output (adapters [0, 1]); returns the delighted
-        strip."""
+        strip (None on a rank other than 0 of a mesh, which passes None
+        for the images)."""
+        root = self._is_root
         dcfg = self.config.diffusion
         pipe_cfg = FluxPipelineConfig(
             height=dcfg.height,
@@ -634,7 +738,7 @@ class RGBTextureFullPipelineBase:
             velocity_reuse=dcfg.velocity_reuse,
         )
         plan_tex = plan_del = {}
-        if dcfg.torch_rng_parity:
+        if dcfg.torch_rng_parity and root:
             # seed-exact replay of the reference's torch.Generator
             # stream across both passes (noise -> dual -> control)
             host_gen = torch.Generator().manual_seed(self.seed)
@@ -650,11 +754,13 @@ class RGBTextureFullPipelineBase:
             plan_del = {"noise": p["noise"], "control_eps": p["control_eps"]}
 
         # dual conditioning at the configured resolution
-        dual = torch.from_numpy(np.asarray(reference_image, np.float32)).to(
-            self.device)
-        ds = dcfg.dual_size
-        if tuple(dual.shape[:2]) != (ds, ds):
-            dual = resize_bilinear(dual, ds, ds)
+        dual = None
+        if root:
+            dual = torch.from_numpy(np.asarray(reference_image, np.float32)
+                                    ).to(self.device)
+            ds = dcfg.dual_size
+            if tuple(dual.shape[:2]) != (ds, ds):
+                dual = resize_bilinear(dual, ds, ds)
         # texture pass: adapters [1, 0]; merged kernels (bf16) or attached
         # low-rank leaves (int8 kernels cannot be merged) are fresh
         # tensors, dropped right after the pass
@@ -663,24 +769,17 @@ class RGBTextureFullPipelineBase:
             self.transformer_params,
             [(self.texture_lora, 1.0), (self.delight_lora, 0.0)],
         )
-        strip_w_light = run_flux_pipeline(
-            params, self.flux_cfg, self.vae_params, self.vae_cfg,
-            self._generator(), pipe_cfg, control_image=control_strip,
-            dual_image=dual,
-            device=self.device, **plan_tex,
-        )
+        strip_w_light = self._flux_pass(params, pipe_cfg, control_strip, dual,
+                                        plan_tex)
         del params
-        if self.save_artifacts:
+        if self.save_artifacts and root:
             save_image(os.path.join(save_dir, "mv_rgb_w_light.png"),
                        _host(strip_w_light))
         # delight pass: adapters [0, 1], control = stage-1 output, no dual
         params = apply_lora(self.transformer_params,
                             [(self.delight_lora, 1.0)])
-        strip_delight = run_flux_pipeline(
-            params, self.flux_cfg, self.vae_params, self.vae_cfg,
-            self._generator(), pipe_cfg, control_image=strip_w_light,
-            device=self.device, **plan_del,
-        )
+        strip_delight = self._flux_pass(params, pipe_cfg, strip_w_light, None,
+                                        plan_del)
         del params
         return strip_delight
 
@@ -762,7 +861,14 @@ class RGBTextureFullPipelineBase:
              clear_cache: bool = False, export_video: bool = False,
              preprocessed=None) -> Tuple[str, str]:
         """One job through step_1_1 and ``bake_stage``; returns the matted
-        reference image's and the GLB's paths under ``save_dir``."""
+        reference image's and the GLB's paths under ``save_dir``.  On a
+        mesh, a rank other than 0 runs its part of the FLUX passes and the
+        SR stage and returns (None, None); every rank then meets at a
+        barrier."""
+        if not self._is_root:
+            self.infer_mv_stage(save_dir, None, None)
+            dist.barrier()
+            return None, None
         cache = os.path.join(save_dir, "cache")
         os.makedirs(cache, exist_ok=True)
         if preprocessed is None:
@@ -782,6 +888,8 @@ class RGBTextureFullPipelineBase:
         self._submit_io(shutil.copy, glb_path, glb_out)
         if clear_cache:
             self._submit_io(shutil.rmtree, cache)
+        if self.device_mesh is not None:
+            dist.barrier()
         return rembg_out, glb_out
 
     @CPUTimer("export_video")

@@ -12,6 +12,11 @@ It takes the root ``run.py``'s flags with the same defaults, and
 and its VAE from ``<root>/sd3/{transformer,vae}`` (and the prompt
 embedding ``<root>/tsdsr/prompt_embeds.npz`` if present), or without them
 the bicubic x4 upscale; the bake then reads 2048² views.
+
+Under ``torchrun --nproc-per-node N`` (``WORLD_SIZE`` > 1) the same
+command serves one job across the N processes, one GPU each (NCCL; gloo
+with ``--device cpu``): FLUX and the SR stage tensor-parallel, rank 0
+doing the host work and writing the outputs (``pipeline.py``).
 """
 
 from __future__ import annotations
@@ -19,6 +24,8 @@ from __future__ import annotations
 import argparse
 import dataclasses
 from typing import Optional, Sequence
+
+import torch.distributed as dist
 
 from .config import DEFAULT_CONFIG
 from .pipeline import CustomRGBTextureFullPipeline
@@ -70,7 +77,10 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     )
     rembg_png, textured_glb = pipeline(
         args.out, args.image, args.mesh, export_video=args.export_video)
-    print(f"wrote {rembg_png}\nwrote {textured_glb}")
+    if dist.is_initialized():   # a multi-rank job's group (torchrun)
+        dist.destroy_process_group()
+    if textured_glb is not None:  # rank 0's (the only rank of one process)
+        print(f"wrote {rembg_png}\nwrote {textured_glb}")
 
 
 if __name__ == "__main__":

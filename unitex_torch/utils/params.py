@@ -62,15 +62,19 @@ def linear_spec(d_in: int, d_out: int, bias: bool = True, lead=()) -> Spec:
 
 def init_from_spec(
     spec: Spec, generator: torch.Generator, device="cuda",
-    dtype: torch.dtype = torch.float32,
+    dtype: torch.dtype = torch.float32, hook=None, path=(),
 ):
     """Materialize a spec tree on ``device`` in ``dtype``, drawing from
-    ``generator`` (which must live on ``device``)."""
+    ``generator`` (which must live on ``device``).  ``hook(path, node)``,
+    when given, replaces each dict node holding a ``kernel`` as soon as it
+    is made (a tensor-parallel cut: ``parallel/sharding.shard_hook``)."""
     if isinstance(spec, dict):
-        return {k: init_from_spec(v, generator, device, dtype)
+        node = {k: init_from_spec(v, generator, device, dtype, hook, path + (k,))
                 for k, v in spec.items()}
+        return hook(path, node) if hook is not None and "kernel" in node else node
     if isinstance(spec, list):
-        return [init_from_spec(v, generator, device, dtype) for v in spec]
+        return [init_from_spec(v, generator, device, dtype, hook, path + (i,))
+                for i, v in enumerate(spec)]
     kind, shape = spec[0], spec[1]
     if kind == "zeros":
         return torch.zeros(shape, dtype=dtype, device=device)
