@@ -37,7 +37,11 @@ non-zero:
    its largest reference value, each kernel's line giving its time, bound
    (tensor cores, SFU exp, memory), the plain version's time and its
    ptxas report, the pair's line its time against
-   ``scaled_dot_product_attention``'s backward; and one
+   ``scaled_dot_product_attention``'s backward; B2a and B2b at the local
+   heads of tensor-parallel training, [1, 13824, 6 | 12, 128] (model = 4
+   and 2), held to the same 2 % and timed beside their bound, plain
+   version and the library's backward (the kernels' records'
+   ``tp_shapes``); and one
    W8A8 projection ([13312, 3072] @ [3072, 12288], ``torch._int_mm``)
    timed beside the same product in bf16 (context, not a gate);
 12. matting (right after phase 3): ISNet ``IsnetConfig.rmbg14()`` and
@@ -129,6 +133,22 @@ non-zero:
    ``set_flux_trees``): exactly 456 B1 launches, a GLB, a finite 2048²
    texture and its PSNR against phase 4's job; ``[parallel]`` lines and
    the phase's wall as ``[parallel] phase 20``;
+21. multi-GPU training at world 1 (right after phase 5, on the same
+   resident trees): a one-rank NCCL group from a ``FileStore``, destroyed
+   at the end; one LoRA ``train_step`` (rank 16, its ``b`` drawn off 0,
+   remat) on a batch of two 512² synthetic examples on one device, then
+   through the mesh (``tp_config`` and ``shard_flux_params`` on a
+   ``make_mesh`` of the group, the batch cut over ``data``: the autograd
+   collectives run) and through the pipeline (``prepare_flux_params_pp``
+   / ``prepare_lora_pp`` at pipe 1, 2 microbatches), each held to the
+   one-device step's loss (``PT_LOSS_REL``) and adapter gradients
+   (``PT_GRAD_REL`` of max|ref|); two ZeRO-1 full fine-tuning steps with
+   the bf16 compute on a full-width f32 tree cut in depth to
+   ``ZERO_DEPTH`` (2 dual + 4 single blocks, 1.24 B parameters: their
+   f32 masters, gradients and moments take 20 GB beside the resident
+   bf16 tree); the launches of each step exact (``train_launches``:
+   B1 twice and B2a, B2b once a block and microbatch), ``[ptrain]``
+   lines and the phase's wall as ``[ptrain] phase 21``;
 5. training path: three FLUX.1-dev LoRA ``train_step``s (rank 16, remat,
    constant lr 1e-4) on the serving pipeline's resident base tree, each on
    one ``SyntheticTextureDataset(view_size=512)`` batch built by the
@@ -507,101 +527,157 @@ def check_flash_attention_d64(attn, torch, ptxas: str) -> dict:
     return record
 
 
-def check_flash_backward(attn, torch, ptxas: dict) -> list:
-    """B2a and B2b against the plain backward (f32 on the same bf16 inputs,
-    one head at a time), on out and lse from B1; ``ptxas`` maps each
-    kernel function to its register and spill report."""
+def _flash_backward_case(attn, torch, gen, S: int, H: int) -> dict:
+    """B2a and B2b at [1, S, H, 128] against the plain backward (f32 on the
+    same bf16 inputs, one head at a time), on out and lse from B1, timed
+    beside the plain version, ``scaled_dot_product_attention``'s backward
+    and each kernel's bound."""
     import torch.nn.functional as F
 
+    B, D = 1, 128
+    q, k, v, g = (torch.randn((B, S, H, D), generator=gen, device="cuda")
+                  .to(torch.bfloat16) for _ in range(4))
+    out, lse = attn.flash_attention(q, k, v)
+    drow = attn._row_dot(g, out)
+    dk, dv = attn.flash_attention_bwd_dkv(q, k, v, g, lse, drow)
+    dq = attn.flash_attention_bwd_dq(q, k, v, g, lse, drow)
+    torch.cuda.synchronize()
+    got = {"dq": dq, "dk": dk, "dv": dv}
+    err = dict.fromkeys(got, 0.0)
+    ref_max = dict.fromkeys(got, 0.0)
+
+    def plain_head(h):
+        sl = slice(h, h + 1)
+        return dict(zip(("dq", "dk", "dv"), attn.attention_backward_reference(
+            q[:, :, sl].float(), k[:, :, sl].float(), v[:, :, sl].float(),
+            out[:, :, sl].float(), lse[h:h + 1], g[:, :, sl].float())))
+
+    for h in range(H):  # per head: the f32 S×S temporaries of all heads
+        ref = plain_head(h)
+        for name, x in got.items():
+            err[name] = max(err[name], (x[:, :, h:h + 1].float() - ref[name])
+                            .abs().max().item())
+            ref_max[name] = max(ref_max[name], ref[name].abs().max().item())
+    torch.cuda.synchronize()
+    bad = [n for n in got if not err[n] <= GRAD_REL * ref_max[n]]
+    if bad:
+        raise AssertionError(
+            f"flash backward [1, {S}, {H}, 128]: " + ", ".join(
+                f"max|d{n}|={err[n]:.3e} (tol {GRAD_REL * ref_max[n]:.3e})"
+                for n in got))
+    iters = 10 if S * H > 5000 * 24 else 50
+    ms_dkv = cuda_ms(lambda: attn.flash_attention_bwd_dkv(q, k, v, g, lse, drow),
+                     iters)
+    ms_dq = cuda_ms(lambda: attn.flash_attention_bwd_dq(q, k, v, g, lse, drow),
+                    iters)
+    plain_ms = cuda_ms(lambda: [plain_head(h) for h in range(H)], 1)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
+                  for x in (q, k, v))
+    gt = g.transpose(1, 2)
+
+    def sdpa_fwd_bwd():
+        F.scaled_dot_product_attention(qt, kt, vt).backward(gt)
+        qt.grad = kt.grad = vt.grad = None
+
+    with torch.no_grad():
+        fwd_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt),
+                         iters)
+    lib_ms = cuda_ms(sdpa_fwd_bwd, iters) - fwd_ms
+    bsd = B * S * H * D
+    in_bytes = 4 * bsd * 2 + 2 * B * H * S * 4   # q, k, v, dO; lse, Drow
+    case = {"err": err, "ref_max": ref_max, "plain_ms": plain_ms,
+            "library_ms": lib_ms}
+    for name, mult, n_out, ms in (("flash_attn_bwd_dkv", 8, 2, ms_dkv),
+                                  ("flash_attn_bwd_dq", 6, 1, ms_dq)):
+        flops = mult * B * H * S * S * D
+        nbytes = in_bytes + n_out * bsd * 2
+        case[name] = {
+            "ms": ms, "flops": flops,
+            "bound_ms": max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3,
+            "bound_by": "operations" if flops / PEAK_BF16_FLOPS
+            >= nbytes / PEAK_BYTES else "bytes"}
+    del q, k, v, g, out, lse, drow, dq, dk, dv, got, qt, kt, vt, gt
+    torch.cuda.empty_cache()
+    return case
+
+
+def check_flash_backward(attn, torch, ptxas: dict) -> list:
+    """B2a and B2b against the plain backward at [1, S, 24, 128] for each
+    of ``ATTN_SHAPES`` (:func:`_flash_backward_case`); ``ptxas`` maps each
+    kernel function to its register and spill report."""
     assert not torch.backends.cuda.matmul.allow_tf32  # the f32 reference
     gen = torch.Generator(device="cuda").manual_seed(1)
-    B, H, D = 1, 24, 128
     records = {}
     worst = {"dkv": 0.0, "dq": 0.0}
     for S in ATTN_SHAPES:
-        q, k, v, g = (torch.randn((B, S, H, D), generator=gen, device="cuda")
-                      .to(torch.bfloat16) for _ in range(4))
-        out, lse = attn.flash_attention(q, k, v)
-        drow = attn._row_dot(g, out)
-        dk, dv = attn.flash_attention_bwd_dkv(q, k, v, g, lse, drow)
-        dq = attn.flash_attention_bwd_dq(q, k, v, g, lse, drow)
-        torch.cuda.synchronize()
-        got = {"dq": dq, "dk": dk, "dv": dv}
-        err = dict.fromkeys(got, 0.0)
-        ref_max = dict.fromkeys(got, 0.0)
-
-        def plain_head(h):
-            sl = slice(h, h + 1)
-            return dict(zip(("dq", "dk", "dv"), attn.attention_backward_reference(
-                q[:, :, sl].float(), k[:, :, sl].float(), v[:, :, sl].float(),
-                out[:, :, sl].float(), lse[h:h + 1], g[:, :, sl].float())))
-
-        for h in range(H):  # per head: the f32 S×S temporaries of all heads
-            ref = plain_head(h)
-            for name, x in got.items():
-                err[name] = max(err[name], (x[:, :, h:h + 1].float() - ref[name])
-                                .abs().max().item())
-                ref_max[name] = max(ref_max[name], ref[name].abs().max().item())
-        torch.cuda.synchronize()
-        bad = [n for n in got if not err[n] <= GRAD_REL * ref_max[n]]
-        if bad:
-            raise AssertionError(
-                f"flash backward S={S}: " + ", ".join(
-                    f"max|d{n}|={err[n]:.3e} (tol {GRAD_REL * ref_max[n]:.3e})"
-                    for n in got))
+        case = _flash_backward_case(attn, torch, gen, S, 24)
+        err = case["err"]
         worst["dkv"] = max(worst["dkv"], err["dk"], err["dv"])
         worst["dq"] = max(worst["dq"], err["dq"])
-        iters = 10 if S > 5000 else 50
-        ms_dkv = cuda_ms(lambda: attn.flash_attention_bwd_dkv(q, k, v, g, lse, drow),
-                         iters)
-        ms_dq = cuda_ms(lambda: attn.flash_attention_bwd_dq(q, k, v, g, lse, drow),
-                        iters)
-        plain_ms = cuda_ms(lambda: [plain_head(h) for h in range(H)], 1)
-        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
-                      for x in (q, k, v))
-        gt = g.transpose(1, 2)
-
-        def sdpa_fwd_bwd():
-            F.scaled_dot_product_attention(qt, kt, vt).backward(gt)
-            qt.grad = kt.grad = vt.grad = None
-
-        with torch.no_grad():
-            fwd_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt),
-                             iters)
-        lib_ms = cuda_ms(sdpa_fwd_bwd, iters) - fwd_ms
-        bsd = B * S * H * D
-        in_bytes = 4 * bsd * 2 + 2 * B * H * S * 4   # q, k, v, dO; lse, Drow
-        for name, fn, mult, n_out, ms in (
-                ("flash_attn_bwd_dkv", "flash_bwd_dkv_kernel<128>", 8, 2,
-                 ms_dkv),
-                ("flash_attn_bwd_dq", "flash_bwd_dq_kernel<128>", 6, 1, ms_dq)):
-            flops = mult * B * H * S * S * D
-            nbytes = in_bytes + n_out * bsd * 2
-            bound_ms = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3
-            print(f"[kernels] {name} S={S}: ms={ms:.4f} bound_ms={bound_ms:.4f} "
-                  f"({flops / ms / 1e9:.1f} TFLOP/s, {bound_ms / ms:.1%} of the "
-                  f"bound); ptxas: {ptxas[fn]}", flush=True)
+        for name, fn in (("flash_attn_bwd_dkv", "flash_bwd_dkv_kernel<128>"),
+                         ("flash_attn_bwd_dq", "flash_bwd_dq_kernel<128>")):
+            c = case[name]
+            print(f"[kernels] {name} S={S}: ms={c['ms']:.4f} "
+                  f"bound_ms={c['bound_ms']:.4f} "
+                  f"({c['flops'] / c['ms'] / 1e9:.1f} TFLOP/s, "
+                  f"{c['bound_ms'] / c['ms']:.1%} of the bound); ptxas: "
+                  f"{ptxas[fn]}", flush=True)
             if S == TRAIN_S:
                 records[name] = {
                     "name": name, "route": "cuda",
                     "source": "unitex_torch/csrc/flash_attn_bwd.cu",
                     "replaces": "unitex_tpu/ops/attention.py:" + (
                         "235" if name.endswith("dkv") else "278"),
-                    "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                    "bound_by": "operations" if flops / PEAK_BF16_FLOPS
-                    >= nbytes / PEAK_BYTES else "bytes",
-                    "library_ms": lib_ms,
+                    "ms": c["ms"], "plain_ms": case["plain_ms"],
+                    "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
+                    "library_ms": case["library_ms"],
                 }
-        print(f"[kernels] flash backward S={S}: B2a+B2b={ms_dkv + ms_dq:.4f} ms "
-              f"plain_ms={plain_ms:.3f} library_ms (sdpa backward)={lib_ms:.4f} "
-              f"({(ms_dkv + ms_dq) / lib_ms:.3f}x the library's time) "
-              + " ".join(f"max|d{n}|={err[n]:.3e} (tol "
-                         f"{GRAD_REL * ref_max[n]:.3e})" for n in got), flush=True)
-        del q, k, v, g, out, lse, drow, dq, dk, dv, got, qt, kt, vt, gt
-        torch.cuda.empty_cache()
+        pair = case["flash_attn_bwd_dkv"]["ms"] + case["flash_attn_bwd_dq"]["ms"]
+        print(f"[kernels] flash backward S={S}: B2a+B2b={pair:.4f} ms "
+              f"plain_ms={case['plain_ms']:.3f} library_ms (sdpa backward)="
+              f"{case['library_ms']:.4f} ({pair / case['library_ms']:.3f}x the "
+              f"library's time) " + " ".join(
+                  f"max|d{n}|={err[n]:.3e} (tol {GRAD_REL * case['ref_max'][n]:.3e})"
+                  for n in err), flush=True)
     records["flash_attn_bwd_dkv"]["max_abs_err"] = worst["dkv"]
     records["flash_attn_bwd_dq"]["max_abs_err"] = worst["dq"]
     return [records["flash_attn_bwd_dkv"], records["flash_attn_bwd_dq"]]
+
+
+# the local heads of tensor-parallel training: 24 heads over model = 4, 2
+TP_BWD_HEADS = (6, 12)
+TP_BWD_S = 13824
+
+
+def check_flash_backward_tp(attn, torch, records: list) -> None:
+    """B2a and B2b at the per-rank shapes of tensor-parallel training,
+    [1, 13824, 6 | 12, 128] (:func:`_flash_backward_case`); each shape's
+    time, bound, plain and library times and error go into the two
+    kernels' records under ``tp_shapes``."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    by_name = {r["name"]: r for r in records}
+    for H in TP_BWD_HEADS:
+        case = _flash_backward_case(attn, torch, gen, TP_BWD_S, H)
+        err = case["err"]
+        pair = case["flash_attn_bwd_dkv"]["ms"] + case["flash_attn_bwd_dq"]["ms"]
+        for name, e in (("flash_attn_bwd_dkv", max(err["dk"], err["dv"])),
+                        ("flash_attn_bwd_dq", err["dq"])):
+            c = case[name]
+            by_name[name].setdefault("tp_shapes", []).append({
+                "shape": [1, TP_BWD_S, H, 128], "ms": c["ms"],
+                "plain_ms": case["plain_ms"], "bound_ms": c["bound_ms"],
+                "bound_by": c["bound_by"], "library_ms": case["library_ms"],
+                "max_abs_err": e})
+            print(f"[kernels] {name} [1, {TP_BWD_S}, {H}, 128] (TP): "
+                  f"ms={c['ms']:.4f} bound_ms={c['bound_ms']:.4f} "
+                  f"({c['bound_ms'] / c['ms']:.1%} of the bound) "
+                  f"plain_ms={case['plain_ms']:.3f}", flush=True)
+        print(f"[kernels] flash backward [1, {TP_BWD_S}, {H}, 128] (TP): "
+              f"B2a+B2b={pair:.4f} ms library_ms (sdpa backward)="
+              f"{case['library_ms']:.4f} ({pair / case['library_ms']:.3f}x) "
+              + " ".join(f"max|d{n}|={err[n]:.3e} (tol "
+                         f"{GRAD_REL * case['ref_max'][n]:.3e})" for n in err),
+              flush=True)
 
 
 def check_flash_backward_d64(attn, torch, ptxas: dict) -> list:
@@ -3500,6 +3576,221 @@ def run_parallel(attn, torch, pipe, keep: str, device: str = "cuda",
     return tuple(a + b for a, b in zip(forwards, job_n))
 
 
+# phase 21: multi-GPU training at world 1
+PT_LOSS_REL = 1e-2     # the mesh and PP steps' losses, of the one-device loss
+PT_GRAD_REL = 5e-2     # their adapter gradients, of max|ref| (bf16, other orders)
+PT_MICRO = 2           # the PP path's microbatches (its batch of 2)
+ZERO_DEPTH = (2, 4)    # dual and single blocks of the full-width ZeRO tree
+ZERO_STEPS = 2
+
+
+def train_launches(n_blocks: int, n_micro: int = 1, remat: bool = True) -> tuple:
+    """(B1, B2a, B2b) launches of one train step of ``n_blocks`` blocks:
+    each block's forward once a microbatch, once more under remat, and
+    its backward once."""
+    fwd = n_blocks * n_micro
+    return (2 * fwd if remat else fwd, fwd, fwd)
+
+
+class _Capture:
+    """An optimizer that keeps a copy of the gradients it is given."""
+
+    def __init__(self, tx):
+        self.tx, self.grads = tx, None
+
+    def init(self, params):
+        return self.tx.init(params)
+
+    def step(self, params, grads, state, axes=None):
+        self.grads = [g.detach().float().clone() for g in grads]
+        self.tx.step(params, grads, state, axes)
+
+
+def run_parallel_training(attn, torch, pipe, device: str = "cuda",
+                          view_size: int = 512, s_txt: int = 512,
+                          zero_depth=ZERO_DEPTH) -> tuple:
+    """Phase 21 (module docstring) on ``pipe``'s resident trees; returns
+    the phase's launches."""
+    import torch.distributed as dist
+
+    from unitex_torch.models.flux.lora import init_lora_params
+    from unitex_torch.models.flux.model import tp_config
+    from unitex_torch.models.flux.pp import prepare_flux_params_pp, prepare_lora_pp
+    from unitex_torch.parallel.mesh import make_mesh
+    from unitex_torch.parallel.sharding import shard_flux_params
+    from unitex_torch.scripts.train_flux_lora import build_batch
+    from unitex_torch.training.data import SyntheticTextureDataset
+    from unitex_torch.training.flux_lora import (
+        FluxLoraTrainConfig,
+        TrainState,
+        _leaves,
+        _map,
+        make_optimizer,
+        train_step,
+    )
+    from unitex_torch.training.full_finetune import (
+        FullTrainState,
+        full_train_step,
+        shard_opt_state_zero,
+    )
+
+    cuda = device == "cuda"
+    cfg = dataclasses.replace(pipe.flux_cfg, remat=True)
+    base = pipe.transformer_params
+    n_blocks = cfg.num_layers + cfg.num_single_layers
+    work = tempfile.mkdtemp(prefix="chip_smoke_ptrain_")
+    store = dist.FileStore(os.path.join(work, "store"), 1)
+    dist.init_process_group("nccl" if cuda else "gloo", store=store, rank=0,
+                            world_size=1)
+    total = NONE
+    try:
+        mesh = make_mesh(data=1, model=1, device=device)
+        print(f"[ptrain] process group {dist.get_backend()} world "
+              f"{dist.get_world_size()}, mesh {mesh.shape}", flush=True)
+        tcfg = FluxLoraTrainConfig(rank=16, learning_rate=1e-4,
+                                   lr_scheduler="constant")
+        gen = torch.Generator(device=device)
+        lora0 = init_lora_params(gen.manual_seed(5), base, rank=16,
+                                 device=device)
+        for path, leaf in _named_leaves(lora0):
+            if path.endswith("/b"):   # off zero: the adapter acts, a learns
+                leaf.normal_(0.0, 1e-3, generator=gen)
+        data = iter(SyntheticTextureDataset(view_size=view_size, seed=0,
+                                            device=device))
+        seq_e = torch.zeros((s_txt, cfg.joint_attention_dim), device=device)
+        pooled_e = torch.zeros((cfg.pooled_projection_dim,), device=device)
+        batch = build_batch([next(data), next(data)], pipe.vae_params,
+                            pipe.vae_cfg, seq_e, pooled_e)
+
+        def fresh():
+            return _map(lambda x: x.detach().clone(), lora0)
+
+        tp_cfg = tp_config(cfg, mesh.group("model"))
+        pp_tcfg = dataclasses.replace(tcfg, pipe_axis=mesh.group("pipe"),
+                                      pipe_n_micro=PT_MICRO)
+        # name: (config, base tree, adapter, train config, data axis, launches)
+        paths = {
+            "one device": (cfg, base, fresh(), tcfg, None,
+                           train_launches(n_blocks)),
+            "mesh (TP and data, world 1)": (
+                tp_cfg, shard_flux_params(base, mesh),
+                shard_flux_params(fresh(), mesh), tcfg, mesh.group("data"),
+                train_launches(n_blocks)),
+            f"PP (pipe 1, {PT_MICRO} microbatches)": (
+                cfg, prepare_flux_params_pp(base, mesh),
+                prepare_lora_pp(fresh(), mesh), pp_tcfg, None,
+                train_launches(n_blocks, PT_MICRO)),
+        }
+        ref = None
+        for name, (c, tree, lora, t, data_axis, want) in paths.items():
+            for leaf in _leaves(lora):
+                leaf.requires_grad_(True)
+            tx = _Capture(make_optimizer(t))
+            state = TrainState(step=0, lora=lora, opt_state=tx.init(lora))
+            torch.cuda.reset_peak_memory_stats()
+            before = _counts(attn)
+            t0 = time.perf_counter()
+            state, loss = train_step(
+                state, tree, batch,
+                torch.Generator(device=device).manual_seed(1000), c, t, tx,
+                data_axis=data_axis)
+            loss = float(loss)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            n = tuple(a - b for a, b in zip(_counts(attn), before))
+            total = tuple(a + b for a, b in zip(total, n))
+            peak = torch.cuda.max_memory_allocated()
+            line = (f"[ptrain] LoRA step, {name}: loss {loss:.6f} step "
+                    f"{wall:.3f}s peak {peak / 2**30:.2f} GiB launches "
+                    f"B1/B2a/B2b {n[0]}/{n[1]}/{n[2]}")
+            if ref is not None:
+                scale = max(float(g.abs().max()) for g in ref[1])
+                err = max(float((g - r).abs().max())
+                          for g, r in zip(tx.grads, ref[1]))
+                loss_rel = abs(loss - ref[0]) / abs(ref[0])
+                line += (f"; against one device: loss {loss_rel:.2e} of it "
+                         f"(limit {PT_LOSS_REL}), gradients max|d| {err:.3e} "
+                         f"({err / scale:.2e} of max|ref| {scale:.3e}, limit "
+                         f"{PT_GRAD_REL})")
+                if not (loss_rel <= PT_LOSS_REL and err <= PT_GRAD_REL * scale):
+                    raise AssertionError(f"ptrain: {name} against one device: "
+                                         f"{loss_rel}, {err} of {scale}")
+            else:
+                ref = (loss, tx.grads)
+            print(line, flush=True)
+            if not math.isfinite(loss):
+                raise AssertionError(f"ptrain: {name} loss {loss}")
+            if cuda and n != want + (0,) * 4:
+                raise AssertionError(f"ptrain: {name} launched {n}, expected "
+                                     f"{want}")
+            del state, tx, lora
+        del paths, ref
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ZeRO-1 full fine-tuning of a depth-cut full-width f32 tree
+        zd, zs = zero_depth
+        zcfg = dataclasses.replace(cfg, num_layers=zd, num_single_layers=zs)
+        depth = {"dual_blocks": zd, "single_blocks": zs}
+        ztree = {k: _map(lambda x, k=k: x[:depth[k]].float() if k in depth
+                         else x.float(), v) for k, v in base.items()}
+        zparams = shard_flux_params(ztree, mesh)
+        del ztree
+        for leaf in _leaves(zparams):
+            leaf.requires_grad_(True)
+        ztx = make_optimizer(tcfg)
+        opt, zero = shard_opt_state_zero(zparams, mesh, ztx, tp=True)
+        zstate = FullTrainState(step=0, params=zparams, opt_state=opt,
+                                zero=zero)
+        first = [x.detach().clone() for x in _leaves(zparams)[:4]]
+        n_params = sum(x.numel() for x in _leaves(zparams))
+        zwant = train_launches(zd + zs)
+        for step in range(ZERO_STEPS):
+            torch.cuda.reset_peak_memory_stats()
+            before = _counts(attn)
+            t0 = time.perf_counter()
+            zstate, loss = full_train_step(
+                zstate, batch,
+                torch.Generator(device=device).manual_seed(2000 + step),
+                tp_config(zcfg, mesh.group("model")), tcfg, ztx,
+                bf16_compute=True, data_axis=mesh.group("data"))
+            loss = float(loss)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            n = tuple(a - b for a, b in zip(_counts(attn), before))
+            total = tuple(a + b for a, b in zip(total, n))
+            peak = torch.cuda.max_memory_allocated()
+            print(f"[ptrain] ZeRO-1 full fine-tuning step {step}, depth {zd} + "
+                  f"{zs} blocks at full width ({n_params / 1e9:.3f} B f32 "
+                  f"parameters), bf16 compute: loss {loss:.6f} step "
+                  f"{wall:.3f}s peak {peak / 2**30:.2f} GiB launches "
+                  f"B1/B2a/B2b {n[0]}/{n[1]}/{n[2]}", flush=True)
+            if not math.isfinite(loss):
+                raise AssertionError(f"ptrain: ZeRO step {step} loss {loss}")
+            if cuda and n != zwant + (0,) * 4:
+                raise AssertionError(f"ptrain: ZeRO step {step} launched {n}, "
+                                     f"expected {zwant}")
+        moved = any(not torch.equal(a, b.detach())
+                    for a, b in zip(first, _leaves(zstate.params)[:4]))
+        if not moved:
+            raise AssertionError("ptrain: the ZeRO steps left the tree as it was")
+        del zstate, zparams, opt, first, batch
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(work, ignore_errors=True)
+    return total
+
+
+def phase21_launches(n_blocks: int, zero_depth=ZERO_DEPTH) -> tuple:
+    """Phase 21's (B1, B2a, B2b): one LoRA step on one device and one
+    through the mesh, one PP step in ``PT_MICRO`` microbatches, and
+    ``ZERO_STEPS`` ZeRO steps of the depth-cut tree."""
+    parts = [train_launches(n_blocks), train_launches(n_blocks),
+             train_launches(n_blocks, PT_MICRO)] + [
+        train_launches(sum(zero_depth))] * ZERO_STEPS
+    return tuple(sum(p[i] for p in parts) for i in range(3))
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "unitex_torch", "csrc")):
         return fail("run from a checkout of the repository (unitex_torch/ "
@@ -3539,6 +3830,9 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     records += check_flash_backward(attn, torch, usage)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    check_flash_backward_tp(attn, torch, records)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     records.append(check_flash_qk8(attn, torch, usage["flash_qk8_kernel"], b1_ms))
@@ -3627,6 +3921,19 @@ def main() -> int:
         return fail(f"launches {COUNTED} {train} on the training path")
     print(f"[train] launches B1/B2a/B2b {train[0]}/{train[1]}/{train[2]} in "
           f"{TRAIN_STEPS} steps", flush=True)
+    torch.cuda.empty_cache()
+
+    # phase 21: multi-GPU training at world 1 over NCCL, on the same trees
+    _reset(attn)
+    t0 = time.perf_counter()
+    ptrain = run_parallel_training(attn, torch, pipe)
+    torch.cuda.synchronize()
+    print(f"[ptrain] phase 21 {time.perf_counter() - t0:.1f}s", flush=True)
+    b1, b2a, b2b = phase21_launches(pipe.flux_cfg.num_layers
+                                    + pipe.flux_cfg.num_single_layers)
+    if not _only(ptrain, B1=b1, B2a=b2a, B2b=b2b):
+        return fail(f"launches {COUNTED} {ptrain} in phase 21")
+    gc.collect()
     torch.cuda.empty_cache()
 
     # phase 9 runs here, while the serving phase's FLUX trees are resident
@@ -3736,11 +4043,12 @@ def main() -> int:
         return fail(f"launches {COUNTED} {_counts(attn)} in the text encoders")
 
     paths = ("matting", "serve", "http_serve", "texture_tools", "redux",
-             "parallel", "train", "ltm", "cli", "flux_launcher", "int8_serve",
-             "sr_options", "tsdsr_train", "oracle")
+             "parallel", "train", "parallel_train", "ltm", "cli",
+             "flux_launcher", "int8_serve", "sr_options", "tsdsr_train",
+             "oracle")
     for rec, *n in zip(records, matting, serve, http, tools, redux, parallel,
-                       train, ltm, cli, flux_launcher, int8, sr_options, tsdsr,
-                       oracle):
+                       train, ptrain, ltm, cli, flux_launcher, int8,
+                       sr_options, tsdsr, oracle):
         rec["launches"] = sum(n)
         rec["launches_by_path"] = dict(zip(paths, n))
     # B1 at the Redux job's S: its launches are the Redux job's, all at

@@ -424,3 +424,57 @@ def test_parallel_phase_rehearses_on_the_cpu(tmp_path, monkeypatch, capsys):
         assert tag in out, tag
     psnr = float(out.split("PSNR against phase 4's job ")[1].split(" dB")[0])
     assert psnr >= 50.0, out
+
+
+def test_phase21_launches_are_derived_from_the_steps():
+    """Phase 21's exact launch counts for FLUX.1-dev's 57 blocks: two LoRA
+    steps of 114 / 57 / 57 (B1 forward and remat, B2a, B2b), the PP step's
+    two microbatches twice that, and two ZeRO steps of the 6-block tree."""
+    cs = _chip_smoke()
+    assert cs.train_launches(57) == (114, 57, 57)
+    assert cs.train_launches(57, 2) == (228, 114, 114)
+    assert cs.train_launches(6, remat=False) == (6, 6, 6)
+    assert cs.phase21_launches(57) == (114 * 2 + 228 + 12 * 2,
+                                       57 * 2 + 114 + 6 * 2,
+                                       57 * 2 + 114 + 6 * 2)
+
+
+def test_parallel_training_phase_rehearses_on_the_cpu(monkeypatch, capsys):
+    """Phase 21 on the CPU at tiny sizes over a one-rank gloo group: the
+    LoRA step on one device, through the mesh and through the pipeline
+    (each held to the first), and the ZeRO steps of a depth-cut tree (no
+    kernel launches on the CPU)."""
+    import types
+
+    import torch
+    from torch_cpu_share import share_cpu
+
+    from unitex_torch.models.flux import model as tmodel
+    from unitex_torch.models.flux import vae as tvae
+    from unitex_torch.models.flux.config import FluxConfig
+    from unitex_torch.ops import attention as attn
+
+    share_cpu()
+    cs = _chip_smoke()
+    for fn in ("synchronize", "reset_peak_memory_stats"):
+        monkeypatch.setattr(torch.cuda, fn, lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
+    fcfg, vcfg = FluxConfig.tiny(), tvae.VAEConfig.tiny()
+    pipe = types.SimpleNamespace(
+        flux_cfg=fcfg, vae_cfg=vcfg,
+        transformer_params=tmodel.init_flux_params(
+            torch.Generator().manual_seed(0), fcfg, device="cpu"),
+        vae_params=tvae.init_vae_params(torch.Generator().manual_seed(1),
+                                        vcfg, device="cpu"))
+    cs._reset(attn)
+    n = cs.run_parallel_training(attn, torch, pipe, device="cpu", view_size=32,
+                                 s_txt=8, zero_depth=(1, 1))
+    out = capsys.readouterr().out
+    assert n == cs.NONE
+    assert "[ptrain] process group gloo world 1" in out
+    for tag in ("LoRA step, one device: loss",
+                "LoRA step, mesh (TP and data, world 1): loss",
+                "LoRA step, PP (pipe 1, 2 microbatches): loss",
+                "ZeRO-1 full fine-tuning step 1, depth 1 + 1 blocks"):
+        assert tag in out, tag
+    assert out.count("against one device: loss") == 2

@@ -63,7 +63,9 @@ def test_guard_sees_every_source():
                    "scripts/check_meshes.py", "scripts/merge_reports.py",
                    "parallel/mesh.py", "parallel/sharding.py",
                    "ops/ring_attention.py", "models/flux/sp.py",
-                   "scripts/probe_multi_gpu.py"):
+                   "scripts/probe_multi_gpu.py", "parallel/collectives.py",
+                   "parallel/pipeline.py", "models/flux/pp.py",
+                   "training/full_finetune.py"):
         assert os.path.join(REPO, "unitex_torch", *module.split("/")) in files
 
 

@@ -191,6 +191,29 @@ def test_flash_backward_d64_at_the_trainer_shape(card, B):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("H", [6, 12])
+def test_flash_backward_at_the_tp_training_shapes(card, H):
+    """B2a/B2b at the local heads of tensor-parallel FLUX training,
+    [1, 13824, 24 / model, 128] at model = 4 and 2, each head against its
+    plain backward (one head's f32 S x S temporaries at a time)."""
+    S = 13824
+    q, k, v = _qkv(S, H, 40 + H, card)
+    g = _qkv(S, H, 50 + H, card)[0]
+    out, lse = attn.flash_attention(q, k, v)
+    grads = attn.flash_attention_backward(q, k, v, out, lse, g)
+    torch.cuda.synchronize()
+    for h in range(H):
+        sl = slice(h, h + 1)
+        refs = attn.attention_backward_reference(
+            q[:, :, sl].float(), k[:, :, sl].float(), v[:, :, sl].float(),
+            out[:, :, sl].float(), lse[h:h + 1], g[:, :, sl].float())
+        for name, got, ref in zip(("dq", "dk", "dv"), grads, refs):
+            err = (got[:, :, sl].float() - ref).abs().max().item()
+            assert err <= max(GRAD_REL * ref.abs().max().item(), GRAD_ABS), \
+                (h, name, err)
+
+
+@pytest.mark.cuda
 def test_flash_backward_d64_reads_strided_heads(card):
     """q/k/v and dO at D = 64 as views into fused [B, S, n, H, D] tensors."""
     qkv = torch.randn((2, 300, 3, 4, 64), device=card).bfloat16()

@@ -10,6 +10,7 @@ card, tests/test_torch_kernels.py).
 """
 
 import dataclasses
+import functools
 import json
 import os
 import sys
@@ -107,18 +108,29 @@ def _batch(seed, n=B):
 
 def _jax_draws(key, tcfg, n=B):
     """The draws JAX's ``flow_match_loss`` makes from ``key``."""
-    k_t, k_noise, k_drop = jax.random.split(key, 3)
-    draws = {
-        "u": np.array(jfl.sample_timestep_density(
-            k_t, n, tcfg.weighting_scheme, tcfg.logit_mean, tcfg.logit_std)),
-        "noise": np.array(jax.random.normal(k_noise, (n, HL, WL, C))),
-    }
-    if tcfg.drop_rate > 0:
-        S = (HL // 2) * (WL // 2)
-        n_keep = max(1, int(S * (1.0 - tcfg.drop_rate)))
-        draws["keep_idx"] = np.array(
-            jnp.sort(jax.random.permutation(k_drop, S)[:n_keep]))
-    return draws
+    return {k: np.array(v) for k, v in _drawer(tcfg, n)(key).items()}
+
+
+@functools.lru_cache(maxsize=None)
+def _drawer(tcfg, n):
+    """:func:`_jax_draws` as one jitted program (each op compiled eagerly
+    took seconds)."""
+    def draw(key):
+        k_t, k_noise, k_drop = jax.random.split(key, 3)
+        draws = {
+            "u": jfl.sample_timestep_density(
+                k_t, n, tcfg.weighting_scheme, tcfg.logit_mean,
+                tcfg.logit_std),
+            "noise": jax.random.normal(k_noise, (n, HL, WL, C)),
+        }
+        if tcfg.drop_rate > 0:
+            S = (HL // 2) * (WL // 2)
+            n_keep = max(1, int(S * (1.0 - tcfg.drop_rate)))
+            draws["keep_idx"] = jnp.sort(
+                jax.random.permutation(k_drop, S)[:n_keep])
+        return draws
+
+    return jit_reference(draw)
 
 
 def _configs(**kw):
@@ -223,9 +235,10 @@ def test_train_step_matches_jax(trees, accum):
     state_t.opt_state = tx.init(state_t.lora)
     if accum == 1:
         batch = _batch(9, n=1)
-        jstate, loss_j = jfl.train_step(
+        jstate, loss_j = jit_reference(
+            jfl.train_step, static_argnames=("cfg", "tcfg", "tx"))(
             jstate, base_j, jax.tree.map(jnp.asarray, batch), key,
-            JFluxConfig.tiny(), jt, jx)
+            cfg=JFluxConfig.tiny(), tcfg=jt, tx=jx)
         state_t, loss_t = tfl.train_step(
             state_t, params_from_jax(base, "cpu"), params_from_jax(batch, "cpu"),
             None, TFluxConfig.tiny(), tt, tx, draws=_jax_draws(key, jt, n=1))
@@ -234,9 +247,10 @@ def test_train_step_matches_jax(trees, accum):
         batches = {k: (np.broadcast_to(v, (2, *v.shape)) if k == "cond_ids"
                        else v.reshape(2, 1, *v.shape[1:]))
                    for k, v in batch.items()}
-        jstate, loss_j = jfl.train_step_accum(
+        jstate, loss_j = jit_reference(
+            jfl.train_step_accum, static_argnames=("cfg", "tcfg", "tx"))(
             jstate, base_j, jax.tree.map(jnp.asarray, batches), key,
-            JFluxConfig.tiny(), jt, jx)
+            cfg=JFluxConfig.tiny(), tcfg=jt, tx=jx)
         draws = [_jax_draws(k, jt, n=1) for k in jax.random.split(key, 2)]
         state_t, loss_t = tfl.train_step_accum(
             state_t, params_from_jax(base, "cpu"),
@@ -358,34 +372,6 @@ def test_launcher_trains_checkpoints_and_resumes(tmp_path, monkeypatch, capsys):
     assert all(np.isfinite(r["loss"]) for r in recs)
     assert sorted(n for n in os.listdir(out) if n.startswith("checkpoint-")) == \
         ["checkpoint-2", "checkpoint-3"]
-
-
-@pytest.mark.parametrize("flag", [
-    ["--pipe", "2"], ["--data-mesh", "2"], ["--full-finetune"],
-    ["--bf16-compute"],
-])
-def test_launcher_refuses_deferred_flags(flag):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        launcher.main(["--tiny", "--device", "cpu"] + flag)
-
-
-@pytest.mark.parametrize("flag", [["--pipe-n-micro", "4"]])
-def test_launcher_rejects_options_it_does_not_take(flag):
-    """Options whose branch is not ported are not parsed at all, so they
-    cannot be ignored silently."""
-    with pytest.raises(SystemExit):
-        launcher.parse_args(["--tiny", "--device", "cpu"] + flag)
-
-
-@pytest.mark.parametrize("field", [{"pipe_axis": "pipe"}])
-def test_deferred_training_branches_raise(trees, field):
-    base, lora = trees
-    tt = tfl.FluxLoraTrainConfig(rank=RANK, **field)
-    with pytest.raises(NotImplementedError):
-        tfl.make_optimizer(tt)
-        tfl.flow_match_loss(_torch_lora(lora), params_from_jax(base, "cpu"),
-                            TFluxConfig.tiny(), tt,
-                            params_from_jax(_batch(0), "cpu"))
 
 
 @pytest.mark.parametrize("clip", [True, False], ids=["clipped", "unclipped"])
@@ -553,3 +539,24 @@ def test_launcher_trains_from_pretrain_models(tmp_path, monkeypatch):
     saved = torch.load(os.path.join(out, "checkpoint-2", tckpt.FILE),
                        weights_only=True)
     assert float(saved["dual_blocks"]["ff"]["in"]["b"].abs().max()) > 0
+
+
+def test_iterate_host_sharded_matches_jax_and_cuts_over_data():
+    """Global batches of 4 from a stream: without a mesh the whole batch,
+    as the JAX package's on its one process; on a mesh this data rank's
+    slice (index 1 of data 2: examples 2-3 of each batch)."""
+    from unitex_torch.parallel.mesh import Mesh
+
+    stream = [{"target": np.full((2, 2, 3), i, np.float32),
+               "control": np.full((2, 2, 3), -i, np.float32)} for i in range(8)]
+    want = list(jdata.iterate_host_sharded(iter(stream), 4))
+    got = list(tdata.iterate_host_sharded(iter(stream), 4))
+    assert len(got) == len(want) == 2
+    for g, w in zip(got, want):
+        for k in w:
+            np.testing.assert_array_equal(g[k], np.asarray(w[k]))
+    mesh = Mesh({"data": 2, "pipe": 1, "seq": 1, "model": 1},
+                {"data": 1, "pipe": 0, "seq": 0, "model": 0}, {},
+                torch.device("cpu"))
+    half = list(tdata.iterate_host_sharded(iter(stream), 4, mesh))
+    assert [b["target"][:, 0, 0, 0].tolist() for b in half] == [[2, 3], [6, 7]]

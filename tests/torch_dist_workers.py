@@ -329,3 +329,368 @@ def _pipeline_job(inputs: dict, out_dir: str, name: str):
     pipe.flush_io()
     assert os.path.exists(glb)
     return pipe.last_texture.numpy()
+
+
+# ----------------------------------------------------------- training
+
+
+def _train_args(inputs: dict, prefix: str = "b"):
+    """(batch, [draws of step 1, draws of step 2]) of the training inputs."""
+    batch = {k: torch.from_numpy(inputs[f"{prefix}/{k}"]) for k in
+             ("latents", "cond_tokens", "cond_ids", "prompt_embeds",
+              "pooled_embeds")}
+    draws = []
+    for s in (0, 1):
+        d = {"u": inputs[f"d{s}/u"], "noise": inputs[f"d{s}/noise"]}
+        if f"d{s}/keep_idx" in inputs:
+            d["keep_idx"] = inputs[f"d{s}/keep_idx"]
+        draws.append(d)
+    return batch, draws
+
+
+def _lora_tcfg(**kw):
+    from unitex_torch.training.flux_lora import FluxLoraTrainConfig
+
+    return FluxLoraTrainConfig(**{**TRAIN_KW, **kw})
+
+
+# the training cases' optimizer settings (tests/test_torch_tp_train.py);
+# the clip is active on the tiny model's gradients
+TRAIN_KW = dict(rank=2, learning_rate=1e-3, adam_eps=1e-4, max_grad_norm=0.05,
+                drop_rate=0.25)
+FULL_KW = dict(rank=2, learning_rate=1e-4, max_grad_norm=0.1, drop_rate=0.25)
+
+
+def _requires_grad(tree):
+    from unitex_torch.training.flux_lora import _leaves
+
+    for leaf in _leaves(tree):
+        leaf.requires_grad_(True)
+    return tree
+
+
+def _lora_steps(inputs, mesh, data_axis, tp: bool, tcfg=None, cut=None):
+    """Two LoRA train steps on this rank's part of the inputs' trees:
+    the losses, and the whole adapter and Adam moments after them."""
+    from unitex_torch.models.flux.config import FluxConfig
+    from unitex_torch.models.flux.model import tp_config
+    from unitex_torch.parallel.sharding import shard_flux_params, unshard_tree
+    from unitex_torch.training.flux_lora import TrainState, make_optimizer, train_step
+
+    tcfg = tcfg or _lora_tcfg()
+    cfg = FluxConfig.tiny()
+    base, lora = unflatten(inputs, "flux"), unflatten(inputs, "lora")
+    if tp:
+        cfg = tp_config(cfg, mesh.group("model"))
+        base, lora = shard_flux_params(base, mesh), shard_flux_params(lora, mesh)
+    if cut is not None:
+        base, lora = cut(base, lora)
+    lora = _requires_grad(_clone_tree(lora))
+    tx = make_optimizer(tcfg)
+    state = TrainState(step=0, lora=lora, opt_state=tx.init(lora))
+    batch, draws = _train_args(inputs)
+    losses = []
+    for d in draws:
+        state, loss = train_step(state, base, batch, None, cfg, tcfg, tx,
+                                 draws=d, data_axis=data_axis)
+        losses.append(float(loss))
+    trees = {"lora": state.lora, "mu": state.opt_state["mu"],
+             "nu": state.opt_state["nu"]}
+    if tp:
+        trees = {k: unshard_tree(v, mesh.group("model")) for k, v in trees.items()}
+    return np.array(losses), trees
+
+
+def _clone_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _clone_tree(v) for k, v in tree.items()}
+    return tree.detach().clone()
+
+
+def _zero_steps(inputs, mesh, tp: bool, bf16: bool, ckpt: str = None):
+    """Two ZeRO-1 full fine-tuning steps: the losses, the whole parameters
+    and moments after them, and each moment leaf's share of its
+    parameter's (local) size."""
+    from unitex_torch.models.flux.config import FluxConfig
+    from unitex_torch.models.flux.model import tp_config
+    from unitex_torch.parallel.sharding import gather, shard_flux_params, unshard_tree
+    from unitex_torch.training.flux_lora import (
+        FluxLoraTrainConfig,
+        _leaves,
+        _map,
+        make_optimizer,
+    )
+    from unitex_torch.training.full_finetune import (
+        FullTrainState,
+        full_train_step,
+        gathered_params,
+        shard_opt_state_zero,
+    )
+
+    tcfg = FluxLoraTrainConfig(**FULL_KW)
+    cfg = FluxConfig.tiny()
+    params = _clone_tree(unflatten(inputs, "flux"))
+    if tp:
+        cfg = tp_config(cfg, mesh.group("model"))
+        params = shard_flux_params(params, mesh)
+    _requires_grad(params)
+    tx = make_optimizer(tcfg)
+    opt, zero = shard_opt_state_zero(params, mesh, tx, tp=tp)
+    state = FullTrainState(step=0, params=params, opt_state=opt, zero=zero)
+    batch, draws = _train_args(inputs)
+    losses = []
+    for d in draws:
+        state, loss = full_train_step(state, batch, None, cfg, tcfg, tx,
+                                      bf16_compute=bf16, draws=d,
+                                      data_axis=mesh.group("data"))
+        losses.append(float(loss))
+    dims, group = zero
+    share = np.array([m.numel() / p.numel() for m, p in zip(
+        _leaves(state.opt_state["mu"]), _leaves(state.params))])
+    has_dim = np.array([d is not None for d in dims])
+    out = {"params": gathered_params(state, mesh if tp else None)}
+    for name in ("mu", "nu"):
+        it = iter(dims)
+        whole = _map(lambda m: m if (d := next(it)) is None
+                     else gather(m.contiguous(), group, d), state.opt_state[name])
+        out[name] = unshard_tree(whole, mesh.group("model")) if tp else whole
+    if ckpt is not None and mesh.is_root:
+        from unitex_torch.training.checkpoint import CheckpointManager
+
+        CheckpointManager(ckpt, 1).save(2, out["params"])
+    return np.array(losses), out, share, has_dim
+
+
+def pipeline_stage(params, h, aux, shared):
+    """A stage of the schedule tests: one nonlinear layer of its own."""
+    return torch.tanh(h @ params) * aux
+
+
+def _pipeline_grads(inputs) -> dict:
+    """``pipeline_apply`` (``gpipe_local``) and ``gpipe_chain_local`` at
+    pipe 4 on three
+    microbatches through :func:`pipeline_stage` (stage ``s`` of phase
+    ``a`` holds ``W[a, s]``): each rank's output and the gradients of
+    ``sum(w * out)`` for its weights and the input."""
+    from unitex_torch.parallel.pipeline import gpipe_chain_local, pipeline_apply
+
+    p4 = _mesh(data=1, pipe=4, model=1)
+    group, s = p4.group("pipe"), p4.index("pipe")
+    W, w = (torch.from_numpy(inputs[f"pipe/{n}"]) for n in ("W", "w"))
+    aux = torch.from_numpy(inputs["pipe/aux"])
+    out = {}
+    for name in ("gpipe", "chain"):
+        wa, wb = (W[a, s].clone().requires_grad_(True) for a in (0, 1))
+        x = torch.from_numpy(inputs["pipe/x"]).requires_grad_(True)
+        if name == "chain":
+            y = gpipe_chain_local(pipeline_stage, pipeline_stage, wa, wb, x,
+                                  aux, None, group)
+        else:
+            y = pipeline_apply(pipeline_stage, wa, x, aux, None, group)
+        (w * y).sum().backward()
+        out[f"{name}/out"] = y.detach().numpy()
+        out[f"{name}/dwa"] = wa.grad.numpy()
+        if name == "chain":
+            out[f"{name}/dwb"] = wb.grad.numpy()
+        out[f"{name}/dx"] = (x.grad if x.grad is not None
+                             else torch.zeros_like(x)).numpy()
+    return out
+
+
+def lora_mesh_worker(rank: int, inputs: dict, out_dir: str) -> dict:
+    """The autograd collectives on a model = 4 group; two LoRA train steps
+    at model 4, model 2 (each data row of data 2 x model 2 on the whole
+    batch), data 2 x model 2, pipe 4, pipe 2 (each data row of data 2 x
+    pipe 2 on the whole batch) and data 2 x pipe 2; the data 2 x model 2
+    adapter written as a checkpoint by rank 0; ZeRO-1 steps with the bf16
+    compute at data 2 and data 2 x model 2."""
+    from unitex_torch.parallel import collectives as col
+
+    out = {}
+    with torch.enable_grad():
+        tp4 = _mesh(data=1, model=4)
+        group, m = tp4.group("model"), tp4.index("model")
+        # g: the sum's gradient passes unchanged
+        x = torch.from_numpy(inputs["col/x"][m]).requires_grad_(True)
+        (torch.from_numpy(inputs["col/w"]) * col.reduce_from(x * 1.0, group)
+         ).sum().backward()
+        out["g_grad"] = x.grad.numpy()
+        # f: the replicated input's gradient sums the ranks' columns
+        x = torch.from_numpy(inputs["col/x"][0]).requires_grad_(True)
+        y = col.copy_to(x, group) @ torch.from_numpy(inputs["col/W"][m])
+        (y * torch.from_numpy(inputs["col/v"][m])).sum().backward()
+        out["f_grad"] = x.grad.numpy()
+        # the gather: this rank's slice of the whole gradient, not N times it
+        x = torch.from_numpy(inputs["col/x"][m]).requires_grad_(True)
+        (torch.from_numpy(inputs["col/wg"]) * col.gather_from(x, group, -1)
+         ).sum().backward()
+        out["gather_grad"] = x.grad.numpy()
+
+        out.update(_pipeline_grads(inputs))
+
+        dxm = _mesh(data=2, model=2)
+        for case, mesh, data_axis in (("tp4", tp4, None), ("tp2", dxm, None),
+                                      ("dp2tp2", dxm, dxm.group("data"))):
+            losses, trees = _lora_steps(inputs, mesh, data_axis, True)
+            out[f"{case}/losses"] = losses
+            out.update(_prefixed(case, trees))
+            if case == "dp2tp2" and dxm.is_root:
+                from unitex_torch.training.checkpoint import CheckpointManager
+
+                CheckpointManager(os.path.join(out_dir, "lora_ckpt"), 1).save(
+                    2, trees["lora"])
+        p4 = _mesh(data=1, pipe=4, model=1)
+        dxp = _mesh(data=2, pipe=2, model=1)
+        for case, mesh, data in (("pp4", p4, False), ("pp2", dxp, False),
+                                 ("dp2pp2", dxp, True)):
+            losses, trees = _pp_steps(inputs, mesh, data)
+            out[f"{case}/losses"] = losses
+            out.update(_prefixed(case, trees))
+        out.update(_zero_cases(inputs, dxp, dxm, bf16=True))
+    return out
+
+
+def _zero_cases(inputs, dxp, dxm, bf16: bool, ckpt: str = None) -> dict:
+    """ZeRO-1 steps at data 2 (the data 2 x pipe 2 mesh ``dxp``, its pipe
+    rows alike) and data 2 x model 2 (``dxm``); ``ckpt``: where rank 0
+    writes the data 2 x model 2 tree."""
+    out = {}
+    tag = "bf16" if bf16 else "f32"
+    for case, mesh, tp in (("zero_dp2", dxp, False), ("zero_dp2tp2", dxm, True)):
+        losses, trees, share, has_dim = _zero_steps(
+            inputs, mesh, tp, bf16, ckpt if case == "zero_dp2tp2" else None)
+        out[f"{case}_{tag}/losses"] = losses
+        out[f"{case}_{tag}/share"] = share
+        out[f"{case}_{tag}/has_dim"] = has_dim
+        out.update(_prefixed(f"{case}_{tag}", trees))
+    return out
+
+
+def zero_pp_worker(rank: int, inputs: dict, out_dir: str) -> dict:
+    """ZeRO-1 steps in f32 at data 2 (a data 2 x pipe 2 mesh, its pipe rows
+    alike) and data 2 x model 2, the data 2 x model 2 tree written as a
+    checkpoint by rank 0; the pipelined forwards at pipe 4 (the tiny
+    model's 2 + 2 blocks padded to 4 + 4), pipe 2 (each data row of data
+    2 x pipe 2 on the whole batch), data 2 x pipe 2, model 2 x pipe 2 and
+    with ``kv_keep_idx`` at pipe 4; the adapter through
+    ``prepare_lora_pp``, ``gather_stages`` and ``strip_lora_padding``."""
+    from unitex_torch.models.flux.config import FluxConfig
+    from unitex_torch.models.flux.pp import (
+        gather_stages,
+        prepare_lora_pp,
+        strip_lora_padding,
+    )
+
+    dxm = _mesh(data=2, model=2)
+    dxp = _mesh(data=2, pipe=2, model=1)
+    with torch.enable_grad():
+        out = _zero_cases(inputs, dxp, dxm, bf16=False,
+                          ckpt=os.path.join(out_dir, "full_ckpt"))
+    p4 = _mesh(data=1, pipe=4, model=1)
+    pxm = _mesh(data=1, pipe=2, model=2)
+    keep = torch.from_numpy(inputs["ppx/keep"]).long()
+    out["fwd/pp4"] = _pp_forward(inputs, p4)
+    out["fwd/pp2"] = _pp_forward(inputs, dxp)
+    out["fwd/dp2pp2"] = _pp_forward(inputs, dxp, data=True)
+    out["fwd/tp2pp2"] = _pp_forward(inputs, pxm, tp=True)
+    out["fwd/kv_pp4"] = _pp_forward(inputs, p4, keep=keep)
+    prepared = prepare_lora_pp(unflatten(inputs, "lora"), p4)
+    out["pp4_depths"] = np.array([
+        prepared["dual_blocks"]["ff"]["in"]["a"].shape[0],
+        prepared["single_blocks"]["proj_mlp"]["a"].shape[0]])
+    out.update(_prefixed("round_trip", strip_lora_padding(
+        gather_stages(prepared, p4), FluxConfig.tiny())))
+    return out
+
+
+def _pp_forward(inputs, mesh, data: bool = False, tp: bool = False,
+                keep=None):
+    """The pipelined forward of the inputs' tree with the adapter merged in
+    each block, in ``N_MICRO`` microbatches."""
+    from unitex_torch.models.flux.config import FluxConfig
+    from unitex_torch.models.flux.pp import (
+        flux_forward_pp,
+        prepare_flux_params_tp_pp,
+        prepare_lora_pp,
+    )
+
+    cfg, flux = FluxConfig.tiny(), unflatten(inputs, "flux")
+    lora = unflatten(inputs, "lora")
+    kw = {}
+    if tp:
+        flux = prepare_flux_params_tp_pp(flux, cfg, mesh)
+        lora = prepare_lora_pp(lora, mesh, tp_axis="model")
+        kw["tp_axis"] = mesh.group("model")
+    return flux_forward_pp(
+        flux, cfg, *_pp_args(inputs), kv_keep_idx=keep, n_micro=N_MICRO,
+        pipe_axis=mesh.group("pipe"),
+        data_axis=mesh.group("data") if data else None, lora=lora, **kw).numpy()
+
+
+N_MICRO = 2
+
+
+def _pp_args(inputs):
+    names = ("hidden", "context", "timestep", "pooled", "img_ids", "txt_ids",
+             "guidance")
+    return [torch.from_numpy(inputs[f"ppx/{n}"]) for n in names]
+
+
+def _pp_steps(inputs, mesh, data: bool):
+    """Two LoRA train steps with the block stacks pipelined: the losses,
+    and the stripped whole adapter and moments after them."""
+    from unitex_torch.models.flux.pp import (
+        gather_stages,
+        prepare_flux_params_pp,
+        prepare_lora_pp,
+        strip_lora_padding,
+    )
+    from unitex_torch.models.flux.config import FluxConfig
+
+    tcfg = _lora_tcfg(pipe_axis=mesh.group("pipe"), pipe_n_micro=N_MICRO,
+                      pipe_data_axis=mesh.group("data") if data else None)
+
+    def cut(base, lora):
+        return prepare_flux_params_pp(base, mesh), prepare_lora_pp(lora, mesh)
+
+    losses, trees = _lora_steps(inputs, mesh, None, False, tcfg, cut)
+    cfg = FluxConfig.tiny()
+    return losses, {k: strip_lora_padding(gather_stages(v, mesh), cfg)
+                    for k, v in trees.items()}
+
+
+# the launcher's runs over two ranks (tests/test_torch_pp.py): each covers
+# some of the five multi-rank flags
+LAUNCHER_RUNS = {
+    "dp": ["--data-mesh", "2", "--batch-size", "2"],
+    "pp": ["--pipe", "2", "--pipe-n-micro", "2", "--batch-size", "2"],
+    "zero": ["--full-finetune", "--bf16-compute", "--data-mesh", "2",
+             "--batch-size", "2"],
+}
+
+
+def launcher_worker(rank: int, inputs: dict, out_dir: str) -> dict:
+    """``unitex_torch.scripts.train_flux_lora.main`` on the running gloo
+    group (``WORLD_SIZE`` as ``torchrun`` sets it): one ``--tiny`` step of
+    each run of ``LAUNCHER_RUNS``, then the same run resumed to a second
+    step from its checkpoint."""
+    import sys
+
+    from unitex_torch.scripts import train_flux_lora as launcher
+
+    sys.modules["torch.utils.tensorboard"] = None   # no TensorFlow import
+    os.environ["WORLD_SIZE"] = str(dist.get_world_size())
+    out = {}
+    with torch.enable_grad():
+        for name, flags in LAUNCHER_RUNS.items():
+            run_dir = os.path.join(out_dir, name)
+            common = ["--tiny", "--device", "cpu", "--output-dir", run_dir,
+                      "--lr-scheduler", "constant", "--checkpoint-every", "1",
+                      "--rank", "2"] + flags
+            losses = []
+            launcher.main(common + ["--max-train-steps", "1"],
+                          on_step=lambda s, st, loss: losses.append(float(loss)))
+            launcher.main(common + ["--max-train-steps", "2"],
+                          on_step=lambda s, st, loss: losses.append(float(loss)))
+            out[f"{name}/losses"] = np.array(losses)
+    return out

@@ -12,10 +12,10 @@ import math
 from typing import Dict, Optional, Tuple
 
 import torch
-import torch.distributed as dist
 import torch.nn.functional as F
 
 from ...ops.quant import int8_matmul, int8_weight_only_matmul
+from ...parallel.collectives import reduce_from
 
 Params = Dict[str, torch.Tensor]
 
@@ -42,13 +42,15 @@ def row_linear(p: Params, x: torch.Tensor, group=None) -> torch.Tensor:
     """Megatron row-parallel linear: the kernel's input dim is cut over
     ``group`` (x holds the matching slice), the partial products (with a
     merged or attached LoRA's) are summed by ``all_reduce``, then the
-    replicated bias is added once.  ``group=None`` is :func:`linear`."""
+    replicated bias is added once.  The sum is ``parallel/collectives.
+    reduce_from``, whose gradient passes unchanged to every rank's part.
+    ``group=None`` is :func:`linear`."""
     if group is None:
         return linear(p, x)
     y = x @ p["kernel"].to(x.dtype)
     if "lora_a" in p:
         y = y + (x @ p["lora_a"].to(x.dtype)) @ p["lora_b"].to(x.dtype)
-    dist.all_reduce(y, group=group)
+    y = reduce_from(y, group)
     if "bias" in p:
         y = y + p["bias"].to(x.dtype)
     return y

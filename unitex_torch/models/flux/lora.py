@@ -168,15 +168,21 @@ def _merged(kernel, a, b, scale):
 
 def _walk(base, delta, scale, merged_kernel):
     """``base`` with ``merged_kernel(kernel, {"a", "b"}, scale)`` in place
-    of each kernel that ``delta`` targets (a linear node's ``kernel``, or a
-    kernel leaf an adapter names directly: the ``kernel_attn`` /
-    ``kernel_mlp`` parts of a tensor-parallel ``proj_out``); other leaves
-    are shared."""
+    of each kernel that ``delta`` targets (a linear node's ``kernel``; of a
+    tensor-parallel ``proj_out``, pre-split into ``kernel_attn`` /
+    ``kernel_mlp``, each part with its rows of ``a``); other leaves are
+    shared."""
     out = {}
     for k, v in base.items():
         d = delta.get(k)
         if not isinstance(d, dict):
             out[k] = v
+        elif "a" in d and "b" in d and "kernel_attn" in v:
+            n = v["kernel_attn"].shape[-2]
+            out[k] = {**v, "kernel_attn": merged_kernel(
+                v["kernel_attn"], {"a": d["a"][..., :n, :], "b": d["b"]}, scale),
+                "kernel_mlp": merged_kernel(
+                v["kernel_mlp"], {"a": d["a"][..., n:, :], "b": d["b"]}, scale)}
         elif "a" in d and "b" in d:
             out[k] = ({**v, "kernel": merged_kernel(v["kernel"], d, scale)}
                       if isinstance(v, dict) else merged_kernel(v, d, scale))

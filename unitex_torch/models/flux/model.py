@@ -10,12 +10,14 @@ kernel B1 on the card, with kernels B2a/B2b as its backward, or with
 the leaf names, so it serves the bf16, int8 and fused trees of
 ``quantize.py`` alike.
 
-Tensor and sequence parallelism (serving, forward only; the collectives
-are not differentiated): with ``cfg.tp_axis`` a process group, the blocks
-take this rank's Megatron slices (``parallel/sharding.shard_flux_params``,
-the config from :func:`tp_config` with the local head count), gather the
-AdaLN modulations and ``all_reduce`` after each row-parallel product
-(``layers.row_linear``, the pre-split ``proj_out`` of the single blocks).
+Tensor and sequence parallelism: with ``cfg.tp_axis`` a process group,
+the blocks take this rank's Megatron slices (``parallel/sharding.
+shard_flux_params``, the config from :func:`tp_config` with the local head
+count), gather the AdaLN modulations and sum after each row-parallel
+product (``layers.row_linear``, the pre-split ``proj_out`` of the single
+blocks).  The collectives are ``parallel/collectives``' autograd
+functions, with ``copy_to`` before the column products that read a
+replicated activation, so the TP forward trains.
 With ``cfg.seq_axis`` a process group, the tokens given are this rank's
 block of the sequence and attention runs Ulysses or the ring over the
 group (``ops/ring_attention.py``; ``models/flux/sp.flux_forward_sp`` cuts
@@ -40,7 +42,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ...ops.ring_attention import sequence_parallel_attention
-from ...parallel.sharding import gather
+from ...parallel.collectives import copy_to, gather_from, reduce_from
 from ...utils.params import Spec, init_from_spec, linear_spec
 from ...utils.precision import resolve_device
 from .config import FluxConfig
@@ -139,6 +141,17 @@ def init_flux_params(
                           resolve_device(device), dtype, hook=hook)
 
 
+def flux_param_shapes(cfg: FluxConfig) -> Params:
+    """The FLUX tree's leaves as tensors on the ``meta`` device: the whole
+    shapes, no storage (what ``lora.init_lora_params`` reads)."""
+    def make(spec):
+        if isinstance(spec, dict):
+            return {k: make(v) for k, v in spec.items()}
+        return torch.empty(spec[1], device="meta")
+
+    return make(flux_param_spec(cfg))
+
+
 def tp_config(cfg, group):
     """A FLUX or SD3 config for the blocks' Megatron slices over
     ``group``: its ``tp_axis``, and the local head count (as in the JAX
@@ -235,11 +248,22 @@ def _single_attention(p, cfg, x, cos, sin, qkv=None, kv_keep_idx=None):
 def _ada_ln_zero(p, temb, n=6, group=None):
     """The block's ``n`` modulations [B, 1, d] each.  Under tensor
     parallelism ``lin`` holds this rank's columns, and the [B, n·d/ranks]
-    slices are gathered."""
-    mods = linear(p["lin"], F.silu(temb))
-    if group is not None:
-        mods = gather(mods, group, dim=-1)
+    slices are gathered; a ``lin`` left whole (the TP x PP layout,
+    ``pp._tp_pp_leaf_spec``) is computed whole on every rank."""
+    x = F.silu(temb)
+    cut = group is not None and p["lin"]["kernel"].shape[-1] < n * temb.shape[-1]
+    if cut:
+        x = copy_to(x, group)
+    mods = linear(p["lin"], x)
+    if cut:
+        mods = gather_from(mods, group, dim=-1)
     return torch.chunk(mods[:, None, :], n, dim=-1)
+
+
+def _col_input(x, cfg):
+    """A replicated activation entering column-parallel products: its
+    gradient is summed over the TP ranks."""
+    return x if cfg.tp_axis is None else copy_to(x, cfg.tp_axis)
 
 
 def _dual_block(p, cfg, hidden, context, temb, cos, sin, kv_keep_idx=None):
@@ -247,16 +271,16 @@ def _dual_block(p, cfg, hidden, context, temb, cos, sin, kv_keep_idx=None):
     sh_a, sc_a, g_a, sh_m, sc_m, g_m = _ada_ln_zero(p["norm1"], temb, 6, tp)
     csh_a, csc_a, cg_a, csh_m, csc_m, cg_m = _ada_ln_zero(
         p["norm1_context"], temb, 6, tp)
-    h_norm = layer_norm(hidden) * (1 + sc_a) + sh_a
-    c_norm = layer_norm(context) * (1 + csc_a) + csh_a
+    h_norm = _col_input(layer_norm(hidden) * (1 + sc_a) + sh_a, cfg)
+    c_norm = _col_input(layer_norm(context) * (1 + csc_a) + csh_a, cfg)
     h_attn, c_attn = _joint_attention(p["attn"], cfg, h_norm, c_norm, cos, sin,
                                       kv_keep_idx)
     hidden = hidden + g_a * h_attn
     context = context + cg_a * c_attn
-    h_mlp = layer_norm(hidden) * (1 + sc_m) + sh_m
+    h_mlp = _col_input(layer_norm(hidden) * (1 + sc_m) + sh_m, cfg)
     hidden = hidden + g_m * row_linear(
         p["ff"]["out"], gelu_tanh(linear(p["ff"]["in"], h_mlp)), tp)
-    c_mlp = layer_norm(context) * (1 + csc_m) + csh_m
+    c_mlp = _col_input(layer_norm(context) * (1 + csc_m) + csh_m, cfg)
     context = context + cg_m * row_linear(
         p["ff_context"]["out"], gelu_tanh(linear(p["ff_context"]["in"], c_mlp)),
         tp)
@@ -265,7 +289,7 @@ def _dual_block(p, cfg, hidden, context, temb, cos, sin, kv_keep_idx=None):
 
 def _single_block(p, cfg, x, temb, cos, sin, kv_keep_idx=None):
     sh, sc, gate = _ada_ln_zero(p["norm"], temb, 3, cfg.tp_axis)
-    x_norm = layer_norm(x) * (1 + sc) + sh
+    x_norm = _col_input(layer_norm(x) * (1 + sc) + sh, cfg)
     if "qkvm_fused" in p:
         d = cfg.hidden_size
         fused = linear(p["qkvm_fused"], x_norm)
@@ -283,9 +307,8 @@ def _single_block(p, cfg, x, temb, cos, sin, kv_keep_idx=None):
         # so it comes pre-split (parallel/sharding.py), each part holding
         # this rank's rows; the partial products sum over the ranks and
         # the bias is added once
-        y = (attn_out @ po["kernel_attn"].to(x.dtype)
-             + mlp_out @ po["kernel_mlp"].to(x.dtype))
-        dist.all_reduce(y, group=cfg.tp_axis)
+        y = reduce_from(attn_out @ po["kernel_attn"].to(x.dtype)
+                        + mlp_out @ po["kernel_mlp"].to(x.dtype), cfg.tp_axis)
         if "bias" in po:
             y = y + po["bias"].to(x.dtype)
         return x + gate * y
@@ -293,10 +316,21 @@ def _single_block(p, cfg, x, temb, cos, sin, kv_keep_idx=None):
     return x + gate * linear(po, merged)
 
 
+def cast_tree(tree, dtype: Optional[torch.dtype]):
+    """``tree`` with its f32 leaves cast to ``dtype`` (under autograd: the
+    gradients reach the f32 leaves); ``dtype=None`` is ``tree``."""
+    if dtype is None:
+        return tree
+    if isinstance(tree, dict):
+        return {k: cast_tree(v, dtype) for k, v in tree.items()}
+    return tree.to(dtype) if tree.dtype == torch.float32 else tree
+
+
 def _block_params(params: Params, lora: Optional[Dict[str, Any]], stack: str,
-                  i: int) -> Params:
-    """Layer ``i`` of a block stack, with its LoRA merged when given."""
-    p = layer(params[stack], i)
+                  i: int, compute_dtype: Optional[torch.dtype] = None) -> Params:
+    """Layer ``i`` of a block stack, with its LoRA merged when given, its f32
+    leaves cast to ``compute_dtype`` when given."""
+    p = cast_tree(layer(params[stack], i), compute_dtype)
     if lora is not None and stack in lora:
         p = merge_lora_layer(p, layer(lora[stack], i))
     return p
@@ -314,6 +348,7 @@ def flux_forward(
     guidance: Optional[torch.Tensor] = None,
     lora: Optional[Dict[str, Any]] = None,
     kv_keep_idx: Optional[torch.Tensor] = None,
+    compute_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
     """Velocity prediction for the packed token sequence.
 
@@ -326,8 +361,16 @@ def flux_forward(
     parallelism a tree cut by ``shard_flux_params``, whose merge yields this
     rank's slices).  ``kv_keep_idx`` [S_kept] (indices into the joint
     [txt ‖ img] sequence) keeps those keys and values in every attention.
+    ``compute_dtype``: the f32 leaves are cast to it as they are used (the
+    blocks' inside each block, so one layer's copy is alive at a time):
+    the bf16 compute over f32 masters of full fine-tuning.
     Returns [B, S_img, C_in] f32."""
     dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+    top = {k: v for k, v in params.items()
+           if k not in ("dual_blocks", "single_blocks")}
+    params = {**cast_tree(top, compute_dtype),
+              "dual_blocks": params["dual_blocks"],
+              "single_blocks": params["single_blocks"]}
     hidden = linear(params["x_embedder"], hidden_states.to(dtype))
     context = linear(params["context_embedder"], encoder_hidden_states.to(dtype))
 
@@ -343,11 +386,13 @@ def flux_forward(
     cos, sin = rope_freqs(ids, cfg.axes_dims_rope, cfg.rope_theta)
 
     def dual(i, h, c):
-        return _dual_block(_block_params(params, lora, "dual_blocks", i), cfg,
+        return _dual_block(_block_params(params, lora, "dual_blocks", i,
+                                         compute_dtype), cfg,
                            h, c, temb, cos, sin, kv_keep_idx)
 
     def single(i, x):
-        return _single_block(_block_params(params, lora, "single_blocks", i),
+        return _single_block(_block_params(params, lora, "single_blocks", i,
+                                           compute_dtype),
                              cfg, x, temb, cos, sin, kv_keep_idx)
 
     def run(fn, *args):

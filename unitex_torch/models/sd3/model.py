@@ -15,9 +15,11 @@ D = 64 on the card, its plain version on the CPU.
 Serving across ranks, as FLUX (``models/flux/model.py``): with
 ``cfg.tp_axis`` the blocks hold this rank's Megatron slices
 (``parallel/sharding.shard_sd3_params``, the config from
-``models/flux/model.tp_config``), gather the AdaLN modulations and ``all_reduce`` after
-the row-parallel products; :func:`sd3_forward_sp` cuts the token sequence
-over ``seq_axis`` (Ulysses or the ring).
+``models/flux/model.tp_config``), gather the AdaLN modulations and sum
+after the row-parallel products, with FLUX's autograd collectives
+(``parallel/collectives``: ``copy_to`` before the column products);
+:func:`sd3_forward_sp` cuts the token sequence over ``seq_axis``
+(Ulysses or the ring).
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from ...ops.ring_attention import sequence_parallel_attention
+from ...parallel.collectives import copy_to, gather_from
 from ...parallel.sharding import gather
 
 from ...utils.params import Spec, init_from_spec, linear_spec
@@ -152,35 +155,40 @@ def _joint_attention(p, cfg: SD3Config, hidden, context, context_out: bool):
 def _mods(p, temb, n, group=None):
     """``n`` modulations [B, 1, d]; under tensor parallelism ``lin`` holds
     this rank's columns and the slices are gathered."""
-    mods = linear(p["lin"], F.silu(temb))
-    if group is not None:
-        mods = gather(mods, group, dim=-1)
+    x = F.silu(temb)
+    if group is None:
+        return torch.chunk(linear(p["lin"], x)[:, None, :], n, dim=-1)
+    mods = gather_from(linear(p["lin"], copy_to(x, group)), group, dim=-1)
     return torch.chunk(mods[:, None, :], n, dim=-1)
+
+
+def _col_input(x, group):
+    return x if group is None else copy_to(x, group)
 
 
 def _joint_block(p, cfg: SD3Config, hidden, context, temb,
                  context_pre_only: bool):
     tp = cfg.tp_axis
     sh_a, sc_a, g_a, sh_m, sc_m, g_m = _mods(p["norm1"], temb, 6, tp)
-    h_norm = layer_norm(hidden) * (1 + sc_a) + sh_a
+    h_norm = _col_input(layer_norm(hidden) * (1 + sc_a) + sh_a, tp)
     if context_pre_only:
         # AdaLayerNormContinuous chunks (scale, shift)
         csc, csh = _mods(p["norm1_context"], temb, 2, tp)
-        c_norm = layer_norm(context) * (1 + csc) + csh
+        c_norm = _col_input(layer_norm(context) * (1 + csc) + csh, tp)
     else:
         csh_a, csc_a, cg_a, csh_m, csc_m, cg_m = _mods(
             p["norm1_context"], temb, 6, tp)
-        c_norm = layer_norm(context) * (1 + csc_a) + csh_a
+        c_norm = _col_input(layer_norm(context) * (1 + csc_a) + csh_a, tp)
     h_attn, c_attn = _joint_attention(p["attn"], cfg, h_norm, c_norm,
                                       context_out=not context_pre_only)
     hidden = hidden + g_a * h_attn
-    h_mlp = layer_norm(hidden) * (1 + sc_m) + sh_m
+    h_mlp = _col_input(layer_norm(hidden) * (1 + sc_m) + sh_m, tp)
     hidden = hidden + g_m * row_linear(
         p["ff"]["out"], gelu_tanh(linear(p["ff"]["in"], h_mlp)), tp)
     if context_pre_only:
         return hidden, None
     context = context + cg_a * c_attn
-    c_mlp = layer_norm(context) * (1 + csc_m) + csh_m
+    c_mlp = _col_input(layer_norm(context) * (1 + csc_m) + csh_m, tp)
     context = context + cg_m * row_linear(
         p["ff_context"]["out"], gelu_tanh(linear(p["ff_context"]["in"], c_mlp)),
         tp)

@@ -13,12 +13,15 @@ over those groups: ``all_reduce`` after a row-parallel product
 ``batch_isend_irecv`` for the ring (``ops/ring_attention.py``),
 ``all_gather`` of a batch split over ``data``.
 
-The grid is ``(data, seq, model)``, row-major: global rank
-``(d·seq + s)·model + m``, so a ``(data, model)`` mesh lays its ranks out
-as JAX's ``devices.reshape(data, model)`` does.  ``seq`` is the axis the
-token sequence is sharded over (``models/flux/sp.py``); with ``model`` > 1
-too it is the SP x TP layout.  A world of one rank is a mesh like any
-other: its collectives run (over NCCL or gloo) and copy.
+The grid is ``(data, pipe, seq, model)``, row-major: global rank
+``((d·pipe + p)·seq + s)·model + m``, so a ``(data, model)`` mesh lays its
+ranks out as JAX's ``devices.reshape(data, model)`` does, and a ``(data,
+pipe)`` mesh as the JAX launcher's ``reshape(data, pipe)``.  ``seq`` is
+the axis the token sequence is sharded over (``models/flux/sp.py``); with
+``model`` > 1 too it is the SP x TP layout.  ``pipe`` is the axis the
+block stacks are staged over (``parallel/pipeline.py``,
+``models/flux/pp.py``).  A world of one rank is a mesh like any other:
+its collectives run (over NCCL or gloo) and copy.
 
 NCCL serves CUDA tensors, gloo the CPU (``device="cpu"``, as the tests
 ask).  Nothing falls back: a process group that cannot start raises.
@@ -27,6 +30,7 @@ ask).  Nothing falls back: a process group that cannot start raises.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import os
 from typing import Dict, Optional
 
@@ -35,12 +39,12 @@ import torch.distributed as dist
 
 from ..utils.precision import resolve_device
 
-AXES = ("data", "seq", "model")
+AXES = ("data", "pipe", "seq", "model")
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class Mesh:
-    """This rank's place in a ``(data, seq, model)`` process grid."""
+    """This rank's place in a ``(data, pipe, seq, model)`` process grid."""
 
     shape: Dict[str, int]          # axis -> size
     coords: Dict[str, int]         # axis -> this rank's index on it
@@ -110,9 +114,10 @@ def make_mesh(
     store=None,
     rank: Optional[int] = None,
     world_size: Optional[int] = None,
+    pipe: int = 1,
 ) -> Mesh:
-    """A ``(data, seq, model)`` mesh over every rank of the default process
-    group, started here if it is not running (see
+    """A ``(data, pipe, seq, model)`` mesh over every rank of the default
+    process group, started here if it is not running (see
     :func:`init_distributed`).  ``model=-1`` takes every rank the other
     axes leave, as in the JAX package; the sizes must multiply to the
     world size.  Every rank must call this with the same arguments: each
@@ -123,34 +128,36 @@ def make_mesh(
         torch.cuda.set_device(dev)
     world = dist.get_world_size()
     if model == -1:
-        if world % (data * seq):
+        if world % (data * pipe * seq):
             raise ValueError(f"{world} ranks not divisible by data={data} x "
-                             f"seq={seq}")
-        model = world // (data * seq)
-    shape = {"data": data, "seq": seq, "model": model}
-    if data * seq * model != world:
-        raise ValueError(f"mesh {data}x{seq}x{model} needs "
-                         f"{data * seq * model} ranks, the world has {world}")
+                             f"pipe={pipe} x seq={seq}")
+        model = world // (data * pipe * seq)
+    shape = {"data": data, "pipe": pipe, "seq": seq, "model": model}
+    if data * pipe * seq * model != world:
+        raise ValueError(f"mesh {data}x{pipe}x{seq}x{model} (data x pipe x "
+                         f"seq x model) needs {data * pipe * seq * model} "
+                         f"ranks, the world has {world}")
     me = dist.get_rank()
-    coords = {"data": me // (seq * model), "seq": me // model % seq,
-              "model": me % model}
+    coords, rest = {}, me
+    for axis in reversed(AXES):
+        coords[axis], rest = rest % shape[axis], rest // shape[axis]
 
-    def grid_rank(d, s, m):
-        return (d * seq + s) * model + m
+    def grid_rank(c):
+        r = 0
+        for axis in AXES:
+            r = r * shape[axis] + c[axis]
+        return r
 
     groups = {}
     for axis in AXES:
         others = [a for a in AXES if a != axis]
         # every row of the grid along ``axis``, in one order on every rank
-        for i in range(shape[others[0]]):
-            for j in range(shape[others[1]]):
-                ranks = []
-                for k in range(shape[axis]):
-                    c = {axis: k, others[0]: i, others[1]: j}
-                    ranks.append(grid_rank(c["data"], c["seq"], c["model"]))
-                group = dist.new_group(ranks)
-                if me in ranks:
-                    groups[axis] = group
+        for idx in itertools.product(*(range(shape[a]) for a in others)):
+            c = dict(zip(others, idx))
+            ranks = [grid_rank({**c, axis: k}) for k in range(shape[axis])]
+            group = dist.new_group(ranks)
+            if me in ranks:
+                groups[axis] = group
     return Mesh(shape, coords, groups, dev)
 
 

@@ -17,6 +17,8 @@ same layout, and the model code runs the collectives itself
 * the single blocks' ``proj_out``, whose input rows interleave
   ``[attn ‖ mlp]``, is pre-split into ``kernel_attn`` / ``kernel_mlp``,
   each row-cut (as the JAX package's ``prepare_flux_params_tp_pp`` does);
+  its adapter keeps one node, ``a`` holding this rank's attn rows then its
+  mlp rows (``models/flux/lora._walk`` splits it), ``b`` whole;
 * everything outside the block stacks (embedders, ``norm_out``, the final
   ``proj_out``) and the QK norms: replicated.
 
@@ -25,7 +27,9 @@ column cut keeps whole heads (heads ``m·H/n … (m+1)·H/n - 1``) and the row
 cut of the next projection matches it.  LoRA trees (``{"a", "b"}`` nodes)
 are cut by the same rule: ``b`` of a column kernel by its columns, ``a`` of
 a row kernel by its rows, the other factor replicated, so a per-block
-merge yields this rank's slice of the merged kernel.
+merge yields this rank's slice of the merged kernel.  :func:`unshard_tree`
+gathers the slices back into the whole tree (a checkpoint any mesh, or
+one card, reads).
 
 :func:`shard_hook` is the rule for one linear node, for the loaders and
 the random init, which cut each node as it is made, so a rank holds its
@@ -105,10 +109,9 @@ def shard_node(path: Path, node: Dict[str, Any], part: int,
         # the input rows are [attn (d) ‖ mlp]; d is the output width
         if lora:
             a, d = node["a"], node["b"].shape[-1]
-            return {"kernel_attn": {"a": cut(a[..., :d, :], -2, part, n),
-                                    "b": node["b"]},
-                    "kernel_mlp": {"a": cut(a[..., d:, :], -2, part, n),
-                                   "b": node["b"]}}
+            out["a"] = torch.cat([cut(a[..., :d, :], -2, part, n),
+                                  cut(a[..., d:, :], -2, part, n)], dim=-2)
+            return out
         kernel = out.pop("kernel")
         d = kernel.shape[-1]
         out["kernel_attn"] = cut(kernel[..., :d, :], -2, part, n)
@@ -124,7 +127,8 @@ def shard_hook(mesh: Mesh) -> Callable[[Path, Dict[str, Any]], Dict[str, Any]]:
 
 def is_linear(node) -> bool:
     return isinstance(node, dict) and (
-        "kernel" in node or any(k in node for k in _INT8_LEAVES)
+        "kernel" in node or "kernel_attn" in node
+        or any(k in node for k in _INT8_LEAVES)
         or ("a" in node and "b" in node))
 
 
@@ -147,6 +151,39 @@ def shard_sd3_params(params: Dict[str, Any], mesh: Mesh) -> Dict[str, Any]:
     ``sd3_param_shardings`` (the same rule: the SD3 blocks use FLUX's leaf
     names)."""
     return shard_tree(params, shard_hook(mesh))
+
+
+def unshard_node(path: Path, node: Dict[str, Any], group) -> Dict[str, Any]:
+    """The whole linear or adapter node from the ``group`` ranks' parts
+    (:func:`shard_node` undone); every rank of the group calls it."""
+    kind = layout(path)
+    lora = "a" in node and "b" in node
+    out = dict(node)
+    if kind == "col":
+        for k in ("b",) if lora else ("kernel", "bias"):
+            if k in node:
+                out[k] = gather(node[k], group, -1)
+    elif kind == "row":
+        k = "a" if lora else "kernel"
+        out[k] = gather(node[k], group, -2)
+    elif kind == "split_row":
+        if lora:
+            a, n = node["a"], dist.get_world_size(group)
+            k = node["b"].shape[-1] // n
+            out["a"] = torch.cat([gather(a[..., :k, :], group, -2),
+                                  gather(a[..., k:, :], group, -2)], dim=-2)
+        else:
+            out["kernel"] = torch.cat([gather(out.pop("kernel_attn"), group, -2),
+                                       gather(out.pop("kernel_mlp"), group, -2)],
+                                      dim=-2)
+    return out
+
+
+def unshard_tree(tree: Dict[str, Any], group) -> Dict[str, Any]:
+    """The whole FLUX, SD3 or adapter tree from the ``model`` ranks' slices
+    (``group``: ``Mesh.group("model")``), on every rank of the group."""
+    return shard_tree(tree, lambda path, node: unshard_node(
+        path, {k: v.detach() for k, v in node.items()}, group))
 
 
 # ------------------------------------------------------------ activations

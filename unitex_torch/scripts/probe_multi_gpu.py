@@ -1,10 +1,13 @@
-"""Multi-GPU serving on one host: one process per card over NCCL.
+"""Multi-GPU serving and training on one host: one process per card over
+NCCL.
 
     torchrun --nproc-per-node 4 -m unitex_torch.scripts.probe_multi_gpu \\
-        [--steps 4] [--out multi_gpu.json]
+        [--mode serve|train] [--steps 4] [--out multi_gpu.json]
+    python -m unitex_torch.scripts.probe_multi_gpu --mode sr-quarters
 
 (``python -m torch.distributed.run`` where there is no ``torchrun``.)  On
-N cards it runs, each part fenced by a synchronize and a barrier:
+N cards ``--mode serve`` (the default) runs, each part fenced by a
+synchronize and a barrier:
 
 1. the full-width FLUX.1-dev tree (random, bf16) whole on every rank:
    rank 0's one-card ``flux_forward`` at S = 512 + 13312 = 13824 as the
@@ -26,6 +29,25 @@ N cards it runs, each part fenced by a synchronize and a barrier:
    in f32) against the same stage on rank 0 alone: wall, max and mean
    |d|.
 
+``--mode train`` trains the full-width, full-depth FLUX.1-dev (random,
+bf16 base) on a batch of four 512² synthetic examples (S = 12800, rank 16,
+remat): rank 0's one-card LoRA step as the reference, then three LoRA
+steps on each mesh of ``TRAIN_MESHES`` (data x model tensor parallelism,
+the GPipe pipeline over ``pipe``, both with the batch cut over ``data``)
+and three ZeRO-1 full fine-tuning steps (f32 masters, bf16 compute, the
+batch's first two examples) on each mesh of ``ZERO_MESHES``, the data
+axis growing until the per-rank bytes outgrow one card (their reference
+loss: rank 0's one-card forward of the same tree in bf16; ``--mode
+train-zero`` runs these alone); for each, the median step of steps 2-3,
+each rank's peak memory and B1 / B2a / B2b launches a step, and the
+first step's loss against the reference.  Each mesh's process groups
+are destroyed after it (their NCCL buffers freed).
+
+``--mode sr-quarters`` (one card): the TSD-SR stage of ``sr_stage`` with
+its tile batches cut to a quarter (transformer, VAE encode and decode
+batches 8 -> 2: what each rank of a data = 4 mesh runs) against the
+whole batches, in the bf16 and f32 VAE decode.
+
 Rank 0 prints the card's name and power limit, one ``[multi]`` line a
 measurement, and writes every number to ``--out``.  Nothing is caught: a
 failing rank ends the job.
@@ -35,6 +57,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import os
 import tempfile
@@ -81,13 +104,20 @@ def gathered(value) -> list:
 
 
 class Report:
-    def __init__(self, root: bool):
-        self.root, self.data = root, {}
+    """Rank 0 prints each measurement and rewrites ``out`` with all of
+    them so far (a later part's failure keeps the earlier numbers)."""
+
+    def __init__(self, root: bool, out: str = None, head: dict = None):
+        self.root, self.out, self.head, self.data = root, out, head or {}, {}
 
     def __call__(self, key: str, line: str, **values) -> None:
         self.data[key] = values
         if self.root:
             print(f"[multi] {line}", flush=True)
+            if self.out:
+                os.makedirs(os.path.dirname(self.out) or ".", exist_ok=True)
+                with open(self.out, "w") as f:
+                    json.dump({**self.head, **self.data}, f, indent=1)
 
 
 def forwards(report: Report, n: int, device) -> None:
@@ -291,33 +321,281 @@ def sr_stage(report: Report, n: int, device) -> None:
                launches=launches)
 
 
+S_TRAIN_BATCH = 4
+TRAIN_STEPS = 3
+# name: (make_mesh arguments, PP microbatches or 0 for tensor parallelism)
+TRAIN_MESHES = {
+    "data 1 x model 4": (dict(data=1, model=4), 0),
+    "data 2 x model 2": (dict(data=2, model=2), 0),
+    "pipe 4, M = 4": (dict(data=1, pipe=4, model=1), 4),
+    "data 2 x pipe 2, M = 2": (dict(data=2, pipe=2, model=1), 2),
+}
+# ZeRO-1 meshes, the data axis growing (the last may not fit one card)
+ZERO_MESHES = {"data 1 x model 4": dict(data=1, model=4),
+               "data 2 x model 2": dict(data=2, model=2)}
+
+
+def free_mesh(mesh) -> None:
+    """Destroy a mesh's process groups (their NCCL communicators' memory
+    goes back to the card) and return the freed blocks to the card."""
+    for group in {id(g): g for g in mesh.groups.values()}.values():
+        dist.destroy_process_group(group)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _train_batch(device, cfg, vae_cfg, view_size: int, s_txt: int):
+    """The batch of ``S_TRAIN_BATCH`` synthetic examples (a seeded random
+    VAE), the same on every rank."""
+    from ..models.flux.vae import init_vae_params
+    from ..training.data import SyntheticTextureDataset
+    from .train_flux_lora import build_batch
+
+    vae = init_vae_params(torch.Generator(device=device).manual_seed(1),
+                          vae_cfg, device=device)
+    data = iter(SyntheticTextureDataset(view_size=view_size, seed=0,
+                                        device=str(device)))
+    batch = build_batch([next(data) for _ in range(S_TRAIN_BATCH)], vae,
+                        vae_cfg, torch.zeros((s_txt, cfg.joint_attention_dim),
+                                             device=device),
+                        torch.zeros((cfg.pooled_projection_dim,),
+                                    device=device))
+    del vae
+    return batch
+
+
+def _launches():
+    return (attn.launches, attn.launches_bwd_dkv, attn.launches_bwd_dq)
+
+
+def _steps(step_fn, report_key, report, name, ref_loss, extra=""):
+    """``TRAIN_STEPS`` calls of ``step_fn(i) -> loss``, fenced: the median
+    of steps 2-3, each rank's peak and launches a step, the first loss
+    against ``ref_loss``."""
+    torch.cuda.reset_peak_memory_stats()
+    walls, losses, counts = [], [], []
+    for i in range(TRAIN_STEPS):
+        before = _launches()
+        loss, wall = fenced(lambda: float(step_fn(i)))
+        walls.append(wall)
+        losses.append(loss)
+        counts.append(tuple(a - b for a, b in zip(_launches(), before)))
+    peak = gathered(torch.cuda.max_memory_allocated() / 2**30)
+    per_rank = gathered(list(counts[-1]))
+    med = float(np.median(walls[1:]))
+    d = None if ref_loss is None else abs(losses[0] - ref_loss)
+    report(report_key, f"train {name}{extra}: step {med:.3f}s (median of steps "
+           f"2-3; steps {[round(w, 3) for w in walls]}), peak by rank "
+           f"{[round(p, 2) for p in peak]} GiB, B1/B2a/B2b a step by rank "
+           f"{per_rank}, losses {losses}, |loss - one card| {d}",
+           seconds=med, walls=walls, peak_gib=peak, launches=per_rank,
+           losses=losses, ref_loss=ref_loss, loss_abs_diff=d)
+
+
+def training(report: Report, n: int, device, cfg=None, vae_cfg=None,
+             view_size: int = 512, s_txt: int = S_TXT,
+             parts=("lora", "zero")) -> None:
+    """``--mode train`` (module docstring); ``cfg`` / ``vae_cfg`` / the view
+    size and text length default to FLUX.1-dev's training shapes (smaller
+    ones rehearse it over gloo on the CPU)."""
+    from ..models.flux.vae import VAEConfig
+    from ..models.flux.lora import init_lora_params
+    from ..models.flux.model import flux_param_shapes
+    from ..models.flux.pp import prepare_flux_params_pp, prepare_lora_pp
+    from ..parallel.sharding import shard_hook
+    from ..training.flux_lora import (
+        FluxLoraTrainConfig,
+        TrainState,
+        _leaves,
+        _map,
+        flow_match_loss,
+        make_optimizer,
+        train_step,
+    )
+    from ..training.full_finetune import (
+        FullTrainState,
+        full_train_step,
+        shard_opt_state_zero,
+    )
+
+    cfg = dataclasses.replace(cfg or FluxConfig.flux1_dev(), remat=True)
+    tcfg = FluxLoraTrainConfig(rank=16, learning_rate=1e-4,
+                               lr_scheduler="constant")
+    batch = _train_batch(device, cfg, vae_cfg or VAEConfig.flux(), view_size,
+                         s_txt)
+
+    def gen(seed):
+        return torch.Generator(device=device).manual_seed(seed)
+
+    def lora_tree():
+        return init_lora_params(gen(5), flux_param_shapes(cfg), rank=16,
+                                device=device)
+
+    def requires_grad(tree):
+        for leaf in _leaves(tree):
+            leaf.requires_grad_(True)
+        return tree
+
+    if "lora" in parts:
+        # rank 0's one-card LoRA step: the reference loss
+        ref = None
+        if dist.get_rank() == 0:
+            params = init_flux_params(gen(0), cfg, device=device)
+            lora = requires_grad(lora_tree())
+            tx = make_optimizer(tcfg)
+            state = TrainState(0, lora, tx.init(lora))
+            before = _launches()
+            (state, loss), wall = fenced(lambda: train_step(
+                state, params, batch, gen(1000), cfg, tcfg, tx))
+            ref = float(loss)
+            print(f"[multi] train one card (rank 0), batch {S_TRAIN_BATCH}: loss "
+                  f"{ref} step {wall:.3f}s (first call) B1/B2a/B2b "
+                  f"{tuple(a - b for a, b in zip(_launches(), before))} peak "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+            del params, lora, state, tx
+            torch.cuda.empty_cache()
+        else:
+            fenced(lambda: None)
+        ref = gathered(ref)[0]
+
+        for name, (axes, n_micro) in TRAIN_MESHES.items():
+            mesh = make_mesh(device=device, **axes)
+            data = mesh.group("data")
+            if n_micro:
+                whole = init_flux_params(gen(0), cfg, device=device)
+                params = prepare_flux_params_pp(whole, mesh)
+                params = {k: (_map(lambda x: x.clone(), v) if k in
+                              ("dual_blocks", "single_blocks") else v)
+                          for k, v in params.items()}
+                del whole
+                torch.cuda.empty_cache()
+                lora = requires_grad(prepare_lora_pp(lora_tree(), mesh))
+                t = dataclasses.replace(
+                    tcfg, pipe_axis=mesh.group("pipe"), pipe_n_micro=n_micro,
+                    pipe_data_axis=data if mesh.size("data") > 1 else None)
+                c, data_axis = cfg, None
+            else:
+                params = init_flux_params(gen(0), cfg, device=device,
+                                          hook=shard_hook(mesh))
+                lora = requires_grad(shard_flux_params(lora_tree(), mesh))
+                t, c, data_axis = tcfg, tp_config(cfg, mesh.group("model")), data
+            tx = make_optimizer(t)
+            state = TrainState(0, lora, tx.init(lora))
+
+            def step(i, state=state, params=params, c=c, t=t, tx=tx,
+                     data_axis=data_axis):
+                return train_step(state, params, batch, gen(1000 + i), c, t, tx,
+                                  data_axis=data_axis)[1]
+
+            _steps(step, f"train_{name}", report, f"LoRA {name}", ref)
+            # ``step`` holds the mesh's trees through its defaults
+            del params, lora, state, tx, step
+            free_mesh(mesh)
+
+    if "zero" not in parts:
+        return
+    # ZeRO-1 on the batch's first two examples (one a data rank): rank 0's
+    # one-card loss of the same tree in bf16 first
+    batch = {k: v if k == "cond_ids" else v[:2] for k, v in batch.items()}
+    zref = None
+    if dist.get_rank() == 0:
+        to_bf16 = (lambda path, node: {k: v.to(torch.bfloat16)
+                                       for k, v in node.items()})
+        params = init_flux_params(gen(0), cfg, device=device,
+                                  dtype=torch.float32, hook=to_bf16)
+        params = _map(lambda x: x.to(torch.bfloat16), params)
+        with torch.no_grad():
+            zref = float(flow_match_loss(None, params, cfg, tcfg, batch,
+                                         gen(1000)))
+        del params
+        torch.cuda.empty_cache()
+    zref = gathered(zref)[0]
+    for zname, axes in ZERO_MESHES.items():
+        mesh = make_mesh(device=device, **axes)
+        params = init_flux_params(gen(0), cfg, device=device,
+                                  dtype=torch.float32, hook=shard_hook(mesh))
+        requires_grad(params)
+        tx = make_optimizer(tcfg)
+        opt, zero = shard_opt_state_zero(params, mesh, tx)
+        state = FullTrainState(0, params, opt, zero)
+        c = tp_config(cfg, mesh.group("model"))
+
+        def zstep(i, state=state, c=c, tx=tx, data=mesh.group("data")):
+            return full_train_step(state, batch, gen(1000 + i), c, tcfg, tx,
+                                   bf16_compute=True, data_axis=data)[1]
+
+        _steps(zstep, f"train_zero_{zname}", report,
+               f"ZeRO-1 full fine-tuning {zname}", zref,
+               extra=" (f32 masters, bf16 compute, batch 2)")
+        del state, params, opt, tx, zstep
+        free_mesh(mesh)
+
+def sr_quarters(report: Report, device) -> None:
+    """The TSD-SR stage on one card in quarter tile batches against the
+    whole batches (module docstring)."""
+    from ..models.flux.vae import VAEConfig, init_vae_params
+    from ..models.sd3.config import SD3Config
+    from ..models.sd3.model import init_sd3_params
+    from ..models.sd3.sr_pipeline import TSDSRConfig, TSDSRPipeline
+
+    cfg = SD3Config.sd3_medium()
+    gen = torch.Generator(device=device)
+    tree = init_sd3_params(gen.manual_seed(0), cfg, device=device)
+    vae = init_vae_params(gen.manual_seed(1), VAEConfig.sd3(), device=device)
+    image = torch.rand((512, 512, 3), generator=gen.manual_seed(2),
+                       device=device)
+    for decode in ("bfloat16", "float32"):
+        outs = {}
+        for name, b in (("whole", 8), ("quarter", 2)):
+            sr = TSDSRPipeline(None, cfg=TSDSRConfig(
+                vae_decode_dtype=decode, tile_batch=b, vae_encode_batch=b,
+                vae_decode_batch=b), sd3_cfg=cfg, transformer_params=tree,
+                vae_params=vae, device=device)
+            sr(image)   # the first call
+            outs[name], wall = fenced(lambda: sr(image))
+            outs[name + "_s"] = wall
+        err = float((outs["quarter"] - outs["whole"]).abs().max())
+        mean = float((outs["quarter"] - outs["whole"]).abs().mean())
+        report(f"sr_quarters_{decode}", f"TSD-SR 512² -> 2048², {decode} VAE "
+               f"decode, one card: tile batches of 2 against 8: max|d| {err} "
+               f"mean|d| {mean} ({outs['quarter_s']:.2f}s against "
+               f"{outs['whole_s']:.2f}s)", max_abs_err=err, mean_abs_err=mean)
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--mode", default="serve",
+                    choices=["serve", "train", "train-zero", "sr-quarters"])
     ap.add_argument("--steps", type=int, default=4)
     ap.add_argument("--out", default="multi_gpu.json")
     args = ap.parse_args(argv)
+    # the ZeRO mesh's per-rank state is close to one card's memory
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     mesh = make_mesh(device="cuda")
     n, device, root = mesh.world_size, mesh.device, mesh.is_root
     if root:
-        cuda_build.build(attn.KERNEL, attn.KERNEL_QK8)
+        cuda_build.build(attn.KERNEL, attn.KERNEL_BWD, attn.KERNEL_QK8)
     dist.barrier()
-    report = Report(root)
+    report = Report(root, args.out, {"card": card_line(), "world": n})
     if root:
         print(f"[multi] cards:\n{card_line()}\n[multi] torch {torch.__version__}"
-              f" cuda {torch.version.cuda}, world {n}", flush=True)
-    with torch.no_grad():
-        forwards(report, n, device)
-        torch.cuda.empty_cache()
-        kernels(report, n, device)
-        torch.cuda.empty_cache()
-        job(report, n, device, args.steps)
-        torch.cuda.empty_cache()
-        sr_stage(report, n, device)
-    if root:
-        os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
-        with open(args.out, "w") as f:
-            json.dump({"card": card_line(), "world": n, **report.data}, f,
-                      indent=1)
+              f" cuda {torch.version.cuda}, world {n}, mode {args.mode}",
+              flush=True)
+    if args.mode in ("train", "train-zero"):
+        training(report, n, device,
+                 parts=("zero",) if args.mode == "train-zero" else ("lora", "zero"))
+    elif args.mode == "sr-quarters":
+        with torch.no_grad():
+            sr_quarters(report, device)
+    else:
+        with torch.no_grad():
+            forwards(report, n, device)
+            torch.cuda.empty_cache()
+            kernels(report, n, device)
+            torch.cuda.empty_cache()
+            job(report, n, device, args.steps)
+            torch.cuda.empty_cache()
+            sr_stage(report, n, device)
     dist.barrier()
     dist.destroy_process_group()
 

@@ -8,14 +8,14 @@
 
 Both yield host-side numpy examples ``{"target", "control"[, "dual"]}`` in
 [0, 1], as the JAX package's do, so the launcher batches them the same
-way.  Deferred: ``iterate_host_sharded``, the multi-host batching, which
-belongs to the multi-GPU work.
+way.  ``iterate_host_sharded`` batches a stream into this data rank's
+slices of each global batch.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Iterator
+from typing import Dict, Iterator, Optional
 
 import numpy as np
 import torch
@@ -177,3 +177,25 @@ class DirectoryTextureDataset:
                 ):
                     ex["dual"] = load_image(dual_path)
                 yield ex
+
+
+def iterate_host_sharded(
+    iterator: Iterator[Dict[str, np.ndarray]],
+    global_batch: int,
+    mesh: Optional[object] = None,
+) -> Iterator[Dict[str, np.ndarray]]:
+    """Batch an example stream, yielding this rank's slice of each global
+    batch (the per-host sharding the reference gets from accelerate's
+    DistributedSampler): the slice of this rank's index on the ``data``
+    axis of ``mesh`` (``parallel/mesh.Mesh``), of ``global_batch / data``
+    examples; the whole batch without a mesh."""
+    n = mesh.size("data") if mesh is not None else 1
+    i = mesh.index("data") if mesh is not None else 0
+    per_rank = global_batch // max(n, 1)
+    buf: list = []
+    for ex in iterator:
+        buf.append(ex)
+        if len(buf) == global_batch:
+            sl = buf[i * per_rank:(i + 1) * per_rank]
+            yield {k: np.stack([e[k] for e in sl]) for k in sl[0].keys()}
+            buf = []

@@ -21,8 +21,18 @@ a ``torch.Generator``; ``flow_match_loss`` also takes the draws
 themselves (``u``, ``noise``, ``keep_idx``), so a test can feed it the
 JAX package's.
 
-Deferred (raises ``NotImplementedError``): pipeline parallelism (the
-``pipe_axis`` field).
+Across ranks (``parallel/mesh.py``), as the JAX package's GSPMD step
+computes the logical one: under tensor parallelism the base and adapter
+trees are this rank's slices (``parallel/sharding.shard_flux_params``)
+and ``cfg`` is ``tp_config``'s; with ``data_axis`` the global batch, drawn
+whole, is cut over the data ranks inside the forward and the prediction
+gathered (``parallel/collectives.gather_from``), so every rank computes
+the logical loss; with ``pipe_axis`` the block stacks run the GPipe
+schedule of ``models/flux/pp.flux_forward_pp`` (the batch cut over
+``pipe_data_axis``).  ``train_step`` then sums each rank's adapter
+gradients into the logical tree's (``collectives.reduce_grads``), and the
+optimizers take the global norm and Prodigy's sums over the logical tree
+(``collectives.tree_sum``).
 """
 
 from __future__ import annotations
@@ -32,6 +42,7 @@ import math
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from ..models.flux.config import FluxConfig
 from ..models.flux.lora import init_lora_params
@@ -68,7 +79,19 @@ class FluxLoraTrainConfig:
     # a pixel-space MSE of the VAE-decoded x0 prediction
     preconditioning_loss: bool = False
     preconditioning_loss_weight: float = 1.0
-    pipe_axis: Optional[str] = None      # deferred (pipeline parallelism)
+    # pipeline parallelism: the block stacks staged over this process
+    # group (Mesh.group("pipe")), the batch in pipe_n_micro microbatches,
+    # each cut over pipe_data_axis (Mesh.group("data"), DP x PP)
+    pipe_axis: Any = None
+    pipe_n_micro: int = 1
+    pipe_data_axis: Any = None
+
+    def __post_init__(self):
+        for field in ("pipe_axis", "pipe_data_axis"):
+            if isinstance(getattr(self, field), str):
+                raise TypeError(f"{field} holds a process group, not the "
+                                f"name {getattr(self, field)!r}: pass "
+                                f"mesh.group(name)")
 
 
 @dataclasses.dataclass
@@ -132,6 +155,8 @@ def flow_match_loss(
     keep_idx=None,
     vae_params: Optional[Dict[str, Any]] = None,
     vae_cfg=None,
+    data_axis=None,
+    compute_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
     """One flow-matching loss evaluation (a scalar f32 tensor).
 
@@ -141,12 +166,15 @@ def flow_match_loss(
     [B, Hp, Wp, 3] in [0, 1], read only under ``preconditioning_loss``
     (with the frozen ``vae_params``/``vae_cfg``).  The timestep draw ``u``
     [B], the noise [B, H, W, C] and the kept token indices ``keep_idx``
-    are drawn from ``generator`` unless given."""
+    are drawn from ``generator`` unless given.  ``lora=None`` trains the
+    base tree itself (``training/full_finetune.py``), its f32 leaves cast
+    to ``compute_dtype`` as they are used when that is given.
+    ``data_axis``: the process group the batch is cut over in the forward
+    (not with ``tcfg.pipe_axis``, whose forward cuts over
+    ``tcfg.pipe_data_axis``)."""
     if tcfg.preconditioning_loss and (vae_params is None or vae_cfg is None):
         raise ValueError("preconditioning_loss needs the frozen VAE "
                          "(vae_params, vae_cfg)")
-    if tcfg.pipe_axis is not None:
-        raise NotImplementedError("pipeline parallelism is not ported")
     x = batch["latents"]
     dev = x.device
     B, H, W, C = x.shape
@@ -196,10 +224,22 @@ def flow_match_loss(
                            device=dev) if cfg.guidance_embeds else None)
     txt_ids = torch.zeros((batch["prompt_embeds"].shape[1], 3),
                           dtype=torch.float32, device=dev)
-    pred = flux_forward(
-        base_params, cfg, hidden, batch["prompt_embeds"], timesteps,
-        batch["pooled_embeds"], img_ids, txt_ids, guidance=guidance, lora=lora,
-    )
+    args = (hidden, batch["prompt_embeds"], timesteps, batch["pooled_embeds"])
+    if tcfg.pipe_axis is not None:
+        from ..models.flux.pp import flux_forward_pp
+
+        pred = flux_forward_pp(
+            base_params, cfg, *args, img_ids, txt_ids, guidance,
+            n_micro=tcfg.pipe_n_micro, pipe_axis=tcfg.pipe_axis,
+            data_axis=tcfg.pipe_data_axis, lora=lora,
+            compute_dtype=compute_dtype)
+    else:
+        def forward(h, c, t, pooled, g):
+            return flux_forward(base_params, cfg, h, c, t, pooled, img_ids,
+                                txt_ids, guidance=g, lora=lora,
+                                compute_dtype=compute_dtype)
+
+        pred = _data_parallel(forward, data_axis, *args, guidance)
     pred_noise = pred[:, :S_noise]
 
     w = loss_weighting(tcfg.weighting_scheme, sigmas)[:, None, None]
@@ -232,6 +272,23 @@ def flow_match_loss(
         loss = loss + tcfg.preconditioning_loss_weight * torch.mean(
             (img_pred.float() - pix) ** 2)
     return loss
+
+
+def _data_parallel(forward, data_axis, *batched):
+    """``forward`` on this data rank's slice of each batched argument (None
+    passes), the ranks' predictions gathered; ``data_axis=None`` is
+    ``forward`` on the whole batch."""
+    if data_axis is None:
+        return forward(*batched)
+    from ..parallel.collectives import gather_from
+
+    n, i = dist.get_world_size(data_axis), dist.get_rank(data_axis)
+    B = batched[0].shape[0]
+    if B % n:
+        raise ValueError(f"batch {B} does not split over data={n}")
+    k = B // n
+    local = [None if a is None else a[i * k:(i + 1) * k] for a in batched]
+    return gather_from(forward(*local), data_axis, dim=0)
 
 
 # ------------------------------------------------------------ optimizer
@@ -311,12 +368,25 @@ def _f32(x) -> torch.Tensor:
     return torch.tensor(x, dtype=torch.float32)
 
 
-def _clipped(g_leaves: List[torch.Tensor],
-             max_norm: float) -> List[torch.Tensor]:
+def _tree_sum(values: List[torch.Tensor], axes) -> torch.Tensor:
+    """The sum of per-leaf scalars over the logical tree: ``axes[i]`` the
+    process groups leaf ``i`` is cut over (``collectives.tree_sum``), or
+    ``axes=None`` for a tree on one rank."""
+    if axes is None:
+        return sum(values)
+    from ..parallel.collectives import tree_sum
+
+    return tree_sum(values, axes)
+
+
+def _clipped(g_leaves: List[torch.Tensor], max_norm: float,
+             axes=None) -> List[torch.Tensor]:
     """optax ``clip_by_global_norm``: g · max_norm / ‖g‖ (as ``(g / ‖g‖) ·
-    max_norm``) when ‖g‖ >= max_norm, with no epsilon.  The choice is made
+    max_norm``) when ‖g‖ >= max_norm, with no epsilon; ‖g‖ over the
+    logical tree (``axes``: see :func:`_tree_sum`).  The choice is made
     on the device, so a step makes no host sync."""
-    g_norm = torch.sqrt(sum(torch.sum(g.float() ** 2) for g in g_leaves))
+    g_norm = torch.sqrt(_tree_sum([torch.sum(g.float() ** 2)
+                                   for g in g_leaves], axes))
     keep = g_norm < max_norm
     return [torch.where(keep, g, (g / g_norm) * max_norm) for g in g_leaves]
 
@@ -340,11 +410,13 @@ class ClippedAdamW:
                 "nu": _map(torch.zeros_like, params)}
 
     @torch.no_grad()
-    def step(self, params, grads, state: Dict[str, Any]) -> None:
-        """One update of ``params`` (and ``state``) in place from ``grads``."""
+    def step(self, params, grads, state: Dict[str, Any], axes=None) -> None:
+        """One update of ``params`` (and ``state``) in place from ``grads``;
+        ``axes``: each leaf's process groups, for the global norm of a
+        tree cut across ranks (:func:`_tree_sum`)."""
         g_leaves = _leaves(grads)
         if self.max_grad_norm is not None:
-            g_leaves = _clipped(g_leaves, self.max_grad_norm)
+            g_leaves = _clipped(g_leaves, self.max_grad_norm, axes)
         count = state["count"]
         # the bias corrections and the step size are f32 numbers, as optax
         # computes them; each is exact as a Python float
@@ -394,9 +466,11 @@ class ClippedProdigy:
                 "numerator_weighted": torch.zeros((), device=dev)}
 
     @torch.no_grad()
-    def step(self, params, grads, state: Dict[str, Any]) -> None:
-        """One update of ``params`` (and ``state``) in place from ``grads``."""
-        g_leaves = _clipped(_leaves(grads), self.max_grad_norm)
+    def step(self, params, grads, state: Dict[str, Any], axes=None) -> None:
+        """One update of ``params`` (and ``state``) in place from ``grads``;
+        ``axes`` as :meth:`ClippedAdamW.step`'s (the norm and both sums
+        over the logical tree)."""
+        g_leaves = _clipped(_leaves(grads), self.max_grad_norm, axes)
         p_leaves = _leaves(params)
         count = state["count"]
         b1, b2, b3, d0 = self.b1, self.b2, self.b3, self.D0
@@ -404,9 +478,9 @@ class ClippedProdigy:
                    / (1 - _f32(b1) ** (count + 1)))
         d = state["estim_lr"]
         dlr = d * float(_f32(self.lr(count))) * bc
-        numerator = sum(torch.sum(g * (p0 - p)) for g, p0, p in zip(
-            g_leaves, _leaves(state["params0"]), p_leaves))
-        denominator = 0.0
+        numerator = _tree_sum([torch.sum(g * (p0 - p)) for g, p0, p in zip(
+            g_leaves, _leaves(state["params0"]), p_leaves)], axes)
+        r_sums = []
         for g, m, v, r in zip(g_leaves, _leaves(state["exp_avg"]),
                               _leaves(state["exp_avg_sq"]),
                               _leaves(state["grad_sum"])):
@@ -414,7 +488,8 @@ class ClippedProdigy:
             m.mul_(b1).add_((1 - b1) * dg)
             v.mul_(b2).add_((1 - b2) * dg * dg)
             r.mul_(b3).add_(dlr * dg / d0)
-            denominator = denominator + torch.sum(torch.abs(r))
+            r_sums.append(torch.sum(torch.abs(r)))
+        denominator = _tree_sum(r_sums, axes)
         nw = b3 * state["numerator_weighted"] + (d / d0) * dlr * numerator
         d_new = torch.maximum(d, self.COEF * nw / denominator)
         for p, m, v in zip(p_leaves, _leaves(state["exp_avg"]),
@@ -455,6 +530,48 @@ def _grads(lora) -> Dict[str, Any]:
     return _map(lambda p: p.grad, lora)
 
 
+def grad_axes(tree, cfg: FluxConfig, tcfg: FluxLoraTrainConfig,
+              data_axis=None):
+    """(the process groups to sum each leaf's gradient over, each leaf's
+    process groups it is cut over) for a tree trained across ranks: the
+    arguments of ``collectives.reduce_grads`` and the optimizers' ``axes``
+    (None and None on one rank).  The data axis is the one that cut the
+    batch (``tcfg.pipe_data_axis`` under pipeline parallelism); a
+    tree's block stacks are cut over ``tcfg.pipe_axis``."""
+    from ..parallel.collectives import CUT, leaf_role, named_leaves
+
+    pipe = tcfg.pipe_axis
+    data = tcfg.pipe_data_axis if pipe is not None else data_axis
+    model = cfg.tp_axis
+    if pipe is None and data is None and model is None:
+        return None, None
+    roles, axes = [], []
+    for path, _ in named_leaves(tree):
+        role = leaf_role(path) if model is not None else None
+        roles.append(role)
+        ax = []
+        if pipe is not None and path[0] in ("dual_blocks", "single_blocks"):
+            ax.append(pipe)
+        if role == CUT:
+            ax.append(model)
+        axes.append(tuple(ax))
+    return (roles, model, data), axes
+
+
+def logical_grads(tree, reduce) -> List[torch.Tensor]:
+    """The gradients of ``tree``'s leaves (zero where the forward did not
+    reach one: a padded pipeline layer), summed across ranks into the
+    logical tree's by ``reduce`` (:func:`grad_axes`'s first part)."""
+    grads = [torch.zeros_like(p) if p.grad is None else p.grad
+             for p in _leaves(tree)]
+    if reduce is not None:
+        from ..parallel.collectives import reduce_grads
+
+        roles, model, data = reduce
+        reduce_grads(grads, roles, model, data)
+    return grads
+
+
 def _zero_grads(lora) -> None:
     for leaf in _leaves(lora):
         leaf.grad = None
@@ -479,16 +596,21 @@ def train_step(
     draws: Optional[Dict[str, Any]] = None,
     vae_params: Optional[Dict[str, Any]] = None,
     vae_cfg=None,
+    data_axis=None,
 ) -> Tuple[TrainState, torch.Tensor]:
     """One optimizer step on one batch; returns (state, loss).  ``draws``
     passes ``u``/``noise``/``keep_idx`` to ``flow_match_loss``; the frozen
-    VAE feeds the preconditioning loss."""
+    VAE feeds the preconditioning loss.  Across ranks (the module
+    docstring): ``data_axis`` (``Mesh.group("data")``) cuts the batch, and
+    every rank calls it with the whole batch and the same draws."""
+    reduce, axes = grad_axes(state.lora, cfg, tcfg, data_axis)
     _zero_grads(state.lora)
     loss = flow_match_loss(state.lora, base_params, cfg, tcfg, batch,
                            generator, **(draws or {}), vae_params=vae_params,
-                           vae_cfg=vae_cfg)
+                           vae_cfg=vae_cfg, data_axis=data_axis)
     _backward(loss)
-    tx.step(state.lora, _grads(state.lora), state.opt_state)
+    tx.step(state.lora, logical_grads(state.lora, reduce), state.opt_state,
+            axes)
     _zero_grads(state.lora)
     state.step += 1
     return state, loss.detach()
@@ -505,11 +627,13 @@ def train_step_accum(
     draws: Optional[List[Dict[str, Any]]] = None,
     vae_params: Optional[Dict[str, Any]] = None,
     vae_cfg=None,
+    data_axis=None,
 ) -> Tuple[TrainState, torch.Tensor]:
     """Gradient-accumulated step: ``batches`` leaves carry a leading
     microbatch axis [A, B, ...]; the A gradients are summed in order and
     divided by A, one microbatch's activations alive at a time.  ``draws``
-    is one dict per microbatch."""
+    is one dict per microbatch; ``data_axis`` as :func:`train_step`'s."""
+    reduce, axes = grad_axes(state.lora, cfg, tcfg, data_axis)
     A = next(iter(batches.values())).shape[0]
     _zero_grads(state.lora)
     loss_sum = 0.0
@@ -517,11 +641,12 @@ def train_step_accum(
         mb = {k: v[a] for k, v in batches.items()}
         loss = flow_match_loss(state.lora, base_params, cfg, tcfg, mb,
                                generator, **(draws[a] if draws else {}),
-                               vae_params=vae_params, vae_cfg=vae_cfg)
+                               vae_params=vae_params, vae_cfg=vae_cfg,
+                               data_axis=data_axis)
         _backward(loss)  # sums into .grad
         loss_sum = loss_sum + loss.detach()
-    grads = _map(lambda g: g / A, _grads(state.lora))
-    tx.step(state.lora, grads, state.opt_state)
+    grads = [g / A for g in logical_grads(state.lora, reduce)]
+    tx.step(state.lora, grads, state.opt_state, axes)
     _zero_grads(state.lora)
     state.step += 1
     return state, loss_sum / A
