@@ -131,8 +131,26 @@ non-zero:
    one 4-step icosphere job through the pipeline's multi-rank path (a
    pipeline with ``mesh=``, sharing the resident trees through
    ``set_flux_trees``): exactly 456 B1 launches, a GLB, a finite 2048²
-   texture and its PSNR against phase 4's job; ``[parallel]`` lines and
-   the phase's wall as ``[parallel] phase 20``;
+   texture at ``PAR_MIN_PSNR`` or more against phase 4's job; the job server
+   (``serving.serve``, ``prefetch=False``) over HTTP on that mesh
+   pipeline: the icosphere, a job whose mesh file does not parse (it must
+   fail) and the torus, each awaited before the next: the two good jobs
+   ``done`` with finite textures of the atlas' size, the icosphere's at
+   ``PAR_MIN_PSNR`` or more against the job above, and exactly 912 B1
+   launches in all; the seeded T5-XXL at full width cut to depth 2 through
+   ``shard_t5_params`` and the tensor-parallel forward against the
+   one-device forward on [1, 512] ids (``PAR_T5_REL``); the serving-tree
+   cache through the mesh: a full-width FLUX.1-dev random tree cut to one
+   dual and one single block, W8A8, written by a one-card pipeline and by
+   the mesh pipeline (gathered from its slices), the files leaf for leaf
+   equal, read back on the mesh leaf for leaf equal to the one-card tree,
+   int8 and int4-packed; ``[parallel]`` lines and the phase's wall as
+   ``[parallel] phase 20``; after phase 8 (on its checkpoint, in another
+   one-rank group): one int8 job (``int8_serving=True``, ``attn_qk8``)
+   through the mesh pipeline, exactly 456 B3 launches and no B1, its
+   texture at ``PAR_MIN_PSNR`` or more against phase 8's one-card job,
+   its wall, stages and peak printed beside that job's
+   (``[parallel] int8``);
 21. multi-GPU training at world 1 (right after phase 5, on the same
    resident trees): a one-rank NCCL group from a ``FileStore``, destroyed
    at the end; one LoRA ``train_step`` (rank 16, its ``b`` drawn off 0,
@@ -1655,12 +1673,14 @@ def _tree_bytes(tree) -> int:
                for _, leaf in _named_leaves(tree))
 
 
-def run_int8_path(attn, torch, root: str) -> None:
+def run_int8_path(attn, torch, root: str) -> dict:
     """One full-width int8 serving job (W8A8, int8-QK attention) from the
-    checkpoint under ``root``."""
+    checkpoint under ``root``; returns its wall, stages, peak and uint8
+    texture (on the host)."""
     from unitex_torch.config import DEFAULT_CONFIG
     from unitex_torch.ops.quant import count_quantized
     from unitex_torch.pipeline import CustomRGBTextureFullPipeline
+    from unitex_torch.utils.image_io import to_uint8_device
     from unitex_torch.utils.timer import CPUTimer
 
     config = dataclasses.replace(
@@ -1721,6 +1741,8 @@ def run_int8_path(attn, torch, root: str) -> None:
                 f"{per_job} and nothing else")
         if peak >= PEAK_LIMIT:
             raise AssertionError(f"int8 job {name}: peak {peak} bytes")
+    return {"wall": wall, "stages": stages, "peak": peak,
+            "texture": to_uint8_device(tex).cpu().numpy()}
 
 
 def run_sr_options(attn, torch, root: str) -> None:
@@ -3373,6 +3395,15 @@ PAR_REL = 1e-2           # TP and ring forwards, of max|ref| (bf16 order)
 PAR_ULYSSES_REL = 1e-3   # Ulysses at one rank: the exchange is a copy
 PAR_LATENTS = ((32, 192), (32, 192, 16), (32, 32, 16))   # noise, control, dual
 PAR_TXT = 512
+PAR_MIN_PSNR = 50.0      # a phase-20 job against the job it repeats (dB)
+
+
+def texture_psnr(got, want) -> float:
+    """PSNR in dB between two uint8 textures (numpy arrays of one shape)."""
+    import numpy as np
+
+    d = got.astype(np.float64) / 255.0 - want.astype(np.float64) / 255.0
+    return 10 * math.log10(1.0 / max(float(np.mean(d ** 2)), 1e-20))
 
 
 def parallel_ids(torch, latents=PAR_LATENTS, device="cuda"):
@@ -3389,14 +3420,18 @@ def parallel_ids(torch, latents=PAR_LATENTS, device="cuda"):
 
 def run_parallel(attn, torch, pipe, keep: str, device: str = "cuda",
                  latents=PAR_LATENTS, s_txt: int = PAR_TXT, ring_s: int = 13824,
-                 config=None, job=None) -> tuple:
+                 config=None, job=None, server_jobs=None, t5_cfg=None,
+                 cache_cfg=None) -> tuple:
     """Phase 20 (module docstring) on ``pipe``'s resident trees; ``keep``
     holds phase 4's ``icosphere.glb`` and ``icosphere.png``.  ``job``:
     (mesh path, image path), by default the icosphere of ``make_assets``;
-    ``config``: the job's pipeline config (default: ``DEFAULT_CONFIG``
-    with ``STEPS`` steps).  Returns the launches of the forwards and the
-    job (the merge's comparison launches left out)."""
-    import numpy as np
+    ``server_jobs``: the server's two good jobs (default: the icosphere
+    and the torus); ``config``: the job's pipeline config (default:
+    ``DEFAULT_CONFIG`` with ``STEPS`` steps); ``t5_cfg`` / ``cache_cfg``:
+    the T5 and FLUX configs cut to depth by :func:`run_mesh_t5` and
+    :func:`run_mesh_cache` (default: full width).  Returns the launches of
+    the forwards, the job and the server's jobs (the merge's comparison
+    launches left out)."""
     import torch.distributed as dist
 
     from unitex_torch.config import DEFAULT_CONFIG
@@ -3536,9 +3571,11 @@ def run_parallel(attn, torch, pipe, keep: str, device: str = "cuda",
             config = dataclasses.replace(
                 DEFAULT_CONFIG, diffusion=dataclasses.replace(
                     DEFAULT_CONFIG.diffusion, num_inference_steps=STEPS))
-        if job is None:
-            job = next((m, i) for name, m, i in make_assets(work)
-                       if name == "icosphere")
+        assets = None
+        if job is None or server_jobs is None:
+            assets = [(m, i) for _, m, i in make_assets(work)]
+        job = job or assets[0]
+        server_jobs = server_jobs or assets
         ranked = CustomRGBTextureFullPipeline(config=config, device=device,
                                               mesh=mesh)
         ranked.flux_cfg, ranked.vae_cfg = cfg, pipe.vae_cfg
@@ -3553,27 +3590,320 @@ def run_parallel(attn, torch, pipe, keep: str, device: str = "cuda",
         tex = ranked.last_texture
         size = config.bake.uv_size
         want_n = 57 * 2 * config.diffusion.num_inference_steps if cuda else 0
+        mine = to_uint8_device(tex).cpu().numpy()
         psnr = None
         ref_glb = os.path.join(keep, "icosphere.glb")
         if os.path.exists(ref_glb):
-            a = load_mesh(ref_glb).texture.astype(np.float64) / 255.0
-            got = to_uint8_device(tex).cpu().numpy().astype(np.float64)
-            mse = float(np.mean((got / 255.0 - a) ** 2))
-            psnr = 10 * math.log10(1.0 / max(mse, 1e-20))
+            psnr = texture_psnr(mine, load_mesh(ref_glb).texture)
         print(f"[parallel] icosphere job on the one-rank mesh: {wall:.2f}s, "
               f"B1 launches {job_n[0]}, texture {tuple(tex.shape)}, PSNR "
               f"against phase 4's job {psnr if psnr is None else round(psnr, 2)}"
-              f" dB", flush=True)
+              f" dB (limit {PAR_MIN_PSNR})", flush=True)
         if not (os.path.exists(glb) and tuple(tex.shape) == (size, size, 3)
                 and bool(torch.isfinite(tex).all())
-                and _only(job_n, B1=want_n)):
+                and _only(job_n, B1=want_n)
+                and psnr is not None and psnr >= PAR_MIN_PSNR):
             raise AssertionError(f"parallel: job {glb} {tuple(tex.shape)} "
-                                 f"launches {job_n}, expected B1 {want_n}")
+                                 f"launches {job_n}, expected B1 {want_n}; "
+                                 f"PSNR against phase 4's {psnr}")
+        _reset(attn)
+        run_mesh_server(attn, torch, ranked, work, server_jobs, 2 * want_n,
+                        mine)
+        server_n = _counts(attn)
         del ranked
+        gc.collect()
+        run_mesh_t5(torch, mesh, device, t5_cfg)
+        run_mesh_cache(torch, mesh, device, cache_cfg, config)
     finally:
         dist.destroy_process_group()
         shutil.rmtree(work, ignore_errors=True)
-    return tuple(a + b for a, b in zip(forwards, job_n))
+    return tuple(a + b + c for a, b, c in zip(forwards, job_n, server_n))
+
+
+def run_mesh_server(attn, torch, ranked, work: str, jobs, want_b1: int,
+                    want_texture) -> None:
+    """Phase 20's job server: ``serving.serve`` over the mesh pipeline
+    ``ranked`` (``prefetch=False``: each job's host work runs inside the
+    job the other ranks follow), the first of ``jobs``, a job whose mesh
+    file does not parse, then the second, each awaited before the next.
+    The broken job must fail, the others be ``done`` with finite textures
+    of the atlas' size, the first at ``PAR_MIN_PSNR`` or more against
+    ``want_texture`` (the uint8 texture of the same job run through
+    ``ranked`` directly), and the three must launch B1 ``want_b1`` times
+    and nothing else."""
+    import threading
+    import urllib.request
+
+    import numpy as np
+
+    from unitex_torch.geometry.io.mesh_io import load_mesh
+    from unitex_torch.serving import serve
+
+    def request(url, payload=None):
+        data = None if payload is None else json.dumps(payload).encode()
+        req = urllib.request.Request(url, data=data, headers={
+            "Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return r.read()
+
+    broken = os.path.join(work, "broken.obj")
+    with open(broken, "w") as f:
+        f.write("v 0 0\nf 1 2 x\n")
+    bodies = [{"mesh_path": m, "image_path": i, "name": n} for (m, i), n in
+              ((jobs[0], "first"), ((broken, jobs[0][1]), "broken"),
+               (jobs[1], "second"))]
+    uv = ranked.config.bake.uv_size
+    httpd = serve(ranked, os.path.join(work, "serve"), port=0, prefetch=False)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        recs = []
+        t0 = time.perf_counter()
+        for body in bodies:
+            job_id = json.loads(request(base + "/jobs", body))["id"]
+            while True:
+                rec = json.loads(request(f"{base}/jobs/{job_id}"))
+                if rec["status"] in ("done", "failed"):
+                    break
+                time.sleep(0.05)
+            recs.append(rec)
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        n = _counts(attn)
+        print(f"[parallel] job server on the one-rank mesh: three HTTP jobs "
+              f"in {wall:.2f}s ("
+              + ", ".join(f"{r['name']} {r['status']} device "
+                          f"{r.get('device_s', 0):.2f}s" for r in recs)
+              + f"); the broken job's error: {recs[1].get('error')!r}; "
+              f"launches B1 {n[0]}", flush=True)
+        if [r["status"] for r in recs] != ["done", "failed", "done"]:
+            raise AssertionError(f"parallel server: jobs {recs}")
+        for rec in (recs[0], recs[2]):
+            glb = os.path.join(work, f"{rec['id']}.glb")
+            with open(glb, "wb") as f:
+                f.write(request(f"{base}/jobs/{rec['id']}/result"))
+            tex = load_mesh(glb).texture
+            if tex is None or tex.shape[:2] != (uv, uv) or not \
+                    np.isfinite(tex.astype(np.float32)).all():
+                raise AssertionError(f"parallel server: job {rec['name']} "
+                                     f"texture {None if tex is None else tex.shape}")
+            if rec is recs[0]:
+                psnr = texture_psnr(tex, want_texture)
+                print(f"[parallel] job server's first job against the same "
+                      f"job through the pipeline: PSNR {psnr:.2f} dB (limit "
+                      f"{PAR_MIN_PSNR}), bit-equal "
+                      f"{bool(np.array_equal(tex, want_texture))}", flush=True)
+                if not psnr >= PAR_MIN_PSNR:
+                    raise AssertionError(f"parallel server: first job PSNR "
+                                         f"{psnr} < {PAR_MIN_PSNR}")
+        if not _only(n, B1=want_b1):
+            raise AssertionError(f"parallel server: launches {COUNTED} {n}, "
+                                 f"expected B1 {want_b1} and nothing else")
+    finally:
+        httpd.jobs.stop()
+        httpd.shutdown()
+        httpd.server_close()
+
+
+PAR_T5_REL = 1e-5   # the TP T5 against one device, of max|ref| (f32)
+
+
+def run_mesh_t5(torch, mesh, device: str = "cuda", t5_cfg=None) -> None:
+    """Phase 20's T5: the seeded T5 v1.1 XXL (full width, cut to depth 2)
+    through ``shard_t5_params`` and ``t5_encoder_forward(group=)`` on
+    ``mesh`` against the one-device forward on [1, 512] ids, within
+    ``PAR_T5_REL`` of max|ref|."""
+    import numpy as np
+
+    from unitex_torch.models.text import (
+        T5EncoderConfig, init_t5_encoder_params, t5_encoder_forward)
+    from unitex_torch.parallel.sharding import shard_t5_params
+
+    cfg = dataclasses.replace(t5_cfg or T5EncoderConfig.t5_v1_1_xxl(),
+                              num_layers=2)
+    tree = init_t5_encoder_params(
+        torch.Generator(device=device).manual_seed(32), cfg, device=device)
+    ids = torch.as_tensor(np.random.default_rng(20).integers(
+        0, cfg.vocab_size, (1, 512)), device=device)
+    with torch.no_grad():
+        want = t5_encoder_forward(tree, cfg, ids)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = t5_encoder_forward(tree, cfg, ids)
+        torch.cuda.synchronize()
+        t_one = time.perf_counter() - t0
+        cut = shard_t5_params(tree, mesh)
+        got = t5_encoder_forward(cut, cfg, ids, group=mesh.group("model"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = t5_encoder_forward(cut, cfg, ids, group=mesh.group("model"))
+        torch.cuda.synchronize()
+        t_tp = time.perf_counter() - t0
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    print(f"[parallel] T5 d_model {cfg.d_model} x {cfg.num_heads} heads at "
+          f"depth 2 through shard_t5_params: {tuple(got.shape)}, max|d| "
+          f"{err:.3e} of max|ref| {scale:.3f} (limit {PAR_T5_REL}), "
+          f"bit-equal {bool(torch.equal(got, want))}; {t_tp * 1e3:.2f} ms "
+          f"against {t_one * 1e3:.2f} ms on one device", flush=True)
+    if not (got.shape == want.shape and bool(torch.isfinite(got).all())
+            and err <= PAR_T5_REL * scale):
+        raise AssertionError(f"parallel: T5 {err} > {PAR_T5_REL} x {scale}")
+
+
+def _leaf_dict(tree) -> dict:
+    return dict(_named_leaves(tree))
+
+
+def run_mesh_cache(torch, mesh, device: str = "cuda", flux_cfg=None,
+                   config=None) -> None:
+    """Phase 20's serving-tree cache: ``flux_cfg`` (default FLUX.1-dev at
+    full width cut to one dual and one single block) as a random W8A8
+    serving tree, written to ``params_cache`` by a one-card pipeline and
+    by a pipeline on ``mesh`` (rank 0 writes the nodes gathered from the
+    slices), the two files leaf for leaf equal; a second mesh pipeline
+    reads the file and must hold the one-card tree's slices leaf for leaf
+    (of its int4 re-gridding with ``params_cache_int4``), int8 kernels in
+    the GEMM's layout."""
+    from unitex_torch.config import DEFAULT_CONFIG
+    from unitex_torch.models.flux.config import FluxConfig
+    from unitex_torch.ops.quant import pack_int4_tree, unpack_int4_tree
+    from unitex_torch.parallel.sharding import shard_flux_params
+    from unitex_torch.pipeline import CustomRGBTextureFullPipeline
+    from unitex_torch.utils.param_cache import load_params
+
+    cfg = flux_cfg or dataclasses.replace(FluxConfig.flux1_dev(), num_layers=1,
+                                          num_single_layers=1)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cache_") as d:
+        def build(where, int4, on_mesh):
+            p = CustomRGBTextureFullPipeline(
+                config=config or DEFAULT_CONFIG, int8_serving=True,
+                params_cache=os.path.join(d, where), params_cache_int4=int4,
+                device=device, mesh=mesh if on_mesh else None)
+            p.flux_cfg = cfg
+            t0 = time.perf_counter()
+            p._init_random_weights()
+            torch.cuda.synchronize()
+            return p, time.perf_counter() - t0
+
+        kind = CustomRGBTextureFullPipeline.RANDOM_KIND
+        for int4 in (False, True):
+            tag = "int4" if int4 else "int8"
+            one, t_one = build(f"one_{tag}", int4, False)
+            wrote, t_write = build(f"mesh_{tag}", int4, True)
+            files = [p._cache_path(kind) for p in (one, wrote)]
+            a, b = (_leaf_dict(load_params(f)) for f in files)
+            same_file = sorted(a) == sorted(b) and all(
+                torch.equal(a[k], b[k]) for k in a)
+            del a, b, wrote
+            back, t_read = build(f"mesh_{tag}", int4, True)
+            want = one.transformer_params
+            if int4:
+                want = unpack_int4_tree(pack_int4_tree(want))
+            # this rank's slices (the single blocks' proj_out pre-split)
+            w = _leaf_dict(shard_flux_params(want, mesh))
+            g = _leaf_dict(back.transformer_params)
+            same_tree = sorted(w) == sorted(g) and all(
+                torch.equal(w[k], g[k]) for k in w)
+            k8 = back.transformer_params["single_blocks"]["proj_out"][
+                "kernel_int8_attn"]
+            size = os.path.getsize(files[1])
+            print(f"[parallel] serving cache ({tag}, {cfg.num_layers} + "
+                  f"{cfg.num_single_layers} blocks at full width, "
+                  f"{size / 2**30:.2f} GiB): one card built and wrote it in "
+                  f"{t_one:.2f}s, the mesh in {t_write:.2f}s; files equal "
+                  f"{same_file}; read back on the mesh in {t_read:.2f}s, "
+                  f"{len(g)} leaves equal to the one-card tree {same_tree}, "
+                  f"GEMM layout {k8.stride()[-2] == 1}", flush=True)
+            if not (same_file and same_tree and k8.stride()[-2] == 1):
+                raise AssertionError(f"parallel: serving cache {tag}")
+            del one, back, want, w, g, k8
+
+
+def run_parallel_int8(attn, torch, root: str, phase8: dict, config=None,
+                      device: str = "cuda") -> tuple:
+    """Phase 20's int8 job (after phase 8, on its checkpoint under
+    ``root``): a one-rank group and mesh, the pipeline on it with
+    ``int8_serving=True`` (each node quantized whole as it is read, then
+    cut) and ``attn_qk8``, one icosphere job: exactly 456 B3 launches and
+    no B1 (on the card), a GLB and a finite texture of the atlas' size at
+    ``PAR_MIN_PSNR`` or more against ``phase8``'s texture (the same job on
+    one card); its wall, stages and peak printed beside ``phase8``'s.
+    Returns its launches."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from unitex_torch.config import DEFAULT_CONFIG
+    from unitex_torch.parallel.mesh import make_mesh
+    from unitex_torch.pipeline import CustomRGBTextureFullPipeline
+    from unitex_torch.utils.image_io import to_uint8_device
+    from unitex_torch.utils.timer import CPUTimer
+
+    cuda = device == "cuda"
+    config = config or dataclasses.replace(
+        DEFAULT_CONFIG, diffusion=dataclasses.replace(
+            DEFAULT_CONFIG.diffusion, num_inference_steps=STEPS))
+    work = tempfile.mkdtemp(prefix="chip_smoke_parallel_int8_")
+    store = dist.FileStore(os.path.join(work, "store"), 1)
+    dist.init_process_group("nccl" if cuda else "gloo", store=store, rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh(data=1, model=1, device=device)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        pipe = CustomRGBTextureFullPipeline(
+            int8_serving=True, pretrain_models=root, require_weights=True,
+            config=config, device=device, mesh=mesh)
+        pipe.flux_cfg = dataclasses.replace(pipe.flux_cfg, attn_qk8=True)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        name, mesh_path, img_path = make_assets(work)[0]
+        torch.cuda.reset_peak_memory_stats()
+        _reset(attn)
+        t0 = time.perf_counter()
+        _, glb = pipe(os.path.join(work, "out"), img_path, mesh_path)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = _counts(attn)
+        peak = torch.cuda.max_memory_allocated()
+        rec = CPUTimer.records
+        stages = {
+            "preprocess": rec["preprocess_blank_mesh"]
+            + rec["preprocess_reference_image"],
+            "render_geometry": rec["render_geometry_images"],
+            "infer_mv": rec["infer_mv"],
+            "reproject": rec["reproject_and_query_field"],
+        }
+        tex = pipe.last_texture
+        size = config.bake.uv_size
+        per_job = 57 * 2 * config.diffusion.num_inference_steps if cuda else 0
+        print(f"[parallel] int8 job {name} on the one-rank mesh (init "
+              f"{init_s:.2f}s): wall {wall:.2f}s stages "
+              + " ".join(f"{k}={v:.3f}s" for k, v in stages.items())
+              + f" peak {peak / 2**30:.2f} GiB launches B3 {n[3]} B1 {n[0]}; "
+              f"phase 8 on one card: wall {phase8['wall']:.2f}s stages "
+              + " ".join(f"{k}={v:.3f}s" for k, v in phase8["stages"].items())
+              + f" peak {phase8['peak'] / 2**30:.2f} GiB", flush=True)
+        if not (os.path.exists(glb) and tuple(tex.shape) == (size, size, 3)
+                and bool(torch.isfinite(tex).all())
+                and _only(n, B3=per_job)):
+            raise AssertionError(f"parallel int8: job {glb} "
+                                 f"{tuple(tex.shape)} launches {n}, expected "
+                                 f"B3 {per_job}")
+        mine = to_uint8_device(tex).cpu().numpy()
+        psnr = texture_psnr(mine, phase8["texture"])
+        print(f"[parallel] int8 job against phase 8's: PSNR {psnr:.2f} dB "
+              f"(limit {PAR_MIN_PSNR}), bit-equal "
+              f"{bool(np.array_equal(mine, phase8['texture']))}", flush=True)
+        if not psnr >= PAR_MIN_PSNR:
+            raise AssertionError(f"parallel int8: PSNR against phase 8's job "
+                                 f"{psnr} < {PAR_MIN_PSNR}")
+        del pipe
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(work, ignore_errors=True)
+    return n
 
 
 # phase 21: multi-GPU training at world 1
@@ -3906,7 +4236,7 @@ def main() -> int:
         parallel = run_parallel(attn, torch, pipe, tools_dir)
         torch.cuda.synchronize()
         print(f"[parallel] phase 20 {time.perf_counter() - t0:.1f}s", flush=True)
-        if not _only(parallel, B1=57 * 8 + 57 * 2 * STEPS, B3=57 * 4):
+        if not _only(parallel, B1=57 * 8 + 3 * 57 * 2 * STEPS, B3=57 * 4):
             return fail(f"launches {COUNTED} {parallel} in phase 20")
     finally:
         shutil.rmtree(tools_dir, ignore_errors=True)
@@ -3988,11 +4318,24 @@ def main() -> int:
         write_matting_checkpoint(models, "isnet",
                                  matting_model(torch, "isnet")[1])
         _reset(attn)
-        run_int8_path(attn, torch, models)
+        phase8 = run_int8_path(attn, torch, models)
         torch.cuda.synchronize()
         int8 = _counts(attn)
         if not _only(int8, B3=-1):
             return fail(f"launches {COUNTED} {int8} on the int8 serving path")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # phase 20's int8 job through the mesh pipeline, on the checkpoint
+        t0 = time.perf_counter()
+        parallel_int8 = run_parallel_int8(attn, torch, models, phase8)
+        torch.cuda.synchronize()
+        print(f"[parallel] int8 part {time.perf_counter() - t0:.1f}s",
+              flush=True)
+        if not _only(parallel_int8, B3=57 * 2 * STEPS):
+            return fail(f"launches {COUNTED} {parallel_int8} in phase 20's "
+                        f"int8 job")
+        parallel = tuple(a + b for a, b in zip(parallel, parallel_int8))
         gc.collect()
         torch.cuda.empty_cache()
 

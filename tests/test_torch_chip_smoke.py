@@ -369,7 +369,10 @@ def test_parallel_phase_rehearses_on_the_cpu(tmp_path, monkeypatch, capsys):
     tiny FLUX forward on one device, through TP, Ulysses and the ring; the
     4 x 4 ring merge; one job through the pipeline's multi-rank path (no
     kernel launches on the CPU: the gate expects none), scored against
-    the same job on the plain pipeline."""
+    the same job on the plain pipeline; the job server on that mesh with
+    a failing job between two good ones; the tiny T5 through
+    ``shard_t5_params``; the serving-tree cache through the mesh (int8
+    and int4) against one card's."""
     import dataclasses
     import types
 
@@ -385,6 +388,7 @@ def test_parallel_phase_rehearses_on_the_cpu(tmp_path, monkeypatch, capsys):
     from unitex_torch.models.flux.config import FluxConfig
     from unitex_torch.ops import attention as attn
     from unitex_torch.pipeline import CustomRGBTextureFullPipeline
+    import torch_dist_workers as workers
     from torch_dist_workers import pipeline_config
 
     share_cpu()
@@ -409,10 +413,14 @@ def test_parallel_phase_rehearses_on_the_cpu(tmp_path, monkeypatch, capsys):
     pipe.flush_io()
     os.replace(tmp_path / "phase4" / "textured_mesh.glb",
                tmp_path / "icosphere.glb")
+    monkeypatch.setattr(tvae.VAEConfig, "flux", classmethod(lambda cls: vcfg))
     cs._reset(attn)
+    job = (mesh_path, img_path)
     n = cs.run_parallel(attn, torch, pipe, str(tmp_path), device="cpu",
                         latents=((2, 4), (2, 4, 1), (2, 2, 1)), s_txt=8,
-                        ring_s=32, config=config, job=(mesh_path, img_path))
+                        ring_s=32, config=config, job=job,
+                        server_jobs=[job, job], t5_cfg=workers.t5_config(),
+                        cache_cfg=fcfg)
     out = capsys.readouterr().out
     assert n == cs.NONE
     assert "[parallel] process group gloo world 1" in out
@@ -420,9 +428,68 @@ def test_parallel_phase_rehearses_on_the_cpu(tmp_path, monkeypatch, capsys):
     for tag in ("TP against one device", "ring against one device",
                 "TP, attn_qk8 against one device, attn_qk8",
                 "[parallel] ring merge 4 x 4 blocks of [1, 8, 4, 32]",
-                "PSNR against phase 4's job"):
+                "PSNR against phase 4's job",
+                "first done", "broken failed", "second done",
+                "job server's first job against the same job through the "
+                "pipeline: PSNR",
+                "[parallel] T5 d_model 64 x 4 heads at depth 2",
+                "files equal True", "to the one-card tree True"):
         assert tag in out, tag
+    assert out.count("to the one-card tree True") == 2
     psnr = float(out.split("PSNR against phase 4's job ")[1].split(" dB")[0])
+    assert psnr >= 50.0, out
+
+
+def test_parallel_int8_job_rehearses_on_the_cpu(tmp_path, monkeypatch, capsys):
+    """Phase 20's int8 job on the CPU: a tiny checkpoint (the phase-6
+    writer's layout), the pipeline on a one-rank gloo mesh with
+    ``int8_serving=True`` and ``attn_qk8`` reading it (each node quantized
+    whole, then cut), one job held to the same job on one device; no
+    kernel launches on the CPU."""
+    import dataclasses
+
+    import torch
+
+    from unitex_torch.models.flux import lora as tlora
+    from unitex_torch.models.flux import model as tmodel
+    from unitex_torch.models.flux import vae as tvae
+    from unitex_torch.models.flux.config import FluxConfig
+    from unitex_torch.ops import attention as attn
+    from unitex_torch.pipeline import CustomRGBTextureFullPipeline
+    from unitex_torch.utils.image_io import to_uint8_device
+    from torch_cpu_share import share_cpu
+    from torch_dist_workers import pipeline_config
+
+    share_cpu()
+    cs = _chip_smoke()
+    for fn in ("synchronize", "reset_peak_memory_stats"):
+        monkeypatch.setattr(torch.cuda, fn, lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
+    fcfg, vcfg = FluxConfig.tiny(), tvae.VAEConfig.tiny()
+    monkeypatch.setattr(FluxConfig, "flux1_dev", classmethod(lambda cls: fcfg))
+    monkeypatch.setattr(tvae.VAEConfig, "flux", classmethod(lambda cls: vcfg))
+    gen = torch.Generator()
+    flux = tmodel.init_flux_params(gen.manual_seed(0), fcfg, device="cpu")
+    root = str(tmp_path / "models")
+    cs.write_checkpoint(root, flux, tvae.init_vae_params(
+        gen.manual_seed(1), vcfg, device="cpu"), {"texture": tlora.init_lora_params(
+            gen.manual_seed(2), flux, rank=2, device="cpu")})
+    # phase 8's job: the same asset through the one-device int8 pipeline
+    one = CustomRGBTextureFullPipeline(int8_serving=True, pretrain_models=root,
+                                       require_weights=True,
+                                       config=pipeline_config(), device="cpu")
+    one.flux_cfg = dataclasses.replace(one.flux_cfg, attn_qk8=True)
+    _, mesh_path, img_path = cs.make_assets(str(tmp_path))[0]
+    one(str(tmp_path / "phase8"), img_path, mesh_path)
+    phase8 = {"wall": 1.0, "stages": {"infer_mv": 0.5}, "peak": 0,
+              "texture": to_uint8_device(one.last_texture).numpy()}
+    n = cs.run_parallel_int8(attn, torch, root, phase8,
+                             config=pipeline_config(), device="cpu")
+    out = capsys.readouterr().out
+    assert n == cs.NONE
+    assert "[parallel] int8 job icosphere on the one-rank mesh" in out
+    assert "phase 8 on one card: wall 1.00s" in out
+    psnr = float(out.split("int8 job against phase 8's: PSNR ")[1].split(" dB")[0])
     assert psnr >= 50.0, out
 
 

@@ -334,15 +334,23 @@ def test_run_flux_pipeline_matches_jax(flux_tree, vae_tree):
 def test_deferred_branches_raise():
     """Tensor and sequence parallelism run (tests/test_torch_parallel.py,
     tests/test_torch_sp.py); a config naming an axis instead of holding
-    its process group is refused, and so is cutting an int8 serving tree
-    across ranks (its fused leaves need per-part cuts: deferred)."""
+    its process group is refused, and so is cutting a fused int8 serving
+    node across ranks (the JAX package has no layout for it either).  An
+    int8 node is cut as its float kernel is (tests/test_torch_int8_tp.py
+    holds the cuts to the one-device tree): a column node's kernel and
+    scale by columns, in the int8 GEMM's layout."""
+    from unitex_torch.ops.quant import gemm_layout
     from unitex_torch.parallel.sharding import shard_node
 
     for parallel in ({"seq_axis": "seq"}, {"tp_axis": "model"}):
         with pytest.raises(TypeError, match="process group"):
             dataclasses.replace(TFluxConfig.tiny(), **parallel)
-    for path, node in ((("dual_blocks", "attn", "qkv_fused"), {}),
-                       (("dual_blocks", "ff", "in"),
-                        {"kernel_int8": torch.zeros(2, 4, 4, dtype=torch.int8)})):
-        with pytest.raises(NotImplementedError, match="int8"):
-            shard_node(path, node, 0, 2)
+    with pytest.raises(NotImplementedError, match="int8"):
+        shard_node(("dual_blocks", "attn", "qkv_fused"), {}, 0, 2)
+    q = gemm_layout(torch.arange(32, dtype=torch.int8).reshape(2, 4, 4))
+    cut = shard_node(("dual_blocks", "ff", "in"),
+                     {"kernel_int8": q, "scale": torch.arange(8.).reshape(2, 4)},
+                     1, 2)
+    assert torch.equal(cut["kernel_int8"], q[..., 2:])
+    assert cut["kernel_int8"].stride()[-2:] == (1, 4)
+    assert torch.equal(cut["scale"], torch.tensor([[2., 3.], [6., 7.]]))

@@ -278,7 +278,7 @@ def text_root(tmp_path, monkeypatch):
     return str(tmp_path / "models")
 
 
-def test_device_encoders_match_jax_encoders(text_root):
+def test_device_encoders_match_jax_encoders(text_root, tmp_path):
     want = jenc.JaxFluxTextEncoders(text_root, max_sequence_length=24)(["[MVFLUX]"])
     enc = tenc.build_text_encoders(text_root, 24, device="cpu")
     assert isinstance(enc, tenc.DeviceFluxTextEncoders)
@@ -286,8 +286,22 @@ def test_device_encoders_match_jax_encoders(text_root):
     assert [tuple(x.shape) for x in got] == [(1, 24, 64), (1, 48)]
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), w, atol=TOL, rtol=0)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tenc.DeviceFluxTextEncoders(text_root, mesh=object(), device="cpu")
+    # on a one-rank mesh: T5 cut over model = 1 and run through the
+    # tensor-parallel forward (two ranks: tests/test_torch_int8_tp.py)
+    import torch.distributed as dist
+
+    from unitex_torch.parallel.mesh import make_mesh
+
+    store = dist.FileStore(str(tmp_path / "store"), 1)
+    mesh = make_mesh(data=1, model=1, device="cpu", store=store, rank=0,
+                     world_size=1)
+    try:
+        on_mesh = tenc.DeviceFluxTextEncoders(text_root, max_sequence_length=24,
+                                              mesh=mesh, device="cpu")
+        for g, w in zip(on_mesh("[MVFLUX]"), got):
+            np.testing.assert_array_equal(g.numpy(), w.numpy())
+    finally:
+        dist.destroy_process_group()
 
 
 def test_build_text_encoders_falls_back_as_jax(tmp_path, capsys):

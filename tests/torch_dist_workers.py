@@ -31,15 +31,19 @@ JOIN_TIMEOUT = 120.0   # seconds for all ranks of one spawn
 
 def flatten(tree, prefix: str = "") -> dict:
     """{"a/0/c": numpy array} of a nested dict (or list) of tensors or
-    arrays; ``None`` leaves are left out."""
+    arrays (bfloat16 ones widened to float32, exactly); ``None`` leaves
+    are left out."""
     out = {}
     items = tree.items() if isinstance(tree, dict) else enumerate(tree)
     for k, v in items:
         path = f"{prefix}/{k}" if prefix else str(k)
         if isinstance(v, (dict, list)):
             out.update(flatten(v, path))
+        elif torch.is_tensor(v):
+            v = v.detach()
+            out[path] = (v.float() if v.dtype == torch.bfloat16 else v).numpy()
         elif v is not None:
-            out[path] = v.detach().numpy() if torch.is_tensor(v) else np.asarray(v)
+            out[path] = np.asarray(v)
     return out
 
 
@@ -275,15 +279,16 @@ SR_KW = dict(upscale=4, latent_tile=16, latent_overlap=4, vae_encoder_tile=64,
              vae_decoder_tile=32, tile_batch=6, vae_decode_dtype="float32")
 
 
-def _sr_stage(inputs: dict, mesh=None):
+def _sr_stage(inputs: dict, mesh=None, **cfg):
     """The tiny TSD-SR stage (tests/test_torch_sr.py's tiling, f32) on the
-    input image, on ``mesh`` or on one rank."""
+    input image, on ``mesh`` or on one rank; ``cfg``: more
+    ``TSDSRConfig`` fields."""
     from unitex_torch.models.flux.vae import VAEConfig
     from unitex_torch.models.sd3 import sr_pipeline as sr
     from unitex_torch.models.sd3.config import SD3Config
 
     pipe = sr.TSDSRPipeline(
-        None, cfg=sr.TSDSRConfig(**SR_KW), sd3_cfg=SD3Config.tiny(),
+        None, cfg=sr.TSDSRConfig(**SR_KW, **cfg), sd3_cfg=SD3Config.tiny(),
         transformer_params=unflatten(inputs, "sd3"),
         vae_params=unflatten(inputs, "sd3vae"), mesh=mesh, device="cpu")
     pipe.vae_cfg = VAEConfig.tiny()
@@ -693,4 +698,213 @@ def launcher_worker(rank: int, inputs: dict, out_dir: str) -> dict:
             launcher.main(common + ["--max-train-steps", "2"],
                           on_step=lambda s, st, loss: losses.append(float(loss)))
             out[f"{name}/losses"] = np.array(losses)
+    return out
+
+
+# ------------------------------------------------ int8 serving across ranks
+
+
+INT8_MODES = {"w8a8": True, "max_memory": "max_memory"}
+# the serving-tree cache cases: name -> (int8_serving, params_cache_int4)
+CACHE_CASES = {"int8": (True, False), "int4": (True, True)}
+T5_HEADS = 4
+
+
+def t5_config():
+    """The tiny T5 encoder of tests/test_torch_text.py."""
+    from unitex_torch.models.text import T5EncoderConfig
+
+    return T5EncoderConfig(vocab_size=100, d_model=64, d_kv=8, d_ff=96,
+                           num_layers=2, num_heads=T5_HEADS)
+
+
+def cache_pipeline(cache_dir: str, mode, int4: bool, mesh=None):
+    """The tiny pipeline's random serving tree through ``params_cache``
+    (built and written, or read), on ``mesh`` or on one rank."""
+    from unitex_torch.models.flux.config import FluxConfig
+    from unitex_torch.models.flux.vae import VAEConfig
+    from unitex_torch.pipeline import CustomRGBTextureFullPipeline
+
+    pipe = CustomRGBTextureFullPipeline(
+        config=pipeline_config(), int8_serving=mode, params_cache=cache_dir,
+        params_cache_int4=int4, device="cpu", mesh=mesh)
+    pipe.flux_cfg, pipe.vae_cfg = FluxConfig.tiny(), VAEConfig.tiny()
+    pipe._init_random_weights()
+    return pipe
+
+
+def int8_tp_worker(rank: int, inputs: dict, out_dir: str) -> dict:
+    """int8 serving at model = 2: the cut serving trees (the whole tree
+    quantized then cut, and each node quantized then cut as it is made),
+    the W8A8 row product, the TP FLUX forward in both int8 modes with the
+    adapters attached, the TP SD3 forward and the SR stage in W8A8, the
+    serving-tree cache written and read on the mesh, and the TP T5."""
+    from unitex_torch.models.flux.config import FluxConfig
+    from unitex_torch.models.flux.lora import attach_lora
+    from unitex_torch.models.flux.model import flux_forward, tp_config
+    from unitex_torch.models.flux.quantize import quantize_flux_params, quantize_hook
+    from unitex_torch.models.sd3 import model as sd3
+    from unitex_torch.models.sd3.config import SD3Config
+    from unitex_torch.models.text import t5_encoder_forward
+    from unitex_torch.ops.quant import int8_matmul, int8_row_matmul, quantize_linears
+    from unitex_torch.parallel.sharding import (
+        shard_flux_params, shard_hook, shard_sd3_params, shard_t5_params,
+        shard_tree)
+
+    mesh = _mesh(data=1, model=2)
+    group, m = mesh.group("model"), mesh.index("model")
+    flux, lora = unflatten(inputs, "flux"), unflatten(inputs, "lora")
+    cfg = tp_config(FluxConfig.tiny(), group)
+    out = {}
+    for name, mode in INT8_MODES.items():
+        wo = mode == "max_memory"
+        cut = shard_flux_params(quantize_flux_params(
+            flux, weight_only_rest=wo), mesh)
+        made = shard_tree(unflatten(inputs, "flux"),
+                          quantize_hook(mode, shard_hook(mesh)))
+        out.update(_prefixed(f"{name}/cut", cut))
+        out.update(_prefixed(f"{name}/made", made))
+        served = attach_lora(cut, [(shard_flux_params(lora, mesh), 1.0)])
+        out[f"{name}/forward"] = flux_forward(
+            served, cfg, *_flux_args(inputs)).numpy()
+
+    # the W8A8 row product: this rank's half of each row and kernel row
+    x, q, scale = (torch.from_numpy(inputs[f"row/{k}"]) for k in ("x", "q", "scale"))
+    k = x.shape[-1] // 2
+    xr, qr = x[..., m * k:(m + 1) * k], q[m * k:(m + 1) * k]
+    out["row/tp"] = int8_row_matmul([xr], [qr], scale, group).numpy()
+    local = int8_row_matmul([xr], [qr], scale)   # this rank's own amax
+    dist.all_reduce(local, group=group)
+    out["row/local_amax"] = local.numpy()
+    out["row/one_device"] = int8_matmul(x, q, scale).numpy()
+
+    sd3_tree = unflatten(inputs, "sd3")
+    out["sd3"] = sd3.sd3_forward(
+        shard_sd3_params(quantize_linears(sd3_tree), mesh),
+        tp_config(SD3Config.tiny(), group), *_sd3_args(inputs)).numpy()
+    out["sr"] = _sr_stage(inputs, mesh, int8_serving=True).numpy()
+    try:
+        _sr_stage(inputs, mesh, int8_serving=True, host_params=True)
+    except NotImplementedError as e:
+        out["host_params_refused"] = np.array(str(e))
+
+    for name, (mode, int4) in CACHE_CASES.items():
+        d = os.path.join(str(inputs["cache_dir"]), name)
+        first, second = (cache_pipeline(d, mode, int4, mesh) for _ in range(2))
+        out.update(_prefixed(f"cache/{name}/built", first.transformer_params))
+        out.update(_prefixed(f"cache/{name}/read", second.transformer_params))
+
+    t5 = shard_t5_params(unflatten(inputs, "t5"), mesh)
+    out["t5"] = t5_encoder_forward(t5, t5_config(),
+                                   torch.from_numpy(inputs["t5_ids"]),
+                                   group=group).numpy()
+    return out
+
+
+# ------------------------------------------------ serving across ranks
+
+
+def _tiny_pipe(inputs: dict, **kw):
+    """The tiny pipeline of :func:`pipeline_config` with the tiny FLUX,
+    VAE and adapters (``int8_serving``: the FLUX tree quantized whole
+    first), across the running process group."""
+    from unitex_torch.models.flux.config import FluxConfig
+    from unitex_torch.models.flux.quantize import quantize_flux_params
+    from unitex_torch.models.flux.vae import VAEConfig
+    from unitex_torch.pipeline import CustomRGBTextureFullPipeline
+
+    pipe = CustomRGBTextureFullPipeline(config=pipeline_config(), seed=63,
+                                        device="cpu", **kw)
+    pipe.flux_cfg, pipe.vae_cfg = FluxConfig.tiny(), VAEConfig.tiny()
+    flux = unflatten(inputs, "flux")
+    if pipe.int8_serving:
+        flux = quantize_flux_params(
+            flux, weight_only_rest=pipe.int8_serving == "max_memory")
+    pipe.set_flux_trees(flux, unflatten(inputs, "vae"),
+                        unflatten(inputs, "lora"), unflatten(inputs, "lora2"))
+    return pipe
+
+
+def http_jobs(base: str, bodies: list, timeout: float = 100.0) -> list:
+    """POST each job to the server at ``base``, one after the other, each
+    awaited to its end; the job records."""
+    import json
+    import urllib.request
+
+    def call(url, payload=None):
+        data = None if payload is None else json.dumps(payload).encode()
+        req = urllib.request.Request(url, data=data, headers={
+            "Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return json.loads(r.read())
+
+    recs = []
+    for body in bodies:
+        job_id = call(base + "/jobs", body)["id"]
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            rec = call(f"{base}/jobs/{job_id}")
+            if rec["status"] in ("done", "failed"):
+                break
+            time.sleep(0.05)
+        recs.append(rec)
+    return recs
+
+
+def serve_mesh_worker(rank: int, inputs: dict, out_dir: str) -> dict:
+    """Serving on two ranks: the HTTP server on rank 0 (prewarm, then a
+    job, a job whose mesh file does not parse, a job) while rank 1
+    follows; ``batch_pipeline.main`` with ``--keep-going`` over the same
+    three jobs; one W8A8 job."""
+    import json
+    import threading
+
+    from unitex_torch.geometry.io.mesh_io import load_mesh
+    from unitex_torch.scripts import batch_pipeline as bp
+    from unitex_torch.serving import serve
+
+    out = {}
+    good, bad = ({"image_path": str(inputs["image_path"]),
+                  "mesh_path": str(inputs[k])} for k in ("mesh_path", "bad_mesh"))
+    pipe = _tiny_pipe(inputs)
+    if rank == 0:
+        httpd = serve(pipe, os.path.join(out_dir, "serve"), port=0,
+                      prefetch=False, prewarm=True)
+        thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+        thread.start()
+        base = f"http://127.0.0.1:{httpd.server_address[1]}"
+        recs = http_jobs(base, [good, bad, good])
+        httpd.jobs.stop()
+        httpd.shutdown()
+        httpd.server_close()
+        out["statuses"] = np.array([r["status"] for r in recs])
+        out["bad_error"] = np.array(recs[1].get("error", ""))
+        out["prewarm"] = np.array(sorted(httpd.jobs.prewarm_timings or {}))
+        for i in (0, 2):
+            glb = httpd.jobs.jobs[recs[i]["id"]]["result"]
+            out[f"texture{i}"] = load_mesh(glb).texture
+    else:
+        out["followed"] = np.array(pipe.follow())
+
+    jobs = os.path.join(out_dir, "jobs.jsonl")
+    if rank == 0:
+        with open(jobs, "w") as f:
+            for name, body in (("a", good), ("broken", bad), ("b", good)):
+                f.write(json.dumps({"name": name, "image": body["image_path"],
+                                    "mesh": body["mesh_path"]}) + "\n")
+    dist.barrier()
+    batch_out = os.path.join(out_dir, "batch")
+    bp.build_config = lambda small, fast_steps=0: pipeline_config()
+    bp.main([jobs, "--out", batch_out, "--keep-going", "--no-prefetch",
+             "--device", "cpu"])
+    if rank == 0:
+        with open(os.path.join(batch_out, "manifest.json")) as f:
+            out["batch_errors"] = np.array(["error" in r for r in json.load(f)])
+
+    int8 = _tiny_pipe(inputs, int8_serving=True)
+    _, glb = int8(os.path.join(out_dir, "int8"), str(inputs["image_path"]),
+                  str(inputs["mesh_path"]))
+    if glb is not None:
+        int8.flush_io()
+        out["texture_int8"] = int8.last_texture.numpy()
     return out

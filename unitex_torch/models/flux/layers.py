@@ -14,7 +14,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ...ops.quant import int8_matmul, int8_weight_only_matmul
+from ...ops.quant import int8_matmul, int8_row_matmul, int8_weight_only_matmul
 from ...parallel.collectives import reduce_from
 
 Params = Dict[str, torch.Tensor]
@@ -44,13 +44,28 @@ def row_linear(p: Params, x: torch.Tensor, group=None) -> torch.Tensor:
     merged or attached LoRA's) are summed by ``all_reduce``, then the
     replicated bias is added once.  The sum is ``parallel/collectives.
     reduce_from``, whose gradient passes unchanged to every rank's part.
+    An int8 kernel dispatches as in :func:`linear`: W8A8 through
+    ``ops/quant.int8_row_matmul`` (the whole row's activation scale, the
+    int32 partials summed over ``group``: the one-device product), an
+    attached LoRA's partial delta summed by ``reduce_from`` beside it.
     ``group=None`` is :func:`linear`."""
     if group is None:
         return linear(p, x)
-    y = x @ p["kernel"].to(x.dtype)
+    lora = None
     if "lora_a" in p:
-        y = y + (x @ p["lora_a"].to(x.dtype)) @ p["lora_b"].to(x.dtype)
-    y = reduce_from(y, group)
+        lora = (x @ p["lora_a"].to(x.dtype)) @ p["lora_b"].to(x.dtype)
+    if "kernel_int8" in p:
+        y = int8_row_matmul([x], [p["kernel_int8"]], p["scale"], group)
+        if lora is not None:
+            y = y + reduce_from(lora, group)
+    else:
+        if "kernel_int8_wo" in p:
+            y = int8_weight_only_matmul(x, p["kernel_int8_wo"], p["scale"])
+        else:
+            y = x @ p["kernel"].to(x.dtype)
+        if lora is not None:
+            y = y + lora
+        y = reduce_from(y, group)
     if "bias" in p:
         y = y + p["bias"].to(x.dtype)
     return y

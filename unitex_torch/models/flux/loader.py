@@ -14,7 +14,9 @@ happen in that one device copy).  Host memory stays near one tensor.
 With a ``mesh`` (``parallel/mesh.py``) each linear node is cut to this
 rank's tensor-parallel slices as soon as it is filled
 (``parallel/sharding.shard_hook``), so a rank holds its slices and one
-full stacked node at a time.
+full stacked node at a time.  With ``int8_serving`` each node is
+quantized whole as it is filled (``quantize.quantize_hook``), before any
+cut.
 """
 
 from __future__ import annotations
@@ -201,14 +203,19 @@ def _flux_names(sd: Mapping, cfg: FluxConfig):
 
 def flux_params_from_state_dict(
     sd: Mapping, cfg: FluxConfig, device="cuda",
-    dtype: Optional[torch.dtype] = None, mesh=None,
+    dtype: Optional[torch.dtype] = None, mesh=None, int8_serving=False,
 ) -> Dict[str, Any]:
     """Map a diffusers ``FluxTransformer2DModel`` state dict (tensors or
     numpy arrays by name) into the ``init_flux_params`` tree on
-    ``device``, cast to ``dtype`` (default: as stored); with ``mesh``,
-    this rank's tensor-parallel slices of it."""
+    ``device``, cast to ``dtype`` (default: as stored); with
+    ``int8_serving`` (True or "max_memory") in the int8 serving form of
+    ``quantize_flux_params``; with ``mesh``, this rank's tensor-parallel
+    slices of it, each node quantized whole before it is cut."""
+    from .quantize import quantize_hook
+
     dev = resolve_device(device)
-    hook = None if mesh is None else shard_hook(mesh)
+    hook = quantize_hook(int8_serving,
+                         None if mesh is None else shard_hook(mesh))
     top, dual, single = _flux_names(sd, cfg)
     params = _materialize(top, sd, dev, dtype)
     params["dual_blocks"] = _materialize(dual, sd, dev, dtype, cfg.num_layers,
@@ -221,13 +228,15 @@ def flux_params_from_state_dict(
 
 def load_flux_transformer(
     path: str, cfg: FluxConfig, device="cuda",
-    dtype: Optional[torch.dtype] = None, mesh=None,
+    dtype: Optional[torch.dtype] = None, mesh=None, int8_serving=False,
 ) -> Dict[str, Any]:
     """The transformer tree of a diffusers model directory (or one
-    ``.safetensors`` file), streamed onto ``device`` (with ``mesh``: this
-    rank's slices)."""
+    ``.safetensors`` file), streamed onto ``device`` (with
+    ``int8_serving``: quantized as it is read; with ``mesh``: this rank's
+    slices)."""
     with iter_safetensors(path) as sd:
-        return flux_params_from_state_dict(sd, cfg, device, dtype, mesh)
+        return flux_params_from_state_dict(sd, cfg, device, dtype, mesh,
+                                           int8_serving)
 
 
 # ------------------------------------------------------------------- VAE

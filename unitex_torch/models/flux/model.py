@@ -17,7 +17,10 @@ count), gather the AdaLN modulations and sum after each row-parallel
 product (``layers.row_linear``, the pre-split ``proj_out`` of the single
 blocks).  The collectives are ``parallel/collectives``' autograd
 functions, with ``copy_to`` before the column products that read a
-replicated activation, so the TP forward trains.
+replicated activation, so the TP forward trains.  An int8 serving tree
+cut the same way runs its W8A8 row products through
+``ops/quant.int8_row_matmul`` (the whole row's activation scale, int32
+partials summed over the group: the one-device product).
 With ``cfg.seq_axis`` a process group, the tokens given are this rank's
 block of the sequence and attention runs Ulysses or the ring over the
 group (``ops/ring_attention.py``; ``models/flux/sp.flux_forward_sp`` cuts
@@ -41,6 +44,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ...ops.quant import int8_row_matmul
 from ...ops.ring_attention import sequence_parallel_attention
 from ...parallel.collectives import copy_to, gather_from, reduce_from
 from ...utils.params import Spec, init_from_spec, linear_spec
@@ -251,7 +255,9 @@ def _ada_ln_zero(p, temb, n=6, group=None):
     slices are gathered; a ``lin`` left whole (the TP x PP layout,
     ``pp._tp_pp_leaf_spec``) is computed whole on every rank."""
     x = F.silu(temb)
-    cut = group is not None and p["lin"]["kernel"].shape[-1] < n * temb.shape[-1]
+    kernel = next(p["lin"][k] for k in ("kernel", "kernel_int8_wo",
+                                        "kernel_int8") if k in p["lin"])
+    cut = group is not None and kernel.shape[-1] < n * temb.shape[-1]
     if cut:
         x = copy_to(x, group)
     mods = linear(p["lin"], x)
@@ -302,18 +308,43 @@ def _single_block(p, cfg, x, temb, cos, sin, kv_keep_idx=None):
                                      kv_keep_idx=kv_keep_idx)
         mlp_out = gelu_tanh(linear(p["proj_mlp"], x_norm))
     po = p["proj_out"]
-    if "kernel_attn" in po:
-        # tensor parallel: proj_out's input rows interleave [attn ‖ mlp],
-        # so it comes pre-split (parallel/sharding.py), each part holding
-        # this rank's rows; the partial products sum over the ranks and
-        # the bias is added once
-        y = reduce_from(attn_out @ po["kernel_attn"].to(x.dtype)
-                        + mlp_out @ po["kernel_mlp"].to(x.dtype), cfg.tp_axis)
-        if "bias" in po:
-            y = y + po["bias"].to(x.dtype)
-        return x + gate * y
+    if "kernel_attn" in po or "kernel_int8_attn" in po:
+        return x + gate * _split_proj_out(po, attn_out, mlp_out, cfg.tp_axis)
     merged = torch.cat([attn_out, mlp_out], dim=-1)
     return x + gate * linear(po, merged)
+
+
+def _split_proj_out(po, attn_out, mlp_out, group):
+    """The single block's ``proj_out`` under tensor parallelism: its input
+    rows interleave [attn ‖ mlp], so it comes pre-split
+    (parallel/sharding.py), each part holding this rank's rows.  The
+    partial products sum over the ranks and the bias is added once.  W8A8
+    parts take one activation scale, the amax over both local parts then
+    MAX over the group, and sum their int32 products locally, then over
+    the group: the one-device ``linear(po, cat([attn_out, mlp_out]))``.
+    An attached LoRA's ``lora_a`` holds this rank's attn rows, then its
+    mlp rows."""
+    dtype = attn_out.dtype
+    lora = None
+    if "lora_a" in po:
+        a, n = po["lora_a"].to(dtype), attn_out.shape[-1]
+        lora = (attn_out @ a[..., :n, :] + mlp_out @ a[..., n:, :]) \
+            @ po["lora_b"].to(dtype)
+    if "kernel_int8_attn" in po:
+        y = int8_row_matmul([attn_out, mlp_out], [po["kernel_int8_attn"],
+                                                  po["kernel_int8_mlp"]],
+                            po["scale"], group)
+        if lora is not None:
+            y = y + reduce_from(lora, group)
+    else:
+        y = attn_out @ po["kernel_attn"].to(dtype) \
+            + mlp_out @ po["kernel_mlp"].to(dtype)
+        if lora is not None:
+            y = y + lora
+        y = reduce_from(y, group)
+    if "bias" in po:
+        y = y + po["bias"].to(dtype)
+    return y
 
 
 def cast_tree(tree, dtype: Optional[torch.dtype]):

@@ -11,15 +11,22 @@ of a dual block, and q/k/v + MLP-in of a single block, into one wide
 projection (numerically the same products; off by default, as in the JAX
 package).  ``flux_forward`` dispatches on the leaf names, so one forward
 serves the bf16, int8 and fused trees.
+
+``quantize_hook`` is the same transform for one linear node as it is
+made (the loaders' and the random init's ``hook``), composed with a
+tensor-parallel cut (``parallel/sharding.shard_hook``): each whole node
+is quantized, then cut, so a row kernel's per-channel scale is over the
+whole d_in, as the JAX package quantizes the whole tree before it
+shards it, and a rank holds its slices and one whole node at a time.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
-from ...ops.quant import _in_blocks, quantize_linears
+from ...ops.quant import _in_blocks, quantize_linears, quantize_node
 
 
 def _fuse(*linears: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -73,3 +80,22 @@ def quantize_flux_params(
         weight_only_predicate=_in_blocks if weight_only_rest else None,
         consume=consume,
     )
+
+
+def quantize_hook(int8_serving, then: Optional[Callable] = None):
+    """``hook(path, node)`` for a tree's linear nodes as they are made:
+    the node quantized as :func:`quantize_flux_params` quantizes it
+    (``int8_serving``: True for W8A8, "max_memory" for W8A8 plus
+    weight-only int8; False leaves it float), its float kernel dropped,
+    then passed to ``then`` (a tensor-parallel cut) when given.  None
+    when there is nothing to do."""
+    if not int8_serving:
+        return then
+    wo = _in_blocks if int8_serving == "max_memory" else None
+
+    def hook(path, node):
+        node = quantize_node(path, node, weight_only_predicate=wo,
+                             consume=True)
+        return node if then is None else then(path, node)
+
+    return hook

@@ -3,8 +3,9 @@
 ``models/flux/loader.py``: each leaf allocated once on the device in its
 final dtype and filled layer by layer from the memory-mapped shards.  The
 SD3 VAE loads through ``models/flux/loader.load_vae`` with
-``VAEConfig.sd3()``.  With a ``mesh`` the blocks' linear nodes are cut to
-this rank's tensor-parallel slices as they are filled."""
+``VAEConfig.sd3()``.  With ``int8_serving`` the blocks' linear nodes are
+quantized (``ops/quant.quantize_linears``' W8A8) as they are filled, and
+with a ``mesh`` then cut to this rank's tensor-parallel slices."""
 
 from __future__ import annotations
 
@@ -52,16 +53,20 @@ def _copy_to(src: torch.Tensor, device, dtype) -> torch.Tensor:
 
 def sd3_params_from_state_dict(
     sd: Mapping, cfg: SD3Config, device="cuda",
-    dtype: Optional[torch.dtype] = None, mesh=None,
+    dtype: Optional[torch.dtype] = None, mesh=None, int8_serving=False,
 ) -> Dict[str, Any]:
     """Map a diffusers ``SD3Transformer2DModel`` state dict (tensors or
     numpy arrays by name) into the ``init_sd3_params`` tree on ``device``,
-    cast to ``dtype`` (default: as stored); with ``mesh``, this rank's
-    tensor-parallel slices of it.  The ``PatchEmbed`` conv
+    cast to ``dtype`` (default: as stored); with ``int8_serving``, its
+    block projections in W8A8; with ``mesh``, this rank's
+    tensor-parallel slices of it, each node quantized whole first.  The ``PatchEmbed`` conv
     [d, C, ps, ps] becomes a linear over (C, ph, pw)-flattened patches and
     the [1, pmax², d] position table a [pmax, pmax, d] one."""
+    from ..flux.quantize import quantize_hook
+
     dev = resolve_device(device)
-    hook = None if mesh is None else shard_hook(mesh)
+    hook = quantize_hook(bool(int8_serving),
+                         None if mesh is None else shard_hook(mesh))
 
     def embedder(prefix):
         return {"in": _lin(sd, f"{prefix}.linear_1"),
@@ -99,10 +104,12 @@ def sd3_params_from_state_dict(
 
 def load_sd3_transformer(
     path: str, cfg: SD3Config, device="cuda",
-    dtype: Optional[torch.dtype] = None, mesh=None,
+    dtype: Optional[torch.dtype] = None, mesh=None, int8_serving=False,
 ) -> Dict[str, Any]:
     """The SD3 transformer tree of a diffusers model directory (or one
-    ``.safetensors`` file), streamed onto ``device`` (with ``mesh``: this
-    rank's slices)."""
+    ``.safetensors`` file), streamed onto ``device`` (with
+    ``int8_serving``: W8A8 as it is read; with ``mesh``: this rank's
+    slices)."""
     with iter_safetensors(path) as sd:
-        return sd3_params_from_state_dict(sd, cfg, device, dtype, mesh)
+        return sd3_params_from_state_dict(sd, cfg, device, dtype, mesh,
+                                          int8_serving)

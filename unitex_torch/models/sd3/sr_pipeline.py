@@ -19,7 +19,11 @@ step: the SD3 transformer tensor-parallel over ``model``
 (``parallel/sharding.shard_sd3_params``), and the latent-tile and VAE-tile
 batches split over ``data`` (padded with repeats to a multiple of the
 axis, gathered and cut back: ``sharding.data_parallel``), so every rank
-ends with the whole image before the colour fix.  Not ported: the JAX
+ends with the whole image before the colour fix.  With
+``int8_serving`` the transformer is quantized whole, node by node, before
+it is cut (as the JAX package quantizes, then shards).  ``host_params``
+(and with it ``stage_pack_int4``) is refused on a mesh: the JAX staging
+puts the whole tree on one device, which would undo the cut.  Not ported: the JAX
 package's retry of a failed device put; on the card an out-of-memory
 raises.
 """
@@ -35,7 +39,7 @@ import numpy as np
 import torch
 
 from ...ops.quant import pack_int4_tree, quantize_linears, unpack_int4_tree
-from ...parallel.mesh import Mesh, broadcast_tensors
+from ...parallel.mesh import Mesh, broadcast_tensors, collective_section
 from ...parallel.sharding import data_parallel, shard_sd3_params
 from ...utils.params import tree_to
 from ...utils.precision import resolve_device
@@ -211,10 +215,12 @@ class TSDSRPipeline:
         if mesh is not None and not isinstance(mesh, Mesh):
             raise TypeError(f"mesh must be a parallel.mesh.Mesh, got "
                             f"{type(mesh).__name__}")
-        if mesh is not None and cfg.int8_serving:
+        if mesh is not None and (cfg.host_params or cfg.stage_pack_int4):
             raise NotImplementedError(
-                "int8 serving is not cut across ranks; serve the SR stage in "
-                "bf16 with more than one rank")
+                "host_params / stage_pack_int4 on a mesh: the staging window "
+                "moves the whole tree to one device (the JAX package's "
+                "jax.devices()[0]), which undoes the tensor-parallel cut; "
+                "keep the SR stage's slices resident on each rank")
         self.mesh = mesh
         self.device = mesh.device if mesh is not None else resolve_device(device)
         self.cfg = cfg
@@ -228,11 +234,15 @@ class TSDSRPipeline:
         self._packed = None  # (the host tree it was packed from, packed)
         self._auto_batch = None
         if pretrain_root is not None and transformer_params is None:
+            # quantized and cut node by node as it is read
             self._try_load(pretrain_root)
-        elif mesh is not None and transformer_params is not None:
-            self.transformer_params = shard_sd3_params(transformer_params, mesh)
-        if cfg.int8_serving and self.transformer_params is not None:
-            self.transformer_params = quantize_linears(self.transformer_params)
+        elif transformer_params is not None:
+            # the whole tree quantized, then cut
+            if cfg.int8_serving:
+                transformer_params = quantize_linears(transformer_params)
+            if mesh is not None:
+                transformer_params = shard_sd3_params(transformer_params, mesh)
+            self.transformer_params = transformer_params
         if cfg.host_params:
             # quantized where it was loaded (the device), kept on the host
             if self.transformer_params is not None:
@@ -246,7 +256,8 @@ class TSDSRPipeline:
         try:
             transformer = load_sd3_transformer(
                 os.path.join(root, "sd3", "transformer"), self.sd3_cfg,
-                device=self.device, dtype=dtype, mesh=self.mesh)
+                device=self.device, dtype=dtype, mesh=self.mesh,
+                int8_serving=self.cfg.int8_serving)
             vae = load_vae(os.path.join(root, "sd3", "vae"), self.vae_cfg,
                            device=self.device, dtype=torch.float32)
         except OSError as e:  # FileNotFoundError among them
@@ -317,12 +328,20 @@ class TSDSRPipeline:
 
     @torch.no_grad()
     def _infer(self, image) -> torch.Tensor:
+        """On a mesh, rank 0's image on every rank (the other ranks pass
+        None), then the stage's collectives in a ``collective_section``."""
+        mesh = self.mesh
+        if mesh is None:
+            return self._infer_on(image)
+        image = broadcast_tensors(
+            {"image": torch.as_tensor(image, dtype=torch.float32)}
+            if mesh.is_root else None, mesh)["image"]
+        with collective_section():
+            return self._infer_on(image)
+
+    def _infer_on(self, image) -> torch.Tensor:
         cfg = self.cfg
         mesh = self.mesh
-        if mesh is not None:
-            image = broadcast_tensors(
-                {"image": torch.as_tensor(image, dtype=torch.float32)}
-                if mesh.is_root else None, mesh)["image"]
         image = torch.as_tensor(image, dtype=torch.float32).to(self.device)
         with CPUTimer("sr_upscale"):
             up = upscale_clip(image, cfg.upscale)

@@ -14,7 +14,10 @@ the HF numerics, with the JAX package's parameter trees (linear kernels
   attention (T5 folds 1/sqrt(d_kv) into its weights) plus one
   relative-position bucket bias shared by every layer, a gated GELU-tanh
   (or the legacy ReLU) feed-forward, a final RMS norm; the optional
-  ``attention_mask`` adds -1e9 to masked keys.
+  ``attention_mask`` adds -1e9 to masked keys.  With a ``group`` it runs
+  tensor-parallel on ``parallel/sharding.shard_t5_params``' slices (the
+  JAX package's ``t5_param_shardings``): each rank its heads and its
+  columns of the feed-forward, ``o`` and ``wo`` row-parallel.
 
 Everything is f32 without TF32.  The converters read an HF state dict (a
 dict of arrays, or the lazy ``flux/loader.iter_safetensors`` of a
@@ -32,7 +35,7 @@ import torch.nn.functional as F
 
 from ..utils.params import init_from_spec, linear_spec
 from ..utils.precision import exact_f32
-from .flux.layers import gelu_tanh, linear, rms_norm, sdpa
+from .flux.layers import gelu_tanh, linear, rms_norm, row_linear, sdpa
 from .flux.loader import _materialize
 
 Params = Dict[str, Any]
@@ -282,21 +285,33 @@ def t5_encoder_forward(
     cfg: T5EncoderConfig,
     input_ids: torch.Tensor,
     attention_mask: Optional[torch.Tensor] = None,
+    group=None,
 ) -> torch.Tensor:
     """input_ids [B, S] -> last_hidden_state [B, S, d_model].
 
     ``attention_mask`` [B, S] (nonzero attends) is optional; the FLUX
-    prompt path passes input_ids only."""
+    prompt path passes input_ids only.  ``group``: the ``model`` ranks
+    the blocks are cut over (``shard_t5_params``); each rank takes its
+    heads' columns of the whole relative-position bias, and every rank
+    returns the whole output."""
     ids = input_ids.long()
     B, S = ids.shape
     x = params["embedding"][ids]
     buckets = _t5_relative_buckets(S, cfg.relative_buckets,
                                    cfg.relative_max_distance, ids.device)
+    H, Dk = cfg.num_heads, cfg.d_kv
+    rel = params["relative_bias"]
+    if group is not None:
+        n = torch.distributed.get_world_size(group)
+        if H % n:
+            raise ValueError(f"{H} heads do not split over {n} ranks")
+        H //= n
+        m = torch.distributed.get_rank(group)
+        rel = rel[:, m * H:(m + 1) * H]
     # [S, S, H] -> [1, H, S, S], shared by every layer
-    bias = params["relative_bias"][buckets.long()].permute(2, 0, 1)[None]
+    bias = rel[buckets.long()].permute(2, 0, 1)[None]
     if attention_mask is not None:
         bias = bias + torch.where(attention_mask.bool(), 0.0, -1e9)[:, None, None, :]
-    H, Dk = cfg.num_heads, cfg.d_kv
     for i in range(params["blocks"]["q"]["kernel"].shape[0]):
         p = _layer(params["blocks"], i)
         h = rms_norm(x, p["ln_attn"], cfg.layer_norm_eps)
@@ -307,13 +322,13 @@ def t5_encoder_forward(
         scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float() + bias
         probs = torch.softmax(scores, dim=-1).to(x.dtype)
         attn = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(B, S, -1)
-        x = x + linear(p["o"], attn)
+        x = x + row_linear(p["o"], attn, group)
         h = rms_norm(x, p["ln_ff"], cfg.layer_norm_eps)
         if cfg.gated_act:
             ff = gelu_tanh(linear(p["wi_0"], h)) * linear(p["wi_1"], h)
         else:
             ff = F.relu(linear(p["wi"], h))
-        x = x + linear(p["wo"], ff)
+        x = x + row_linear(p["wo"], ff, group)
     return rms_norm(x, params["final_ln"], cfg.layer_norm_eps)
 
 
@@ -347,12 +362,14 @@ def _t5_names(cfg: T5EncoderConfig):
 
 
 def convert_t5_encoder(sd, cfg: T5EncoderConfig, device="cuda",
-                       dtype: torch.dtype = torch.float32) -> Params:
+                       dtype: torch.dtype = torch.float32, hook=None) -> Params:
     """An HF T5EncoderModel state dict -> the parameter tree on ``device``
-    in ``dtype``."""
+    in ``dtype``; ``hook(path, node)`` replaces each block linear as it is
+    filled (``parallel/sharding.t5_shard_hook``: this rank's slices)."""
     top, blocks = _t5_names(cfg)
     out = _materialize(top, sd, device, dtype)
-    out["blocks"] = _materialize(blocks, sd, device, dtype, cfg.num_layers)
+    out["blocks"] = _materialize(blocks, sd, device, dtype, cfg.num_layers,
+                                 hook, ("blocks",))
     return {k: out[k] for k in ("embedding", "relative_bias", "blocks",
                                 "final_ln")}
 

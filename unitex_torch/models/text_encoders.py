@@ -105,16 +105,17 @@ class FluxTextEncoders:
 class DeviceFluxTextEncoders:
     """CLIP-L pooled + T5 sequence embeddings with the port's encoders on
     ``device`` (the counterpart of the JAX package's
-    ``JaxFluxTextEncoders``).  T5 tensor parallelism (``mesh``) is not
-    ported and is refused."""
+    ``JaxFluxTextEncoders``).  With a ``mesh`` (``parallel/mesh.Mesh``,
+    every rank building the encoders together) T5 is cut over its
+    ``model`` axis as it is read (``parallel/sharding.t5_shard_hook``, the
+    layout of ``t5_param_shardings``) and runs tensor-parallel; CLIP-L
+    stays whole on every rank, as in the JAX package.  ``device`` is then
+    the mesh's."""
 
     def __init__(self, pretrain_root: str, max_sequence_length: int = 512,
                  mesh=None, device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError(
-                "T5 tensor parallelism (mesh=) is not ported: it comes with "
-                "the multi-GPU work")
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         flux = _flux_dir(pretrain_root)
         from transformers import CLIPTokenizer, T5TokenizerFast
 
@@ -136,7 +137,17 @@ class DeviceFluxTextEncoders:
             self.clip_params = convert_clip_text(sd, self.clip_cfg, self.device)
         with iter_safetensors(os.path.join(flux, "text_encoder_2")) as sd:
             self.t5_cfg = t5_config_from_sd(sd)
-            self.t5_params = convert_t5_encoder(sd, self.t5_cfg, self.device)
+            hook = None
+            if mesh is not None:
+                from ..parallel.sharding import t5_shard_hook
+
+                n = mesh.size("model")
+                if self.t5_cfg.num_heads % n:
+                    raise ValueError(f"T5's {self.t5_cfg.num_heads} heads do "
+                                     f"not split over model = {n}")
+                hook = t5_shard_hook(mesh)
+            self.t5_params = convert_t5_encoder(sd, self.t5_cfg, self.device,
+                                                hook=hook)
 
     def _ids(self, tokenizer, prompts, length: int) -> torch.Tensor:
         ids = tokenizer(prompts, padding="max_length", max_length=length,
@@ -151,7 +162,9 @@ class DeviceFluxTextEncoders:
         clip_ids = self._ids(self.clip_tokenizer, prompts, 77)
         t5_ids = self._ids(self.t5_tokenizer, prompts, self.max_sequence_length)
         _, pooled = clip_text_forward(self.clip_params, self.clip_cfg, clip_ids)
-        seq = t5_encoder_forward(self.t5_params, self.t5_cfg, t5_ids)
+        seq = t5_encoder_forward(
+            self.t5_params, self.t5_cfg, t5_ids,
+            group=None if self.mesh is None else self.mesh.group("model"))
         return seq.float(), pooled.float()
 
 

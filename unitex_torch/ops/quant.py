@@ -7,6 +7,13 @@ dynamic per-row activations, weight-only int8, and the int4 transfer pack.
   library's GEMM, as the JAX package leaves it to XLA's ``dot_general``),
   then dequantizes by the outer product of the two scales.
 
+Under tensor parallelism a row-parallel W8A8 product
+(:func:`int8_row_matmul` with a ``group``) holds 1/n of each activation
+row: the row's amax is reduced (MAX) over the group, so every rank
+quantizes with the one-device scale, and the int32 partial products are
+summed over the group before the dequantization, so the product equals
+the one-device product bit for bit.
+
 Parameter trees are nested dicts of tensors with the JAX package's leaf
 names: a linear ``{"kernel", "bias"}`` becomes ``{"kernel_int8", "scale"}``
 (W8A8) or ``{"kernel_int8_wo", "scale"}`` (weight-only).  The int8 kernel
@@ -19,9 +26,10 @@ package's.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 
 # the stacks the JAX package's predicates look for
 _BLOCK_KEYS = ("dual_blocks", "single_blocks", "blocks", "final_block")
@@ -74,15 +82,34 @@ def int8_weight_only_matmul(
     return x @ w
 
 
+def _row_scale(amax: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(amax, min=1e-8) * (1.0 / 127.0)
+
+
+def _quantize_with(xf: torch.Tensor, s_x: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(torch.round(xf / s_x), -127, 127).to(torch.int8)
+
+
 def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-row activation quantization: x [..., d] -> (int8 [..., d], f32
     s_x [..., 1]) with s_x = max(amax, 1e-8) · (1/127), round half to
     even."""
     xf = x.float()
-    s_x = torch.clamp(xf.abs().amax(dim=-1, keepdim=True), min=1e-8) \
-        * (1.0 / 127.0)
-    xq = torch.clamp(torch.round(xf / s_x), -127, 127).to(torch.int8)
-    return xq, s_x
+    s_x = _row_scale(xf.abs().amax(dim=-1, keepdim=True))
+    return _quantize_with(xf, s_x), s_x
+
+
+def _int_mm(xq: torch.Tensor, kernel_int8: torch.Tensor) -> torch.Tensor:
+    """int8 [..., d_in] @ int8 [d_in, d_out] -> int32 [..., d_out]."""
+    lead = xq.shape[:-1]
+    a = xq.reshape(-1, xq.shape[-1])
+    m = a.shape[0]
+    if a.is_cuda and m <= 16:
+        # the card's int8 GEMM takes more than 16 rows: zero rows give
+        # zero products and are dropped
+        a = torch.cat([a, a.new_zeros((17 - m, a.shape[1]))])
+    acc = torch._int_mm(a, kernel_int8)[:m]
+    return acc.reshape(*lead, acc.shape[-1])
 
 
 def int8_matmul(
@@ -92,17 +119,35 @@ def int8_matmul(
     activation quantization: the int32 product of the int8 values (never
     summed in f32, which is exact only below 2^24), dequantized as
     ``acc · s_x · kernel_scale`` in f32, returned in x.dtype."""
-    xq, s_x = quantize_rows(x)
-    lead = x.shape[:-1]
-    a = xq.reshape(-1, x.shape[-1])
-    m = a.shape[0]
-    if a.is_cuda and m <= 16:
-        # the card's int8 GEMM takes more than 16 rows: zero rows give
-        # zero products and are dropped
-        a = torch.cat([a, a.new_zeros((17 - m, a.shape[1]))])
-    acc = torch._int_mm(a, kernel_int8)[:m]
-    acc = acc.reshape(*lead, acc.shape[-1])
-    return (acc.float() * s_x * kernel_scale).to(x.dtype)
+    return int8_row_matmul([x], [kernel_int8], kernel_scale)
+
+
+def int8_row_matmul(
+    xs: Sequence[torch.Tensor], kernels: Sequence[torch.Tensor],
+    kernel_scale: torch.Tensor, group=None,
+) -> torch.Tensor:
+    """The W8A8 product of one activation row split into parts: ``xs[i]``
+    [..., d_i] holds columns of the row and ``kernels[i]`` [d_i, d_out]
+    the matching rows of the int8 kernel; with ``group`` the rest of the
+    row and of the kernel lies on the group's other ranks (row-parallel).
+    The row scale is the amax over every part (MAX over ``group``), the
+    int32 partial products are summed (over ``group`` too), then
+    dequantized with ``kernel_scale`` [d_out], the whole kernel's: the
+    one-device :func:`int8_matmul` of the whole row, bit for bit."""
+    xfs = [x.float() for x in xs]
+    amax = xfs[0].abs().amax(dim=-1, keepdim=True)
+    for xf in xfs[1:]:
+        amax = torch.maximum(amax, xf.abs().amax(dim=-1, keepdim=True))
+    if group is not None:
+        dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=group)
+    s_x = _row_scale(amax)
+    acc = None
+    for xf, k in zip(xfs, kernels):
+        part = _int_mm(_quantize_with(xf, s_x), k)
+        acc = part if acc is None else acc + part
+    if group is not None:
+        dist.all_reduce(acc, group=group)
+    return (acc.float() * s_x * kernel_scale).to(xs[0].dtype)
 
 
 def _should_quantize(path: Path) -> bool:
@@ -138,23 +183,40 @@ def quantize_linears(
         if not isinstance(node, dict):
             return node
         if "kernel" in node:
-            kind = None
-            if predicate(path):
-                kind = "kernel_int8"
-            elif (weight_only_predicate is not None
-                  and weight_only_predicate(path) and node["kernel"].dim() >= 2):
-                kind = "kernel_int8_wo"
-            if kind is not None:
-                q, s = quantize_kernel(node["kernel"])
-                if consume:
-                    del node["kernel"]
-                new = {kind: q, "scale": s}
-                if "bias" in node:
-                    new["bias"] = node["bias"]
+            new = quantize_node(path, node, predicate, weight_only_predicate,
+                                consume)
+            if new is not node:
                 return new
         return {k: walk(v, path + (k,)) for k, v in node.items()}
 
     return walk(params, ())
+
+
+def quantize_node(
+    path: Path, node: Dict[str, Any],
+    predicate: Optional[Callable[[Path], bool]] = None,
+    weight_only_predicate: Optional[Callable[[Path], bool]] = None,
+    consume: bool = False,
+) -> Dict[str, Any]:
+    """One ``{"kernel", "bias"?}`` node at ``path`` in the int8 form that
+    :func:`quantize_linears` gives it, or ``node`` itself where neither
+    predicate holds."""
+    predicate = predicate or _should_quantize
+    kind = None
+    if predicate(path):
+        kind = "kernel_int8"
+    elif (weight_only_predicate is not None
+          and weight_only_predicate(path) and node["kernel"].dim() >= 2):
+        kind = "kernel_int8_wo"
+    if kind is None:
+        return node
+    q, s = quantize_kernel(node["kernel"])
+    if consume:
+        del node["kernel"]
+    new = {kind: q, "scale": s}
+    if "bias" in node:
+        new["bias"] = node["bias"]
+    return new
 
 
 def pack_int4_kernel(

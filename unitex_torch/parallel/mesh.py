@@ -29,9 +29,12 @@ ask).  Nothing falls back: a process group that cannot start raises.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 import os
+import sys
+import traceback
 from typing import Dict, Optional
 
 import torch
@@ -161,21 +164,101 @@ def make_mesh(
     return Mesh(shape, coords, groups, dev)
 
 
+# a job's messages from rank 0: the key of a failed job's
+_ABORT = "__job_aborted__"
+
+
+class JobAborted(RuntimeError):
+    """Rank 0's part of a job failed at a host-side point: raised on the
+    other ranks where they wait for rank 0 (:func:`broadcast_tensors`'
+    header, :func:`wait_job`)."""
+
+
+def start_job(kind: str, **fields) -> None:
+    """Rank 0: announce a job of ``kind`` (with ``fields``) to the other
+    ranks, who read it with :func:`next_job`."""
+    dist.broadcast_object_list([{"kind": kind, **fields}], src=0)
+
+
+def next_job() -> dict:
+    """A rank other than 0: the next job rank 0 announces
+    (:func:`start_job`), as ``{"kind": ..., **fields}``."""
+    msg = [None]
+    dist.broadcast_object_list(msg, src=0)
+    return msg[0]
+
+
+def _receive(meta: list) -> dict:
+    dist.broadcast_object_list(meta, src=0)
+    if _ABORT in meta[0]:
+        raise JobAborted(meta[0][_ABORT])
+    return meta[0]
+
+
+def end_job(error: Optional[BaseException] = None) -> None:
+    """Rank 0: the end of one job for the other ranks, who wait for it in
+    :func:`wait_job` or in their next :func:`broadcast_tensors`.  With
+    ``error`` (rank 0's part failed) they raise :class:`JobAborted`
+    there.  Outside a :func:`collective_section` every point where the
+    other ranks wait for rank 0 is such a broadcast, so rank 0 ends a job
+    that failed at a host-side point with one call.  A failure inside a
+    section never gets here: it ends the process."""
+    msg = {} if error is None else {
+        _ABORT: f"{type(error).__name__}: {error}"}
+    dist.broadcast_object_list([msg], src=0)
+
+
+def wait_job() -> None:
+    """A rank other than 0: wait for rank 0's :func:`end_job`; raises
+    :class:`JobAborted` where rank 0's part failed."""
+    _receive([None])
+
+
+@contextlib.contextmanager
+def collective_section():
+    """Collectives that every rank of a job runs together: the tensors of
+    :func:`broadcast_tensors`, a tensor-parallel denoise or SR stage.
+    When this rank fails inside one, the others may be waiting in one of
+    its collectives, where no message can reach them and any message
+    would pair with the wrong collective.  So a failure here
+    (``KeyboardInterrupt`` too) is printed and the process exits at once
+    with status 1, its communicators with it; the launcher (``torchrun``)
+    then ends the other ranks.  No rank waits for good, and none reads a
+    later message out of step.  :class:`JobAborted` (rank 0's message,
+    read at a point where every rank waits for it) passes through."""
+    try:
+        yield
+    except JobAborted:
+        raise
+    except BaseException:
+        rank = dist.get_rank() if dist.is_initialized() else 0
+        print(f"[rank {rank}] failed inside a collective section; the "
+              f"process exits", file=sys.stderr, flush=True)
+        traceback.print_exc()
+        sys.stderr.flush()
+        sys.stdout.flush()
+        os._exit(1)
+
+
 def broadcast_tensors(tensors: Optional[Dict[str, torch.Tensor]],
                       mesh: Mesh) -> Dict[str, torch.Tensor]:
     """Rank 0's dict of tensors on every rank (on ``mesh.device``): rank 0
     passes the dict, the other ranks ``None``.  Names, shapes and dtypes
-    go first (``broadcast_object_list``), then each tensor."""
+    go first (``broadcast_object_list``), then each tensor, inside a
+    :func:`collective_section`.  A rank other than 0 raises
+    :class:`JobAborted` where rank 0 ended the job instead
+    (:func:`end_job`)."""
     meta = [None]
     if mesh.is_root:
         meta = [{k: (tuple(v.shape), v.dtype) for k, v in tensors.items()}]
-    dist.broadcast_object_list(meta, src=0)
+    meta = [_receive(meta)]
     out = {}
-    for name, (shape, dtype) in meta[0].items():
-        if mesh.is_root:
-            t = tensors[name].to(mesh.device, dtype).contiguous()
-        else:
-            t = torch.empty(shape, dtype=dtype, device=mesh.device)
-        dist.broadcast(t, src=0)
-        out[name] = t
+    with collective_section():
+        for name, (shape, dtype) in meta[0].items():
+            if mesh.is_root:
+                t = tensors[name].to(mesh.device, dtype).contiguous()
+            else:
+                t = torch.empty(shape, dtype=dtype, device=mesh.device)
+            dist.broadcast(t, src=0)
+            out[name] = t
     return out

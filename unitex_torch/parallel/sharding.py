@@ -33,9 +33,23 @@ one card, reads).
 
 :func:`shard_hook` is the rule for one linear node, for the loaders and
 the random init, which cut each node as it is made, so a rank holds its
-slices and one full node at a time.  The fused int8 serving leaves
-(``qkv_fused``, ``qkvm_fused``, ``kernel_int8``) would need per-part column
-cuts and are refused.
+slices and one full node at a time.
+
+int8 serving nodes (``ops/quant.py``) are cut as the JAX package's
+``_match_linear`` places them: ``kernel_int8`` / ``kernel_int8_wo`` like
+``kernel``, the per-output-channel ``scale`` with the columns of a column
+kernel and whole on every rank for a row kernel (its channels are the
+whole output), the pre-split ``proj_out`` into ``kernel_int8_attn`` /
+``kernel_int8_mlp``.  A node is quantized whole before it is cut
+(``models/flux/quantize.quantize_hook``), so a row kernel's scale is the
+one-device scale, over the whole d_in.  Every cut int8 kernel keeps the
+int8 GEMM's d_in-contiguous layout (``ops/quant.gemm_layout``).  The
+fused serving nodes (``qkv_fused``, ``add_qkv_fused``, ``qkvm_fused``) are
+refused: the JAX package has no layout for them either.
+
+:func:`shard_t5_params` cuts the T5 encoder in ``t5_param_shardings``'
+layout: q/k/v and the feed-forward's input column-parallel, ``o`` and
+``wo`` row-parallel, the rest whole.
 """
 
 from __future__ import annotations
@@ -45,6 +59,7 @@ from typing import Any, Callable, Dict, Tuple
 import torch
 import torch.distributed as dist
 
+from ..ops.quant import gemm_layout
 from .mesh import Mesh
 
 Path = Tuple[str, ...]
@@ -56,6 +71,9 @@ _ROW = {"to_out", "to_add_out"}
 _FF = ("ff", "ff_context")
 _INT8_NODES = {"qkv_fused", "add_qkv_fused", "qkvm_fused"}
 _INT8_LEAVES = ("kernel_int8", "kernel_int8_wo")
+_KERNELS = ("kernel",) + _INT8_LEAVES
+_T5_COL = {"q", "k", "v", "wi", "wi_0", "wi_1"}
+_T5_ROW = {"o", "wo"}
 
 
 def layout(path: Path) -> str:
@@ -87,24 +105,39 @@ def cut(t: torch.Tensor, dim: int, part: int, n: int) -> torch.Tensor:
     return t.narrow(dim, part * k, k).clone(memory_format=torch.contiguous_format)
 
 
-def shard_node(path: Path, node: Dict[str, Any], part: int,
-               n: int) -> Dict[str, Any]:
-    """This part of one linear node (``kernel``/``bias``) or LoRA node
-    (``a``/``b``), by :func:`layout`."""
-    if path[-1] in _INT8_NODES or any(k in node for k in _INT8_LEAVES):
+def _cut_leaf(key: str, t: torch.Tensor, dim: int, part: int,
+              n: int) -> torch.Tensor:
+    """:func:`cut`, with an int8 kernel left in the GEMM's layout."""
+    out = cut(t, dim, part, n)
+    return gemm_layout(out) if key in _INT8_LEAVES else out
+
+
+def _kernel_keys(node) -> tuple:
+    return tuple(k for k in _KERNELS if k in node)
+
+
+def shard_node(path: Path, node: Dict[str, Any], part: int, n: int,
+               kind: str = None) -> Dict[str, Any]:
+    """This part of one linear node (``kernel``/``bias``, or the int8
+    ``kernel_int8``/``kernel_int8_wo`` with its ``scale``) or LoRA node
+    (``a``/``b``), by :func:`layout` (or ``kind``)."""
+    if path[-1] in _INT8_NODES:
         raise NotImplementedError(
-            "int8 serving trees are not cut across ranks (the fused leaves "
-            "need per-part column cuts); serve bf16 with more than one rank")
-    kind = layout(path)
+            f"{path[-1]}: fused int8 serving nodes are not cut across ranks; "
+            "the JAX package's flux_param_shardings has no layout for them "
+            "either (quantize_flux_params(fuse=False), the default, serves "
+            "with more than one rank)")
+    kind = kind or layout(path)
     lora = "a" in node and "b" in node
     out = dict(node)
     if kind == "col":
-        for k in ("b",) if lora else ("kernel", "bias"):
+        for k in ("b",) if lora else _kernel_keys(node) + ("bias", "scale"):
             if k in node:
-                out[k] = cut(node[k], -1, part, n)
+                out[k] = _cut_leaf(k, node[k], -1, part, n)
     elif kind == "row":
-        k = "a" if lora else "kernel"
-        out[k] = cut(node[k], -2, part, n)
+        # an int8 row kernel's scale is per output channel: whole
+        for k in ("a",) if lora else _kernel_keys(node):
+            out[k] = _cut_leaf(k, node[k], -2, part, n)
     elif kind == "split_row":
         # the input rows are [attn (d) ‖ mlp]; d is the output width
         if lora:
@@ -112,10 +145,11 @@ def shard_node(path: Path, node: Dict[str, Any], part: int,
             out["a"] = torch.cat([cut(a[..., :d, :], -2, part, n),
                                   cut(a[..., d:, :], -2, part, n)], dim=-2)
             return out
-        kernel = out.pop("kernel")
-        d = kernel.shape[-1]
-        out["kernel_attn"] = cut(kernel[..., :d, :], -2, part, n)
-        out["kernel_mlp"] = cut(kernel[..., d:, :], -2, part, n)
+        for k in _kernel_keys(node):
+            kernel = out.pop(k)
+            d = kernel.shape[-1]
+            out[f"{k}_attn"] = _cut_leaf(k, kernel[..., :d, :], -2, part, n)
+            out[f"{k}_mlp"] = _cut_leaf(k, kernel[..., d:, :], -2, part, n)
     return out
 
 
@@ -127,8 +161,7 @@ def shard_hook(mesh: Mesh) -> Callable[[Path, Dict[str, Any]], Dict[str, Any]]:
 
 def is_linear(node) -> bool:
     return isinstance(node, dict) and (
-        "kernel" in node or "kernel_attn" in node
-        or any(k in node for k in _INT8_LEAVES)
+        any(k in node or f"{k}_attn" in node for k in _KERNELS)
         or ("a" in node and "b" in node))
 
 
@@ -159,23 +192,29 @@ def unshard_node(path: Path, node: Dict[str, Any], group) -> Dict[str, Any]:
     kind = layout(path)
     lora = "a" in node and "b" in node
     out = dict(node)
+
+    def whole(k, part, dim):
+        t = gather(part, group, dim)
+        return gemm_layout(t) if k in _INT8_LEAVES else t
+
     if kind == "col":
-        for k in ("b",) if lora else ("kernel", "bias"):
+        for k in ("b",) if lora else _kernel_keys(node) + ("bias", "scale"):
             if k in node:
-                out[k] = gather(node[k], group, -1)
+                out[k] = whole(k, node[k], -1)
     elif kind == "row":
-        k = "a" if lora else "kernel"
-        out[k] = gather(node[k], group, -2)
+        for k in ("a",) if lora else _kernel_keys(node):
+            out[k] = whole(k, node[k], -2)
     elif kind == "split_row":
         if lora:
             a, n = node["a"], dist.get_world_size(group)
             k = node["b"].shape[-1] // n
             out["a"] = torch.cat([gather(a[..., :k, :], group, -2),
                                   gather(a[..., k:, :], group, -2)], dim=-2)
-        else:
-            out["kernel"] = torch.cat([gather(out.pop("kernel_attn"), group, -2),
-                                       gather(out.pop("kernel_mlp"), group, -2)],
-                                      dim=-2)
+        for k in _KERNELS:
+            if f"{k}_attn" in node:
+                t = torch.cat([gather(out.pop(f"{k}_attn"), group, -2),
+                               gather(out.pop(f"{k}_mlp"), group, -2)], dim=-2)
+                out[k] = gemm_layout(t) if k in _INT8_LEAVES else t
     return out
 
 
@@ -184,6 +223,30 @@ def unshard_tree(tree: Dict[str, Any], group) -> Dict[str, Any]:
     (``group``: ``Mesh.group("model")``), on every rank of the group."""
     return shard_tree(tree, lambda path, node: unshard_node(
         path, {k: v.detach() for k, v in node.items()}, group))
+
+
+def t5_layout(path: Path) -> str:
+    """The cut of the T5 encoder's linear node at ``path``
+    (``t5_param_shardings``): "col", "row" or "rep"."""
+    if len(path) < 2 or path[0] != "blocks":
+        return "rep"
+    return ("col" if path[-1] in _T5_COL
+            else "row" if path[-1] in _T5_ROW else "rep")
+
+
+def t5_shard_hook(mesh: Mesh) -> Callable[[Path, Dict[str, Any]], Dict[str, Any]]:
+    """:func:`shard_hook` for the T5 encoder's tree (``models/text.py``);
+    the heads must divide the ``model`` axis."""
+    part, n = mesh.index("model"), mesh.size("model")
+    return lambda path, node: shard_node(path, node, part, n, t5_layout(path))
+
+
+def shard_t5_params(params: Dict[str, Any], mesh: Mesh) -> Dict[str, Any]:
+    """This rank's slices of a T5 encoder tree, in the layout of
+    ``t5_param_shardings``: the embedding, the relative-position bias and
+    the norms stay whole (``models/text.t5_encoder_forward`` takes its
+    heads' columns of the bias)."""
+    return shard_tree(params, t5_shard_hook(mesh))
 
 
 # ------------------------------------------------------------ activations

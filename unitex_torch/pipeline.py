@@ -56,13 +56,32 @@ tensor-parallel over ``model`` with its tile batches over ``data``.  Rank
 every file, the bake and the GLB) and broadcasts what the others need:
 each FLUX pass's noise, condition latents and prompt embeddings, and the
 grid the SR stage starts from.  The other ranks run the FLUX passes and
-the SR stage in step with it, then wait at a barrier; none redoes host
-work, so no rank's inputs can differ by a bit.  int8 serving, the
-serving-tree cache and ``prewarm`` (the job server) run on one rank only.
+the SR stage in step with it, then wait for rank 0's end of the job
+(``parallel/mesh.end_job``); none redoes host work, so no rank's inputs
+can differ by a bit.  Rank 0 announces each job (a job, ``prewarm``, and
+outside a job ``infer_mv_stage`` or ``_apply_sr``) before its part
+starts; the other ranks call the same entry point or :meth:`follow`,
+which runs every job rank 0 announces until :meth:`release_followers`.
+A job whose part on rank 0 fails at a host-side point (the preprocess,
+the renders, a pass's inputs or decode, the bake, a file) ends with that
+failure for every rank, at the broadcast where the others wait
+(``JobAborted``), and the next job starts in step.  A failure inside the
+collectives every rank runs together (the broadcast's tensors, the
+denoise, the SR stage) ends the process instead
+(``parallel/mesh.collective_section``), and the launcher ends the other
+ranks.  int8 serving quantizes each whole node before it is cut
+(``models/flux/quantize.quantize_hook``), as the JAX package quantizes
+the whole tree before it shards it.  The serving-tree cache stays the
+one-card file: rank 0 writes it from the whole nodes gathered from the
+ranks' slices while the others wait at a barrier; on a hit every rank
+reads and validates it and keeps its slices, node by node (an
+int4-packed node is unpacked before the cut).  ``prewarm`` runs its
+synthetic job on every rank in step, as a job does.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import shutil
 import time
@@ -87,7 +106,7 @@ from .models.flux.lora import (
     merge_lora,
 )
 from .models.flux.model import flux_param_spec, init_flux_params, tp_config
-from .models.flux.quantize import quantize_flux_params
+from .models.flux.quantize import quantize_flux_params, quantize_hook
 from .models.flux.pipeline import (
     FluxPipelineConfig,
     flux_decode,
@@ -99,8 +118,24 @@ from .models.flux.pipeline import (
 from .models.flux.vae import VAEConfig, init_vae_params
 from .ops.quant import gemm_layout, pack_int4_tree, unpack_int4_tree
 from .parallel.mesh import Mesh as RankMesh
-from .parallel.mesh import broadcast_tensors, make_mesh, world_size_from_env
-from .parallel.sharding import shard_flux_params, shard_hook
+from .parallel.mesh import (
+    JobAborted,
+    broadcast_tensors,
+    collective_section,
+    end_job,
+    make_mesh,
+    next_job,
+    start_job,
+    wait_job,
+    world_size_from_env,
+)
+from .parallel.sharding import (
+    is_linear,
+    shard_flux_params,
+    shard_hook,
+    shard_tree,
+    unshard_node,
+)
 from .render.conditioning import (
     grid_to_strip,
     grid_to_views,
@@ -120,6 +155,7 @@ from .utils.timer import CPUTimer
 # int8_serving mode -> the cache file's mode name (the JAX package's)
 _CACHE_MODES = {False: "bf16", True: "int8", "max_memory": "int8wo"}
 _INT8_KERNELS = ("kernel_int8", "kernel_int8_wo")
+_INT4_KERNELS = ("kernel_int4", "kernel_int4_wo")
 
 
 def _meta_tree(tree):
@@ -142,6 +178,21 @@ def _leaf_types(tree, prefix="") -> Dict[str, tuple]:
         else:
             out[path] = (tuple(v.shape), v.dtype)
     return out
+
+
+def _gathered_to_host(tree, mesh, transform):
+    """The whole serving tree on rank 0's host from the ``model`` ranks'
+    slices, gathered node by node and each whole node passed through
+    ``transform`` on the device (every rank calls it; the others get None
+    in place of each linear node), so a rank holds one whole node beyond
+    its slices at a time."""
+    group = mesh.group("model")
+
+    def node(path, part):
+        whole = transform(unshard_node(path, part, group))
+        return tree_to(whole, "cpu") if mesh.is_root else None
+
+    return shard_tree(tree, node)
 
 
 def _host(x) -> np.ndarray:
@@ -174,11 +225,6 @@ class RGBTextureFullPipelineBase:
                 dist.is_initialized() and dist.get_world_size() > 1)):
             mesh = make_mesh(data=config.parallel.data_size, model=-1,
                              device=device)
-        if mesh is not None and (int8_serving or params_cache):
-            raise NotImplementedError(
-                "int8 serving and the serving-tree cache run on one rank: "
-                "their fused int8 leaves and whole-tree files are not cut "
-                "across ranks")
         # the (data, model) mesh of a multi-rank job, or None on one device
         self.device_mesh = mesh
         self.device = mesh.device if mesh is not None else resolve_device(device)
@@ -235,6 +281,10 @@ class RGBTextureFullPipelineBase:
 
     # bump when the serving tree's layout or the file encoding changes
     _PARAMS_CACHE_VERSION = 1
+    # the mesh the pipeline serves on (set by ``__init__``), and rank 0
+    # inside a job on it (:meth:`_mesh_job`)
+    device_mesh: Optional[RankMesh] = None
+    _in_job = False
     # the kind of the port's random tree: another generator than the JAX
     # package's ``flux_random_s0``, so another tree
     RANDOM_KIND = "flux_random_torch_s0"
@@ -262,12 +312,12 @@ class RGBTextureFullPipelineBase:
     def _init_random_weights(self) -> None:
         """Random-init the serving tree at full size, directly on the
         device in bf16 (the VAE and LoRA in f32, as the JAX package serves
-        them), then quantize it for int8 serving, each kernel dropped as
-        soon as it is quantized; or read it from ``params_cache``.  On a
-        mesh every rank draws the same tree and keeps its slices, each
-        linear node cut as soon as it is drawn.  Outputs are meaningless
-        images; every shape, kernel launch and memory footprint is the real
-        one."""
+        them), each linear node quantized for int8 serving as soon as it
+        is drawn; or read it from ``params_cache``.  On a mesh every rank
+        draws the same tree and keeps its slices, each linear node
+        (quantized whole first) cut as soon as it is drawn.  Outputs are
+        meaningless images; every shape, kernel launch and memory
+        footprint is the real one."""
         gen = torch.Generator(device=self.device)
         cached = self._load_cached_tree(self.RANDOM_KIND)
         if cached is not None:
@@ -276,12 +326,9 @@ class RGBTextureFullPipelineBase:
             mesh = self.device_mesh
             params = init_flux_params(
                 gen.manual_seed(0), self.flux_cfg, device=self.device,
-                dtype=torch.bfloat16,
-                hook=None if mesh is None else shard_hook(mesh))
-            if self.int8_serving:
-                params = quantize_flux_params(
-                    params, weight_only_rest=self.int8_serving == "max_memory",
-                    consume=True)
+                dtype=torch.bfloat16, hook=quantize_hook(
+                    self.int8_serving,
+                    None if mesh is None else shard_hook(mesh)))
             self.transformer_params = params
             self._store_cached_tree(self.RANDOM_KIND, params)
         # the adapters take the whole tree's shapes (a cut tree's differ)
@@ -303,8 +350,8 @@ class RGBTextureFullPipelineBase:
         ``texture_lora.safetensors`` / ``delight_lora.safetensors``, either
         of which may be missing), or the serving tree from
         ``params_cache``.  Everything is read straight onto the
-        device: the transformer in bf16, then quantized for int8 serving
-        with each bf16 kernel dropped as it is quantized; the VAE and the
+        device: the transformer in bf16, each node quantized for int8
+        serving as it is read (and on a mesh then cut); the VAE and the
         adapters in f32, as random init makes them.  A missing file raises
         ``FileNotFoundError`` under ``require``; otherwise the pipeline
         runs weightless."""
@@ -317,12 +364,7 @@ class RGBTextureFullPipelineBase:
                 params = load_flux_transformer(
                     os.path.join(root, "flux", "transformer"), self.flux_cfg,
                     device=self.device, dtype=torch.bfloat16,
-                    mesh=self.device_mesh)
-                if self.int8_serving:
-                    params = quantize_flux_params(
-                        params,
-                        weight_only_rest=self.int8_serving == "max_memory",
-                        consume=True)
+                    mesh=self.device_mesh, int8_serving=self.int8_serving)
             vae = load_vae(os.path.join(root, "flux", "vae"), self.vae_cfg,
                            device=self.device, dtype=torch.float32)
             loras = {}
@@ -421,31 +463,49 @@ class RGBTextureFullPipelineBase:
         return tree, self.params_cache_int4
 
     def _store_cached_tree(self, kind: str, tree) -> None:
+        """Write the serving tree to the cache when it has no valid file
+        (int4-packed on the device with ``params_cache_int4``).  On a mesh
+        the file is the one-card file: the whole nodes are gathered from
+        the ranks' slices and packed on the device as one card packs them
+        (:func:`_gathered_to_host`), rank 0 writes them, and the other
+        ranks wait at a barrier."""
         path = self._cache_path(kind)
-        if path and (not os.path.exists(path) or kind in self._stale_caches):
-            t0 = time.perf_counter()
-            if self.params_cache_int4:
-                tree = pack_int4_tree(tree)
+        if not path or (os.path.exists(path) and kind not in self._stale_caches):
+            return
+        mesh = self.device_mesh
+        pack = pack_int4_tree if self.params_cache_int4 else (lambda t: t)
+        t0 = time.perf_counter()
+        tree = pack(tree) if mesh is None else _gathered_to_host(tree, mesh,
+                                                                  pack)
+        if self._is_root:
             save_params(path, tree, meta=self._cache_meta(kind))
-            self._stale_caches.discard(kind)
             print(f"[pipeline] params cache write {path} "
                   f"({time.perf_counter() - t0:.1f}s)")
+        self._stale_caches.discard(kind)
+        if mesh is not None:
+            dist.barrier()
 
     def _place_flux_params(self, tree, packed: bool):
-        """A host serving tree on the device, one leaf at a time; an
-        int4-packed tree is unpacked there leaf by leaf, each packed leaf
-        dropped once unpacked, so the packed and the unpacked kernels are
-        never both whole.  int8 kernels take the GEMM's layout."""
-        if packed:
-            tree = unpack_int4_tree(tree, consume=True, device=self.device)
+        """A host serving tree on the device, one linear node at a time:
+        an int4-packed node is unpacked there, its packed leaves dropped
+        once unpacked, so the packed and the unpacked kernels are never
+        both whole; int8 kernels take the GEMM's layout; on a mesh each
+        node is then cut to this rank's slices, so a rank holds its
+        slices and one whole node."""
+        mesh = self.device_mesh
+        hook = None if mesh is None else shard_hook(mesh)
 
-        def place(node, key=None):
-            if isinstance(node, dict):
-                return {k: place(v, k) for k, v in node.items()}
-            node = node.to(self.device)
-            return gemm_layout(node) if key in _INT8_KERNELS else node
+        def place(node, path=()):
+            if not isinstance(node, dict):
+                node = node.to(self.device)
+                return gemm_layout(node) if path[-1] in _INT8_KERNELS else node
+            if packed and any(k in node for k in _INT4_KERNELS):
+                node = unpack_int4_tree(node, consume=True, device=self.device)
+            out = {k: place(v, path + (k,)) for k, v in node.items()}
+            return hook(path, out) if hook and is_linear(out) else out
 
         return place(tree)
+
     def _generator(self) -> torch.Generator:
         """A fresh device generator seeded with the job seed: each FLUX
         pass draws its noise from the same seed, as the JAX package passes
@@ -481,19 +541,24 @@ class RGBTextureFullPipelineBase:
         at the face budget's default bucket and a flat 256² image) before
         the first real job, so a server's first job does not pay the
         kernels' builds and the allocator's growth; returns the seconds of
-        each stage.  The job server calls it on its device thread."""
+        each stage.  The job server calls it on its device thread.  On a
+        mesh every rank calls it together (or the other ranks
+        :meth:`follow`): they run their part of the job, as in
+        :meth:`_run`, and return the seconds of theirs."""
         import tempfile
 
-        if self.device_mesh is not None:
-            raise NotImplementedError("prewarm and the job server run on one "
-                                      "rank")
+        if not self._is_root:
+            t0 = time.perf_counter()
+            self._follow_one("prewarm")
+            return {"infer_mv": round(time.perf_counter() - t0, 2)}
 
         from PIL import Image
 
         from .geometry.primitives import make_icosphere
 
         timings: Dict[str, float] = {}
-        with tempfile.TemporaryDirectory(prefix="prewarm_") as d:
+        with tempfile.TemporaryDirectory(prefix="prewarm_") as d, \
+                self._mesh_job("prewarm"):
             subdiv, faces = 2, 320
             while faces * 4 <= max(n_faces_hint, 1280):
                 subdiv, faces = subdiv + 1, faces * 4
@@ -618,14 +683,18 @@ class RGBTextureFullPipelineBase:
         an SR stage (a uint8 grid on the host under ``"max_memory"``).
         Without FLUX weights the control strip (geometry-shaded) stands in
         for both passes.  ``apply_sr=False`` leaves the SR stage to the
-        caller (:meth:`_apply_sr`), as batch drivers do."""
+        caller (:meth:`_apply_sr`), as batch scripts do.  On a mesh,
+        outside a job, it is a job of its own: the other ranks run their
+        part of it (:meth:`follow`, or their own call) and return None."""
         if not self._is_root:
-            # this rank's part of the job: the FLUX passes and the SR stage
-            if self._flux_loaded:
-                self._flux_passes(save_dir, None, None)
-            if apply_sr and self.sr_pipeline is not None:
-                self.sr_pipeline(None)
+            self._follow_one("infer_mv")
             return None
+        with self._mesh_job("infer_mv", apply_sr=apply_sr):
+            return self._infer_mv(save_dir, reference_image, condition,
+                                  apply_sr)
+
+    def _infer_mv(self, save_dir, reference_image, condition, apply_sr):
+        """Rank 0's (or the one device's) :meth:`infer_mv_stage`."""
         control_grid = 0.5 * condition["normal"] + 0.5 * condition["ccm"]
         control_strip = grid_to_strip(control_grid)
         if self._flux_loaded:
@@ -652,15 +721,35 @@ class RGBTextureFullPipelineBase:
         device and assembled into a uint8 grid on the host.  There the
         AdaIN colour fix, whose statistics are per grid, runs as one
         grid-level affine on the host over views super-resolved without a
-        colour fix; the wavelet fix stays per view."""
+        colour fix; the wavelet fix stays per view.  On a mesh, outside a
+        job, it is a job of its own, as :meth:`infer_mv_stage` is."""
         if self.sr_pipeline is None:
             return mv_rgb
-        if self.save_artifacts and save_dir is not None:
-            save_image(os.path.join(save_dir, "mv_rgb_lr.png"), _host(mv_rgb))
-        with CPUTimer("super_resolution"):
-            if not (self.int8_serving == "max_memory" and self._flux_loaded):
-                return self.sr_pipeline(mv_rgb)
-            return self._apply_sr_per_view(mv_rgb)
+        if not self._is_root:
+            self._follow_one("sr")
+            return None
+        with self._mesh_job("sr"):
+            if self.save_artifacts and save_dir is not None:
+                save_image(os.path.join(save_dir, "mv_rgb_lr.png"),
+                           _host(mv_rgb))
+            with CPUTimer("super_resolution"):
+                if not self._sr_per_view():
+                    return self.sr_pipeline(mv_rgb)
+                return self._apply_sr_per_view(mv_rgb)
+
+    def _sr_per_view(self) -> bool:
+        return self.int8_serving == "max_memory" and self._flux_loaded
+
+    def _follow_sr(self) -> None:
+        """A rank other than 0: its part of :meth:`_apply_sr`, one SR call
+        for each of rank 0's (one a view in the per-view branch)."""
+        if self.sr_pipeline is None:
+            return
+        cam = self.config.camera
+        n = cam.rows * cam.cols if self._sr_per_view() else 1
+        with self.sr_pipeline.staged():
+            for _ in range(n):
+                self.sr_pipeline(None)
 
     def _apply_sr_per_view(self, mv_rgb: torch.Tensor) -> torch.Tensor:
         """:meth:`_apply_sr`'s ``"max_memory"`` branch: the uint8 grid."""
@@ -714,9 +803,10 @@ class RGBTextureFullPipelineBase:
                 self._generator(), pipe_cfg, control_image=control,
                 dual_image=dual, device=self.device, **plan)
         inputs = broadcast_tensors(inputs, mesh)
-        tokens = flux_denoise(
-            params, tp_config(self.flux_cfg, mesh.group("model")), inputs,
-            pipe_cfg)
+        with collective_section():
+            tokens = flux_denoise(
+                params, tp_config(self.flux_cfg, mesh.group("model")), inputs,
+                pipe_cfg)
         if not mesh.is_root:
             return None
         return flux_decode(self.vae_params, self.vae_cfg, tokens, pipe_cfg)
@@ -863,34 +953,116 @@ class RGBTextureFullPipelineBase:
         """One job through step_1_1 and ``bake_stage``; returns the matted
         reference image's and the GLB's paths under ``save_dir``.  On a
         mesh, a rank other than 0 runs its part of the FLUX passes and the
-        SR stage and returns (None, None); every rank then meets at a
-        barrier."""
+        SR stage, waits for rank 0's end of the job and returns (None,
+        None); where rank 0's part fails at a host-side point, it raises
+        ``JobAborted``."""
         if not self._is_root:
-            self.infer_mv_stage(save_dir, None, None)
-            dist.barrier()
+            self._follow_one("job")
             return None, None
-        cache = os.path.join(save_dir, "cache")
-        os.makedirs(cache, exist_ok=True)
-        if preprocessed is None:
-            preprocessed = self.preprocess_job(save_dir, image_path, mesh_path)
-        processed_mesh, ref_image = preprocessed
-        condition = self.render_geometry_images_stage(cache, processed_mesh)
-        mv_rgb = self.infer_mv_stage(cache, ref_image, condition)
-        glb_path = bake_stage(cache, condition["mesh"], mv_rgb, condition,
-                              processed_mesh)
-        if export_video:
-            self.flush_io()  # the exporter reads the GLB back from disk
-            self.export_video_stage(cache, glb_path, "textured_mesh.mp4")
-        rembg_out = os.path.join(save_dir, "rembg_image.png")
-        glb_out = os.path.join(save_dir, "textured_mesh.glb")
-        shutil.copy(os.path.join(cache, "rembg_image.png"), rembg_out)
-        # ordered behind the GLB's write on the same writer thread
-        self._submit_io(shutil.copy, glb_path, glb_out)
-        if clear_cache:
-            self._submit_io(shutil.rmtree, cache)
-        if self.device_mesh is not None:
-            dist.barrier()
-        return rembg_out, glb_out
+        with self._mesh_job("job"):
+            cache = os.path.join(save_dir, "cache")
+            os.makedirs(cache, exist_ok=True)
+            if preprocessed is None:
+                preprocessed = self.preprocess_job(save_dir, image_path,
+                                                   mesh_path)
+            processed_mesh, ref_image = preprocessed
+            condition = self.render_geometry_images_stage(cache,
+                                                          processed_mesh)
+            mv_rgb = self.infer_mv_stage(cache, ref_image, condition)
+            glb_path = bake_stage(cache, condition["mesh"], mv_rgb, condition,
+                                  processed_mesh)
+            if export_video:
+                self.flush_io()  # the exporter reads the GLB back from disk
+                self.export_video_stage(cache, glb_path, "textured_mesh.mp4")
+            rembg_out = os.path.join(save_dir, "rembg_image.png")
+            glb_out = os.path.join(save_dir, "textured_mesh.glb")
+            shutil.copy(os.path.join(cache, "rembg_image.png"), rembg_out)
+            # ordered behind the GLB's write on the same writer thread
+            self._submit_io(shutil.copy, glb_path, glb_out)
+            if clear_cache:
+                self._submit_io(shutil.rmtree, cache)
+            return rembg_out, glb_out
+
+    @contextlib.contextmanager
+    def _mesh_job(self, kind: str, **fields):
+        """Rank 0's side of one job of ``kind`` on a mesh: announced to the
+        other ranks (``parallel/mesh.start_job``), and its end sent to
+        them (``parallel/mesh.end_job``), with the failure where the body
+        raises at a host-side point, so they leave the job where they
+        wait (a failure inside a collective ends the process:
+        ``parallel/mesh.collective_section``).  Nothing on one device or
+        inside a job already (a stage of :meth:`_run`)."""
+        if self.device_mesh is None or self._in_job:
+            yield
+            return
+        start_job(kind, **fields)
+        self._in_job = True
+        try:
+            yield
+        except BaseException as e:
+            end_job(e)
+            raise
+        finally:
+            self._in_job = False
+        end_job()
+
+    def _follow_part(self, msg: dict) -> None:
+        """A rank other than 0: its part of the job rank 0 announced as
+        ``msg`` (the FLUX passes and the SR stage), then rank 0's end of
+        it (``parallel/mesh.wait_job``).  Rank 0 may wait in any of the
+        job's collectives, so a failure of this rank's own ends the
+        process (``collective_section``); rank 0's ``JobAborted`` is
+        raised."""
+        kind = msg["kind"]
+        with collective_section():
+            if kind in ("job", "prewarm", "infer_mv"):
+                if self._flux_loaded:
+                    self._flux_passes(None, None, None)
+                if msg.get("apply_sr", True):
+                    self._follow_sr()
+            elif kind == "sr":
+                self._follow_sr()
+            else:
+                raise ValueError(f"unknown job message {msg}")
+            wait_job()
+
+    def _follow_one(self, kind: str) -> None:
+        """A rank other than 0 that calls rank 0's entry point of ``kind``
+        itself: its part of the next job, which must be of that kind."""
+        msg = next_job()
+        if msg["kind"] != kind:
+            raise RuntimeError(f"rank {dist.get_rank()} called {kind!r} where "
+                               f"rank 0 announced {msg}")
+        self._follow_part(msg)
+
+    def follow(self) -> int:
+        """A rank other than 0 of a mesh: its part of each job rank 0 runs
+        (a job, ``prewarm``, and outside a job ``infer_mv_stage`` or
+        ``_apply_sr``), in step with it, until rank 0's
+        :meth:`release_followers`; returns the number of jobs followed.
+        A job that rank 0 ends as failed (``JobAborted``) is reported and
+        the loop goes on, as rank 0's server or batch loop goes on to the
+        next job."""
+        if self._is_root:
+            raise RuntimeError("follow() runs on the ranks other than 0 of a "
+                               "mesh; rank 0 runs the jobs")
+        n = 0
+        while True:
+            msg = next_job()
+            if msg["kind"] == "stop":
+                return n
+            n += 1
+            try:
+                self._follow_part(msg)
+            except JobAborted as e:
+                print(f"[rank {dist.get_rank()}] {msg['kind']} ended on rank "
+                      f"0: {e}", flush=True)
+
+    def release_followers(self) -> None:
+        """Rank 0 of a mesh: end the other ranks' :meth:`follow`; nothing
+        on one device."""
+        if self.device_mesh is not None and self._is_root:
+            start_job("stop")
 
     @CPUTimer("export_video")
     def export_video_stage(self, save_dir: str, glb_path: str, name: str) -> str:

@@ -15,7 +15,8 @@ the bicubic x4 upscale; the bake then reads 2048² views.
 
 Under ``torchrun --nproc-per-node N`` (``WORLD_SIZE`` > 1) the same
 command serves one job across the N processes, one GPU each (NCCL; gloo
-with ``--device cpu``): FLUX and the SR stage tensor-parallel, rank 0
+with ``--device cpu``): FLUX and the SR stage tensor-parallel (with
+``--int8`` / ``--int8-max-memory`` on the ranks' int8 slices), rank 0
 doing the host work and writing the outputs (``pipeline.py``).
 """
 

@@ -14,6 +14,12 @@ behind the next job's device work.  With ``--super-resolution`` and
 super-resolved inside one ``sr_pipeline.staged()`` window, then baked.
 ``manifest.json`` in ``--out`` lists each job's GLB and seconds, or its
 error.
+
+Under ``torchrun --nproc-per-node N`` the jobs run on the N ranks' mesh:
+rank 0 alone preprocesses, runs the loop and writes, and the other ranks
+follow its device jobs (the pipeline's ``follow()``, each denoise and SR
+stage of an SR window too); a job that fails on rank 0 ends on every
+rank, so ``--keep-going`` goes on with the ranks in step.
 """
 
 from __future__ import annotations
@@ -127,6 +133,18 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         device=args.device,
         **kwargs,
     )
+    mesh = pipe.device_mesh
+    if mesh is not None and not mesh.is_root:
+        pipe.follow()
+        return
+    try:
+        _run_jobs(args, pipe, jobs)
+    finally:
+        pipe.release_followers()
+
+
+def _run_jobs(args, pipe, jobs):
+    """Rank 0's (or the one process') loop over the jobs."""
     executor = None if args.no_prefetch else ThreadPoolExecutor(max_workers=1)
 
     def submit(job):

@@ -2,7 +2,7 @@
 NCCL.
 
     torchrun --nproc-per-node 4 -m unitex_torch.scripts.probe_multi_gpu \\
-        [--mode serve|train] [--steps 4] [--out multi_gpu.json]
+        [--mode serve|int8|http|train] [--steps 4] [--out multi_gpu.json]
     python -m unitex_torch.scripts.probe_multi_gpu --mode sr-quarters
 
 (``python -m torch.distributed.run`` where there is no ``torchrun``.)  On
@@ -28,6 +28,22 @@ synchronize and a barrier:
    bf16 transformer, one 512² view to 2048², the VAE decode in bf16 and
    in f32) against the same stage on rank 0 alone: wall, max and mean
    |d|.
+
+``--mode int8`` runs the texturing job of part 3 in int8 serving, W8A8
+(``int8_serving=True``) and "max_memory", both with ``attn_qk8`` (kernel
+B3 on the local heads), the random tree drawn node by node, each node
+quantized whole and then cut: each rank's parameter bytes and peak, rank
+0's stages and wall, each rank's B3 launches; then the whole serving
+tree gathered from the slices (``unshard_tree``) and rank 0's one-card
+``flux_forward`` on it (S = 13824, ``attn_qk8``) against the
+tensor-parallel forward: max|d| of max|ref|.
+
+``--mode http`` serves on the TP = N mesh (bf16, random weights) over
+HTTP: rank 0 runs ``serving.serve`` (``prefetch=False``) and the other
+ranks ``pipeline.follow``; the icosphere, a job whose mesh file does not
+parse (it must fail), then the icosphere again, each awaited before the
+next: each job's status, wall and device seconds, and each rank's
+launches.
 
 ``--mode train`` trains the full-width, full-depth FLUX.1-dev (random,
 bf16 base) on a batch of four 512² synthetic examples (S = 12800, rank 16,
@@ -124,20 +140,8 @@ def forwards(report: Report, n: int, device) -> None:
     cfg = FluxConfig.flux1_dev()
     params = init_flux_params(torch.Generator(device=device).manual_seed(0),
                               cfg, device=device)
-    g = torch.Generator(device=device).manual_seed(20)
-    img_ids = torch.cat([
-        latent_image_ids(32, 192, device=device),
-        latent_image_ids(32, 192, offset_y=16, device=device),
-        latent_image_ids(32, 32, offset_x=96, offset_y=16, device=device)])
-    S_img = img_ids.shape[0]
-    args = [torch.randn((1, S_img, cfg.in_channels), generator=g, device=device),
-            torch.randn((1, S_TXT, cfg.joint_attention_dim), generator=g,
-                        device=device),
-            torch.tensor([0.6], device=device),
-            torch.randn((1, cfg.pooled_projection_dim), generator=g,
-                        device=device),
-            img_ids, torch.zeros((S_TXT, 3), device=device),
-            torch.tensor([3.5], device=device)]
+    args = _flux_args(cfg, device)
+    S_img = args[0].shape[1]
     tp_mesh = make_mesh(data=1, model=n, device=device)
     sp_mesh = make_mesh(data=1, seq=n, model=1, device=device)
     qk8 = dataclasses.replace(cfg, attn_qk8=True)
@@ -235,8 +239,6 @@ def kernels(report: Report, n: int, device) -> None:
 
 
 def job(report: Report, n: int, device, steps: int) -> None:
-    from PIL import Image
-
     from ..pipeline import CustomRGBTextureFullPipeline
 
     config = dataclasses.replace(DEFAULT_CONFIG, diffusion=dataclasses.replace(
@@ -247,13 +249,7 @@ def job(report: Report, n: int, device, steps: int) -> None:
                                         device=device, mesh=mesh)
     params_gib = torch.cuda.memory_allocated() / 2**30
     with tempfile.TemporaryDirectory(prefix="probe_multi_") as d:
-        mesh_path, img_path = os.path.join(d, "m.obj"), os.path.join(d, "i.png")
-        if mesh.is_root:
-            save_mesh(mesh_path, make_icosphere(5))
-            img = np.full((512, 512, 3), 255, np.uint8)
-            yy, xx = np.mgrid[:512, :512]
-            img[(yy - 256) ** 2 + (xx - 256) ** 2 < 160 ** 2] = (200, 60, 30)
-            Image.fromarray(img).save(img_path)
+        mesh_path, img_path = _assets(d, mesh.is_root)
         before = attn.launches
         (_, glb), wall = fenced(lambda: pipe(os.path.join(d, "out"), img_path,
                                              mesh_path))
@@ -273,6 +269,195 @@ def job(report: Report, n: int, device, steps: int) -> None:
            f"parameters {params} GiB, peak {peak} GiB by rank", seconds=wall,
            stages=stages, launches=launches, params_gib=params, peak_gib=peak)
     del pipe
+
+
+def _flux_args(cfg, device):
+    """The serving job's FLUX forward inputs at S = 512 + 13312 (the
+    noise, control and dual grids of ``chip_smoke.parallel_ids``)."""
+    g = torch.Generator(device=device).manual_seed(20)
+    img_ids = torch.cat([
+        latent_image_ids(32, 192, device=device),
+        latent_image_ids(32, 192, offset_y=16, device=device),
+        latent_image_ids(32, 32, offset_x=96, offset_y=16, device=device)])
+    S_img = img_ids.shape[0]
+    return [torch.randn((1, S_img, cfg.in_channels), generator=g, device=device),
+            torch.randn((1, S_TXT, cfg.joint_attention_dim), generator=g,
+                        device=device),
+            torch.tensor([0.6], device=device),
+            torch.randn((1, cfg.pooled_projection_dim), generator=g,
+                        device=device),
+            img_ids, torch.zeros((S_TXT, 3), device=device),
+            torch.tensor([3.5], device=device)]
+
+
+def _assets(d: str, root: bool):
+    """The icosphere and its reference image of part 3, written by rank 0."""
+    from PIL import Image
+
+    mesh_path, img_path = os.path.join(d, "m.obj"), os.path.join(d, "i.png")
+    if root:
+        save_mesh(mesh_path, make_icosphere(5))
+        img = np.full((512, 512, 3), 255, np.uint8)
+        yy, xx = np.mgrid[:512, :512]
+        img[(yy - 256) ** 2 + (xx - 256) ** 2 < 160 ** 2] = (200, 60, 30)
+        Image.fromarray(img).save(img_path)
+    return mesh_path, img_path
+
+
+def int8_jobs(report: Report, n: int, device, steps: int) -> None:
+    """``--mode int8`` (module docstring)."""
+    from ..ops.quant import count_quantized
+    from ..parallel.sharding import unshard_tree
+    from ..pipeline import CustomRGBTextureFullPipeline
+
+    config = dataclasses.replace(DEFAULT_CONFIG, diffusion=dataclasses.replace(
+        DEFAULT_CONFIG.diffusion, num_inference_steps=steps))
+    mesh = make_mesh(data=1, model=n, device=device)
+    for mode in (True, "max_memory"):
+        name = "int8_w8a8" if mode is True else "int8_max_memory"
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        pipe = CustomRGBTextureFullPipeline(random_weights=True, config=config,
+                                            int8_serving=mode, device=device,
+                                            mesh=mesh)
+        pipe.flux_cfg = dataclasses.replace(pipe.flux_cfg, attn_qk8=True)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        tree_gib = sum(x.numel() * x.element_size() for x in _leaves(
+            pipe.transformer_params)) / 2**30
+        n_q, n_f = count_quantized(pipe.transformer_params)
+        with tempfile.TemporaryDirectory(prefix="probe_multi_") as d:
+            mesh_path, img_path = _assets(d, mesh.is_root)
+            before = attn.launches_qk8, attn.launches
+            CPUTimer.records.clear()
+            (_, glb), wall = fenced(lambda: pipe(os.path.join(d, "out"),
+                                                 img_path, mesh_path))
+            if mesh.is_root:
+                pipe.flush_io()
+                if not os.path.exists(glb):
+                    raise AssertionError(f"no GLB at {glb}")
+        launches = gathered([attn.launches_qk8 - before[0],
+                             attn.launches - before[1]])
+        peak = gathered(round(torch.cuda.max_memory_allocated() / 2**30, 2))
+        params = gathered(round(tree_gib, 2))
+        stages = {k: round(CPUTimer.records.get(k, 0.0), 3) for k in (
+            "preprocess_blank_mesh", "preprocess_reference_image",
+            "render_geometry_images", "infer_mv", "reproject_and_query_field")}
+        report(name, f"icosphere job in int8 ({mode!r}, attn_qk8), {steps} "
+               f"steps, TP = {n}: init {init_s:.2f}s, wall {wall:.2f}s "
+               f"(rank 0's stages {stages}), B3 / B1 launches by rank "
+               f"{launches}, serving tree {params} GiB by rank ({n_q / 1e9:.3f}"
+               f" G int8, {n_f / 1e9:.3f} G float elements on rank 0), peak "
+               f"{peak} GiB by rank", seconds=wall, init_s=init_s,
+               stages=stages, launches=launches, params_gib=params,
+               peak_gib=peak)
+
+        # the TP forward against rank 0's one-card forward of the whole tree
+        cfg = dataclasses.replace(pipe.flux_cfg, attn_qk8=True)
+        args = _flux_args(cfg, device)
+        tp = lambda: flux_forward(pipe.transformer_params,
+                                  tp_config(cfg, mesh.group("model")), *args)
+        tp()
+        out, t_tp = fenced(tp)
+        whole = unshard_tree(pipe.transformer_params, mesh.group("model"))
+        if not mesh.is_root:
+            whole = None
+        del pipe
+        gc.collect()
+        torch.cuda.empty_cache()
+        err = t_one = None
+        if mesh.is_root:
+            flux_forward(whole, cfg, *args)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ref = flux_forward(whole, cfg, *args)
+            torch.cuda.synchronize()
+            t_one = time.perf_counter() - t0
+            err = float((out.float() - ref.float()).abs().max()
+                        / ref.float().abs().max())
+            del ref
+        dist.barrier()
+        report(f"{name}_forward", f"flux_forward in int8 ({mode!r}, attn_qk8)"
+               f" over {n} ranks: {t_tp:.3f}s against rank 0's one-card "
+               f"forward of the gathered tree {t_one}s, max|d| {err} of "
+               f"max|ref|", seconds=t_tp, one_card_s=t_one, rel_err=err)
+        del whole, out
+        gc.collect()
+        torch.cuda.empty_cache()
+    free_mesh(mesh)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def http_serve(report: Report, n: int, device, steps: int) -> None:
+    """``--mode http`` (module docstring)."""
+    import threading
+    import urllib.request
+
+    from ..pipeline import CustomRGBTextureFullPipeline
+    from ..serving import serve
+
+    config = dataclasses.replace(DEFAULT_CONFIG, diffusion=dataclasses.replace(
+        DEFAULT_CONFIG.diffusion, num_inference_steps=steps))
+    mesh = make_mesh(data=1, model=n, device=device)
+    pipe = CustomRGBTextureFullPipeline(random_weights=True, config=config,
+                                        device=device, mesh=mesh)
+    d = tempfile.mkdtemp(prefix="probe_serve_") if mesh.is_root else None
+    d = gathered(d)[0]
+    mesh_path, img_path = _assets(d, mesh.is_root)
+    before = attn.launches
+    dist.barrier()
+    if not mesh.is_root:
+        pipe.follow()
+        gathered(attn.launches - before)
+        return
+
+    def request(url, payload=None):
+        data = None if payload is None else json.dumps(payload).encode()
+        req = urllib.request.Request(url, data=data, headers={
+            "Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=900) as r:
+            return json.loads(r.read())
+
+    broken = os.path.join(d, "broken.obj")
+    with open(broken, "w") as f:
+        f.write("v 0 0\nf 1 2 x\n")
+    httpd = serve(pipe, os.path.join(d, "work"), port=0, prefetch=False)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    recs = []
+    for name, m in (("first", mesh_path), ("broken", broken),
+                    ("second", mesh_path)):
+        t0 = time.perf_counter()
+        job_id = request(base + "/jobs", {"mesh_path": m, "image_path": img_path,
+                                          "name": name})["id"]
+        while True:
+            rec = request(f"{base}/jobs/{job_id}")
+            if rec["status"] in ("done", "failed"):
+                break
+            time.sleep(0.05)
+        rec["wall"] = round(time.perf_counter() - t0, 3)
+        recs.append(rec)
+    httpd.jobs.stop()   # releases the followers
+    launches = gathered(attn.launches - before)
+    httpd.shutdown()
+    httpd.server_close()
+    statuses = [r["status"] for r in recs]
+    report("http", f"HTTP jobs on TP = {n}, {steps} steps: "
+           + ", ".join(f"{r['name']} {r['status']} wall {r['wall']:.2f}s "
+                       f"device {r.get('device_s', 0):.2f}s" for r in recs)
+           + f"; the broken job's error {recs[1].get('error')!r}; B1 launches "
+           f"by rank {launches}", statuses=statuses,
+           walls=[r["wall"] for r in recs],
+           device_s=[r.get("device_s") for r in recs], launches=launches)
+    if statuses != ["done", "failed", "done"]:
+        raise AssertionError(f"http: {recs}")
 
 
 def sr_stage(report: Report, n: int, device) -> None:
@@ -565,7 +750,8 @@ def sr_quarters(report: Report, device) -> None:
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--mode", default="serve",
-                    choices=["serve", "train", "train-zero", "sr-quarters"])
+                    choices=["serve", "int8", "http", "train", "train-zero",
+                             "sr-quarters"])
     ap.add_argument("--steps", type=int, default=4)
     ap.add_argument("--out", default="multi_gpu.json")
     args = ap.parse_args(argv)
@@ -587,6 +773,12 @@ def main(argv=None) -> None:
     elif args.mode == "sr-quarters":
         with torch.no_grad():
             sr_quarters(report, device)
+    elif args.mode == "int8":
+        with torch.no_grad():
+            int8_jobs(report, n, device, args.steps)
+    elif args.mode == "http":
+        with torch.no_grad():
+            http_serve(report, n, device, args.steps)
     else:
         with torch.no_grad():
             forwards(report, n, device)

@@ -8,6 +8,11 @@ of the root ``scripts/serve_pipeline.py``): load the pipeline once, serve
                                           "mesh_path": "m.glb"}'
     curl localhost:8080/jobs/<id>            # poll status
     curl -o out.glb localhost:8080/jobs/<id>/result
+
+Under ``torchrun --nproc-per-node N`` the pipeline serves on the N ranks'
+mesh (FLUX and the SR stage tensor-parallel, ``--int8`` /
+``--int8-max-memory`` too): rank 0 serves HTTP and the other ranks follow
+its device jobs (the pipeline's ``follow()``).
 """
 
 from __future__ import annotations
@@ -56,6 +61,10 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         device=args.device,
         **kwargs,
     )
+    mesh = pipe.device_mesh
+    if mesh is not None and not mesh.is_root:
+        pipe.follow()
+        return
     httpd = serve(pipe, args.work_dir, port=args.port, host=args.host,
                   prefetch=not args.no_prefetch, prewarm=args.prewarm)
     print(f"serving on http://{args.host}:{httpd.server_address[1]} "

@@ -11,6 +11,15 @@ touches the card: where the pipeline's matting model sits on the card
 thread instead.  With the pipeline's ``async_io`` a job is marked done
 from the pipeline's writer thread, once its files are written.
 
+Across GPUs (a pipeline on a mesh, under ``torchrun``): rank 0 keeps the
+HTTP front end, the preprocess thread and the job records; every other
+rank runs the pipeline's ``follow()``, with no HTTP.  The pipeline
+announces each device job rank 0's device thread runs (a job or the
+prewarm) to the followers, which run their part in step; a job whose
+part on rank 0 fails at a host-side point ends for them too, and the next
+job starts in step (``pipeline.py``'s module docstring).  ``stop()``
+releases the followers (``release_followers()``).
+
 API (JSON unless noted):
   POST /jobs                submit {"image_b64"|"image_path", "mesh_b64"+
                             "mesh_ext"|"mesh_path", "name"?, "export_video"?}
@@ -191,6 +200,8 @@ class TextureJobServer:
         while True:
             item = self._q_dev.get()
             if item is None:
+                if getattr(self.pipeline, "device_mesh", None) is not None:
+                    self.pipeline.release_followers()
                 return
             job_id, pre = item
             if job_id == "__prewarm__":
@@ -229,7 +240,12 @@ class TextureJobServer:
                   device_s=device_s, result=glb, rembg=rembg)
 
     def stop(self) -> None:
+        """End the workers after the queued jobs (on a mesh the device
+        thread then releases the followers) and wait for them, so the
+        caller's next collective cannot cross theirs."""
         self._q_pre.put(None)
+        for t in self._threads:
+            t.join()
 
 
 # ---------------------------------------------------------------- HTTP
